@@ -1,0 +1,74 @@
+"""Build the package's CUDA sources with nvcc and load them with ctypes.
+
+Each kernel source under `ann_solo_tpu_torch/csrc/` has a plain C entry
+point, so it compiles in seconds without PyTorch's headers.  The shared
+library lands in `build/kernels/` at the root of the checkout, named by a
+hash of the source and the flags, so an edited source rebuilds and an
+unchanged one is reused.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+
+# No fast-math: the kernels' divisions must be IEEE quotients.
+# -fmad=false keeps products and sums separately rounded, as in PyTorch's
+# elementwise kernels that the plain versions run.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _nvcc() -> str:
+    for candidate in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+        shutil.which("nvcc") or "",
+    ):
+        if candidate and os.path.isfile(candidate):
+            return candidate
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    """Where the shared library for `csrc/<name>.cu` is (or will be) built."""
+    source = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(
+        source + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def ensure_built(name: str) -> Path:
+    """Compile `csrc/<name>.cu` unless a library of this source exists."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The built library for `csrc/<name>.cu` (built on first use)."""
+    return ctypes.CDLL(str(ensure_built(name)))

@@ -1,0 +1,503 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU (the H100 it targets).
+
+    python3 chip_smoke.py
+
+Phases, each raising on failure (non-zero exit, no final line):
+
+1. device: needs CUDA; prints torch/CUDA versions and the card's name and
+   power limit as nvidia-smi reports them;
+2. build: compiles the CUDA kernel from `ann_solo_tpu_torch/csrc/`;
+3. kernel vs plain: the greedy shifted-dot kernel against its plain
+   PyTorch version on the card, at the stage-2 (32,768 pairs) and
+   match-extraction (4,096 pairs) shapes of the bench workload plus
+   ragged, unequal-width, tie-heavy and K = 20 / 128 cases.  Totals must be
+   equal bit for bit (rtol 0: both sum the same float32 terms in the same
+   order) and the match tables identical;
+4. the open-search slice at the bench scale: a 131,072-spectrum library
+   (K = 50 peaks, hash_len 800), auto num_list, num_probe 512, x2 SOAR
+   redundancy, int8 storage; 4 batches of 4,096 charge-2 queries, +-500 Da,
+   512 candidates, fragment tolerance 0.04, certificate rescoring and
+   best-pair matches.  Gate: self-match hit rate >= 0.95 per batch; the
+   kernel's launch count must grow during the timed batches;
+5. preprocess: a raw 4,096-spectrum block through `preprocess_batch`
+   (CUDA vs CPU identical) and one more search batch;
+6. CUDA vs CPU: the same slice on a 16,384-spectrum index with 256 queries
+   on both devices: the same best index for >= 99.9% of queries, scores at
+   rtol 1e-5.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+N_LIBRARY = 131072
+N_QUERIES = 4096
+N_BATCHES = 4
+K_PEAKS = 50
+HASH_LEN = 800
+CHARGE = 2
+FRAG_TOL = 0.04
+OPEN_TOL_DA = 500.0
+NUM_CANDIDATES = 512
+NUM_PROBE = 512
+HIT_RATE_GATE = 0.95
+
+# (name, pairs, query peaks, library peaks, charge, allow_shift, ties)
+KERNEL_CASES = (
+    ("stage2", 32768, 50, 50, 2, True, False),
+    ("matches", 4096, 50, 50, 2, True, True),
+    ("noshift_c3", 4096, 50, 50, 3, False, False),
+    ("ragged_unequal", 5003, 50, 32, 3, True, True),
+    ("k128", 1000, 128, 128, 2, True, False),
+    ("k20", 777, 20, 20, 2, True, True),
+)
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+class BenchConfig:
+    """IVF settings of the bench workload (auto num_list, SOAR on)."""
+
+    num_list = 0
+    num_probe = NUM_PROBE
+    ivf_redundancy = 2
+
+
+def time_ms(fn, dev, reps: int) -> float:
+    """Mean milliseconds of `fn()` after one warm-up call (CUDA events)."""
+    import torch
+
+    fn()
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(stop) / reps
+
+
+def synth_library(rng, n, k=K_PEAKS):
+    """bench.py's `synth_processed`, sorted by precursor m/z."""
+    mz = np.sort(rng.uniform(101.0, 1500.0, (n, k)).astype(np.float32), 1)
+    intensity = rng.uniform(0.1, 1.0, (n, k)).astype(np.float32)
+    intensity /= np.linalg.norm(intensity, axis=1, keepdims=True)
+    ann = rng.integers(0, CHARGE + 1, (n, k)).astype(np.int32)
+    prec = rng.uniform(400.0, 1200.0, n).astype(np.float64)
+    order = np.argsort(prec, kind="stable")
+    return mz[order], intensity[order], ann[order], prec[order]
+
+
+def synth_queries(rng, lib, n_q):
+    """Noised copies of library rows (bench.py's query batches)."""
+    lib_mz, lib_int, _, lib_prec = lib
+    n, k = lib_mz.shape
+    rows = rng.choice(n, n_q, replace=False)
+    q_mz = lib_mz[rows] + rng.normal(0, 0.005, (n_q, k)).astype(np.float32)
+    q_int = np.abs(
+        lib_int[rows] + rng.normal(0, 0.02, (n_q, k)).astype(np.float32)
+    )
+    q_int /= np.linalg.norm(q_int, axis=1, keepdims=True)
+    q_prec = lib_prec[rows] + rng.normal(0, 0.002, n_q)
+    return rows, np.sort(q_mz, axis=1), q_int, q_prec
+
+
+def synth_pairs(rng, p, kq, kc, charge, ties):
+    """(query, candidate) pairs with direct, shifted and conflicting peak
+    matches; `ties` quantizes intensities so equal scores are common."""
+    f32 = np.float32
+    q_mz = np.sort(rng.uniform(100, 1500, (p, kq)), 1).astype(f32)
+    c_mz = np.sort(rng.uniform(100, 1500, (p, kc)), 1).astype(f32)
+    m = min(kq, kc)
+    a = min(10, m)
+    c_mz[:, :a] = q_mz[:, :a] + rng.uniform(-0.03, 0.03, (p, a))
+    mod = rng.choice([0.0, 16.0, 79.97], p).astype(f32)
+    b = min(18, m)
+    s = rng.integers(1, charge + 1, (p, b - a))
+    c_mz[:, a:b] = q_mz[:, a:b] - mod[:, None] / s
+    c = min(26, m)  # near-duplicate clusters: one-to-one conflicts
+    c_mz[:, b:c] = q_mz[:, b:c] + rng.uniform(0, 0.015, (p, c - b))
+    q_mz[:, b + 1:c:2] = q_mz[:, b:c - 1:2] + 0.01
+    q_mz, c_mz = np.sort(q_mz, 1), np.sort(c_mz, 1)
+    q_int = rng.uniform(0.05, 1.0, (p, kq))
+    c_int = rng.uniform(0.05, 1.0, (p, kc))
+    if ties:
+        q_int, c_int = np.ceil(q_int * 4) / 4, np.ceil(c_int * 4) / 4
+    q_prec = rng.uniform(400, 1200, p).astype(f32)
+    c_prec = (q_prec - mod / charge).astype(f32)
+    return (
+        q_mz.astype(f32), q_int.astype(f32), c_mz.astype(f32),
+        c_int.astype(f32), rng.integers(0, charge + 1, (p, kc)).astype(
+            np.int32), q_prec, c_prec, np.full(p, charge, np.int32),
+    )
+
+
+def phase_device():
+    import torch
+
+    from ann_solo_tpu_torch.device import require_cuda
+
+    dev = require_cuda()
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.device_count()} device(s)")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    log(smi.stdout.strip().splitlines()[0])
+    return dev
+
+
+def phase_build():
+    from ann_solo_tpu_torch.ops import _build
+
+    cached = _build.library_path("shifted_dot").exists()
+    t0 = time.perf_counter()
+    path = _build.ensure_built("shifted_dot")
+    _build.load("shifted_dot")
+    log(f"build: {path.name} in {time.perf_counter() - t0:.2f}s"
+        f"{' (already built)' if cached else ''}")
+
+
+def phase_kernel(dev, cases=KERNEL_CASES, kernel_reps=20, plain_reps=3):
+    """Kernel vs plain version on the same tensors; returns the record of
+    the stage-2 shape (times) and the largest total difference."""
+    import torch
+
+    from ann_solo_tpu_torch.ops.shifted_dot import shifted_dot_full_plain
+    from ann_solo_tpu_torch.ops.shifted_dot_cuda import (
+        pad_peaks,
+        shifted_dot_full,
+    )
+
+    rng = np.random.default_rng(2024)
+    record = {"max_abs_err": 0.0}
+    for name, p, kq, kc, charge, shift, ties in cases:
+        arrays = [
+            torch.from_numpy(a).to(dev)
+            for a in synth_pairs(rng, p, kq, kc, charge, ties)
+        ]
+        qm, qi, cm, ci, ca = pad_peaks(*arrays[:5])
+        args = (qm, qi, cm, ci, ca, *arrays[5:], FRAG_TOL, charge + 1, shift)
+        total, match = shifted_dot_full(*args)
+        p_total, p_match = shifted_dot_full_plain(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        err = float((total - p_total).abs().max())
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        n_match = int((p_match >= 0).sum())
+        if not (torch.equal(total, p_total) and torch.equal(match, p_match)):
+            raise AssertionError(
+                f"kernel != plain at {name}: max |d total| {err}, "
+                f"{int((match != p_match).sum())} match entries differ"
+            )
+        ms = time_ms(lambda: shifted_dot_full(*args), dev, kernel_reps)
+        plain_ms = time_ms(
+            lambda: shifted_dot_full_plain(*args), dev, plain_reps
+        )
+        if name == cases[0][0]:  # the stage-2 shape goes in the record
+            record.update(ms=ms, plain_ms=plain_ms)
+        log(f"kernel {name}: P={p} K={qm.shape[1]} charge={charge} "
+            f"shift={shift} ties={ties}: identical ({n_match} matches); "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return record
+
+
+def _check_outputs(best, score, n_cands, matches, n_lib, n_q):
+    assert best.shape == score.shape == n_cands.shape == (n_q,)
+    assert np.all((best >= -1) & (best < n_lib))
+    hit = best >= 0
+    assert np.all(np.isfinite(score[hit])) and np.all(score[hit] >= 0)
+    assert np.all(n_cands[hit] > 0) and np.all(n_cands <= NUM_CANDIDATES)
+    assert len(matches) == int(hit.sum())
+    for m in matches.values():
+        assert m.ndim == 2 and m.shape[1] == 2
+        assert np.all((m >= 0) & (m < K_PEAKS))
+        assert len(np.unique(m[:, 0])) == len(m) == len(np.unique(m[:, 1]))
+
+
+def phase_slice(dev, n_lib=N_LIBRARY, n_q=N_QUERIES, n_batches=N_BATCHES):
+    """The bench workload through the port's entry points."""
+    import torch
+
+    from ann_solo_tpu_torch.convert import library_from_numpy
+    from ann_solo_tpu_torch.device import synchronize
+    from ann_solo_tpu_torch.index.ivf import IvfIndex
+    from ann_solo_tpu_torch.models.vectorize import (
+        VectorizeParams,
+        device_tables,
+        vectorize_batch,
+    )
+    from ann_solo_tpu_torch.ops import shifted_dot_cuda
+    from ann_solo_tpu_torch.search import (
+        OpenSearchParams,
+        ann_open_search_batch,
+    )
+
+    rng = np.random.default_rng(42)
+    lib_arrays = synth_library(rng, n_lib)
+    lib_mz, lib_int, lib_ann, lib_prec = lib_arrays
+    params = OpenSearchParams(
+        vectorize=VectorizeParams(11.0, 2010.0, 0.04, HASH_LEN),
+        num_candidates=NUM_CANDIDATES,
+        precursor_tolerance_mass_open=OPEN_TOL_DA,
+        precursor_tolerance_mode_open="Da",
+        fragment_mz_tolerance=FRAG_TOL,
+        allow_peak_shifts=True,
+    )
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tables = device_tables(params.vectorize, dev)
+    chunk = 4096
+    lib_vectors = torch.cat([
+        vectorize_batch(
+            params.vectorize, tables,
+            torch.from_numpy(lib_mz[s:s + chunk]).to(dev),
+            torch.from_numpy(lib_int[s:s + chunk]).to(dev),
+            torch.full((len(lib_mz[s:s + chunk]),), K_PEAKS, device=dev),
+        )
+        for s in range(0, n_lib, chunk)
+    ])
+    synchronize(dev)
+    t_vec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = IvfIndex.build(
+        lib_vectors, BenchConfig(), precursor_mz=lib_prec.astype(np.float32),
+        storage_dtype=torch.int8, device=dev,
+    )
+    synchronize(dev)
+    t_build = time.perf_counter() - t0
+    l, cap, d = index.padded_vectors.shape
+    log(f"library: {n_lib} spectra vectorized in {t_vec:.3f}s; IVF build "
+        f"{t_build:.3f}s ({l} lists x cap {cap} x {d}, int8, "
+        f"x{index.redundancy}, num_probe {index.num_probe})")
+    lib = library_from_numpy(lib_mz, lib_int, lib_ann, lib_prec, dev)
+    batches = [synth_queries(rng, lib_arrays, n_q) for _ in range(n_batches)]
+    q_n = np.full(n_q, K_PEAKS, np.int32)
+
+    def run(batch, stages=None):
+        _, q_mz, q_int, q_prec = batch
+        return ann_open_search_batch(
+            index, lib, q_mz, q_int, q_n, q_prec, CHARGE, params,
+            stage_seconds=stages,
+        )
+
+    run(batches[0])  # warm-up (cuBLAS handles, caches)
+    synchronize(dev)
+    shifted_dot_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    outs = [run(batch) for batch in batches]
+    synchronize(dev)
+    elapsed = time.perf_counter() - t0
+    launches = shifted_dot_cuda.LAUNCHES
+    hit_rates = []
+    for batch, (best, score, n_cands, matches) in zip(batches, outs):
+        _check_outputs(best, score, n_cands, matches, n_lib, n_q)
+        hit_rates.append(float(np.mean(best == batch[0])))
+    stages = {}
+    run(batches[1], stages)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    summary = {
+        "queries_per_sec": n_batches * n_q / elapsed,
+        "batch_sec": elapsed / n_batches,
+        "stages_sec_per_batch": stages,
+        "library_vectorize_sec": t_vec,
+        "ivf_build_sec": t_build,
+        "max_memory_allocated_bytes": peak,
+        "self_match_hit_rates": hit_rates,
+        "mean_candidates": float(np.mean(outs[-1][2])),
+        "kernel_launches": launches,
+    }
+    log("slice: " + json.dumps(summary))
+    if min(hit_rates) < HIT_RATE_GATE:
+        raise AssertionError(f"self-match hit rate {hit_rates} < gate")
+    if launches <= 0 and dev.type == "cuda":
+        raise AssertionError("the greedy kernel was not launched")
+    return launches, index, lib, lib_arrays, params
+
+
+def synth_raw(rng, lib_arrays, n):
+    """Raw (unprocessed) spectra: a library row's peaks with m/z noise and
+    scaled intensities, plus weaker random noise peaks, m/z sorted."""
+    lib_mz, lib_int, _, lib_prec = lib_arrays
+    rows = rng.choice(len(lib_mz), n, replace=False)
+    k = lib_mz.shape[1]
+    n_noise = 100
+    mz = np.concatenate([
+        lib_mz[rows] + rng.normal(0, 0.005, (n, k)),
+        rng.uniform(101, 1500, (n, n_noise)),
+    ], 1).astype(np.float32)
+    intensity = np.concatenate([
+        2000.0 * lib_int[rows], rng.uniform(1.0, 10.0, (n, n_noise)),
+    ], 1).astype(np.float32)
+    n_peaks = rng.integers(k + n_noise // 2, k + n_noise + 1, n)
+    # Drop a random tail of noise peaks, then sort each row by m/z.
+    lane = np.arange(k + n_noise)[None, :]
+    mz = np.where(lane < n_peaks[:, None], mz, np.float32(np.inf))
+    order = np.argsort(mz, axis=1, kind="stable")
+    mz = np.take_along_axis(mz, order, 1)
+    intensity = np.take_along_axis(intensity, order, 1)
+    mz[lane >= n_peaks[:, None]] = 0.0
+    intensity[lane >= n_peaks[:, None]] = 0.0
+    prec = (lib_prec[rows] + rng.normal(0, 0.002, n)).astype(np.float32)
+    return rows, mz, intensity, n_peaks.astype(np.int32), prec
+
+
+def phase_preprocess(dev, index, lib, lib_arrays, params, n=N_QUERIES):
+    import torch
+
+    from ann_solo_tpu_torch.models.preprocess import (
+        PreprocessParams,
+        preprocess_batch,
+    )
+    from ann_solo_tpu_torch.search import ann_open_search_batch
+
+    rng = np.random.default_rng(7)
+    rows, mz, intensity, n_peaks, prec = synth_raw(rng, lib_arrays, n)
+    raw = (mz, intensity, np.zeros(mz.shape, np.int32), n_peaks, prec,
+           np.full(n, CHARGE, np.int32))
+    pp = PreprocessParams(max_peaks_used=K_PEAKS)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        out[d.type] = preprocess_batch(
+            pp, *(torch.from_numpy(a).to(d) for a in raw)
+        )
+    a, b = out[dev.type], out["cpu"]
+    for field in ("mz", "n_peaks", "ann_charge", "is_valid"):
+        if not torch.equal(getattr(a, field).cpu(), getattr(b, field)):
+            raise AssertionError(f"preprocess {field} differs CUDA vs CPU")
+    torch.testing.assert_close(a.intensity.cpu(), b.intensity, rtol=0,
+                               atol=1e-6)
+    best, score, n_cands, matches = ann_open_search_batch(
+        index, lib, a.mz, a.intensity, a.n_peaks, prec, CHARGE, params
+    )
+    _check_outputs(best, score, n_cands, matches, len(lib_arrays[0]), n)
+    hit = float(np.mean(best == rows))
+    log(f"preprocess: {n} raw spectra, {int(a.is_valid.sum())} valid, "
+        f"CUDA == CPU; search self-match hit rate {hit:.4f}")
+    if hit < HIT_RATE_GATE:
+        raise AssertionError(f"preprocessed hit rate {hit} < gate")
+
+
+def phase_cuda_vs_cpu(dev, n_lib=16384, n_q=256):
+    import torch
+
+    from ann_solo_tpu_torch.convert import (
+        ivf_index_from_numpy,
+        library_from_numpy,
+        to_numpy,
+    )
+    from ann_solo_tpu_torch.index.ivf import IvfIndex
+    from ann_solo_tpu_torch.models.vectorize import (
+        VectorizeParams,
+        device_tables,
+        vectorize_batch,
+    )
+    from ann_solo_tpu_torch.search import (
+        OpenSearchParams,
+        ann_open_search_batch,
+    )
+
+    rng = np.random.default_rng(11)
+    lib_arrays = synth_library(rng, n_lib)
+    lib_mz, lib_int, lib_ann, lib_prec = lib_arrays
+    vp = VectorizeParams(11.0, 2010.0, 0.04, HASH_LEN)
+    params = OpenSearchParams(vectorize=vp, num_candidates=NUM_CANDIDATES,
+                              precursor_tolerance_mass_open=OPEN_TOL_DA,
+                              fragment_mz_tolerance=FRAG_TOL)
+    vectors = vectorize_batch(
+        vp, device_tables(vp, dev), torch.from_numpy(lib_mz).to(dev),
+        torch.from_numpy(lib_int).to(dev),
+        torch.full((n_lib,), K_PEAKS, device=dev),
+    )
+    built = IvfIndex.build(
+        vectors, BenchConfig(), precursor_mz=lib_prec.astype(np.float32),
+        storage_dtype=torch.int8, device=dev,
+    )
+    arrays = to_numpy(built)
+    _, q_mz, q_int, q_prec = synth_queries(rng, lib_arrays, n_q)
+    q_n = np.full(n_q, K_PEAKS, np.int32)
+    results = {}
+    for d in (dev, torch.device("cpu")):
+        index = ivf_index_from_numpy(
+            arrays["centroids"], arrays["padded_vectors"],
+            arrays["padded_ids"], arrays["padded_prec"],
+            arrays["padded_scales"], arrays["num_probe"],
+            arrays["redundancy"], d,
+        )
+        lib = library_from_numpy(lib_mz, lib_int, lib_ann, lib_prec, d)
+        t0 = time.perf_counter()
+        results[d.type] = ann_open_search_batch(
+            index, lib, q_mz, q_int, q_n, q_prec, CHARGE, params
+        )
+        log(f"cuda-vs-cpu: {d.type} slice {time.perf_counter() - t0:.2f}s")
+    g_best, g_score, _, g_match = results[dev.type]
+    c_best, c_score, _, c_match = results["cpu"]
+    same = g_best == c_best
+    frac = float(np.mean(same))
+    log(f"cuda-vs-cpu: {n_lib}-spectrum index, {n_q} queries: same best "
+        f"index for {frac:.4f}")
+    if frac < 0.999:
+        raise AssertionError(f"CUDA vs CPU best index agree on {frac}")
+    np.testing.assert_allclose(g_score[same], c_score[same], rtol=1e-5)
+    for row in np.nonzero(same & (g_best >= 0))[0]:
+        got = {tuple(m) for m in g_match[int(row)].tolist()}
+        exp = {tuple(m) for m in c_match[int(row)].tolist()}
+        if got != exp:
+            raise AssertionError(f"CUDA vs CPU matches differ, query {row}")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        sys.exit(2)
+    t_start = time.perf_counter()
+    dev = phase_device()
+    phase_build()
+    record = phase_kernel(dev)
+    launches, index, lib, lib_arrays, params = phase_slice(dev)
+    phase_preprocess(dev, index, lib, lib_arrays, params)
+    del index, lib
+    phase_cuda_vs_cpu(dev)
+    log(f"total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"kernels": [{
+        "name": "shifted_dot_greedy",
+        "route": "cuda",
+        "source": "ann_solo_tpu_torch/csrc/shifted_dot.cu",
+        "replaces": "ann_solo_tpu/ops/shifted_dot_pallas.py:35",
+        "launches": launches,
+        "max_abs_err": record["max_abs_err"],
+        "ms": record["ms"],
+        "plain_ms": record["plain_ms"],
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
