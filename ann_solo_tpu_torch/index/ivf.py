@@ -1,18 +1,28 @@
-"""IVF (inverted file) index in PyTorch: build and full-scan search.
+"""IVF (inverted file) index in PyTorch: build and search.
 
-Port of the bench-scale path of `ann_solo_tpu/index/ivf.py`:
+Port of `ann_solo_tpu/index/ivf.py` up to the big-library probe path:
 
 * **Build** (`IvfIndex.build`): spherical k-means on a FAISS-style
   subsample, top-A centroid choices, the sort-based balanced fill of
   capped lists (`plan_assignments`, optional SOAR-ranked second copy),
   and the gather into one dense (L, cap, D) block; int8 storage is SQ8
   (per-row scale max|v| / 127, round half to even).
-* **Search** (`IvfIndex.search_device`): the full-scan regime
-  (`_ivf_search_fullscan`), where a tile's probed-list union covers the
-  library: an f32 coarse probe, a scan of every list, the precursor
-  window fused into the mask, the canonical top-k on 16-bit bf16 keys
-  (key desc, position asc) and the dedup of redundant copies.  The other
-  regimes of the JAX package are not ported yet and raise.
+* **Search** (`IvfIndex.search_device`), every regime ranking by the same
+  canonical order (16-bit bf16 key desc, global position asc; exact f32
+  scores for f32 storage) and deduplicating redundant copies:
+  - full scan (`_ivf_search_fullscan`): a 128-query tile's probed-list
+    union covers the library and the (T, L, cap) f32 score block fits
+    512 MB; every list is scanned and the probe set is a selection mask;
+  - probe path (`IvfIndex._search_chunked`, `_ivf_probe_scan_tile`):
+    bigger libraries with int8/bf16 storage, covering or not; each query
+    scans only its own probed lists through kernel B2
+    (`ops/ivf_probe_cuda.py`) in super-tiles of up to 1,024 queries;
+  - per-query oracle (`_ivf_search_perquery`): f32 storage beyond the
+    full scan, and the reference the probe path is tested against.
+  The JAX package's voting-budget regime is not ported (the probe path
+  gives the same results); int8/bf16 shapes beyond B2's lane bound, which
+  the JAX package sends to its fused chunked kernel, raise until kernel
+  B3 is ported.
 
 Placement and selection are bit-for-bit those of the JAX package given the
 same inputs: stable sorts wherever the JAX code relies on `lax.top_k` or a
@@ -30,6 +40,9 @@ import torch
 import torch.nn.functional as F
 
 from ann_solo_tpu_torch.device import resolve_device
+from ann_solo_tpu_torch.ops.ivf_probe import probe_scan_supported
+from ann_solo_tpu_torch.ops.ivf_probe import window_mask as _window_mask
+from ann_solo_tpu_torch.ops.ivf_probe_cuda import ivf_probe_scan
 from ann_solo_tpu_torch.ops.kmeans import (
     assign_topk_blocked,
     soar_round2_choices,
@@ -41,6 +54,9 @@ logger = logging.getLogger(__name__)
 
 _TILE_Q = 128  # queries per search tile
 _FULLSCAN_TRANSIENT = 1 << 29  # bytes of the (T, L, cap) f32 score block
+_CHUNK_TQ = 1024  # queries per probe-path super-tile
+_PROBE_BLOCK_BYTES = 1 << 29  # bytes of a super-tile's (tq, P*cap) f32 block
+_PERQUERY_GATHER_BYTES = 1 << 30  # bytes of an oracle group's gathered rows
 _FILL_SLACK = 1.5  # list capacity = slack * mean list size
 _N_CHOICES = 4  # spill candidates per vector (nearest centroids)
 _TRAIN_POINTS_PER_CENTROID = 256  # FAISS subsampling rule
@@ -318,13 +334,6 @@ def _pad_topk(scores, ids, k: int):
     )
 
 
-def _window_mask(qp, prec, charge: float, tol_val: float, tol_mode: str):
-    """Fused precursor-window mask: qp (..., 1, 1) vs prec (..., cap)."""
-    if tol_mode == "Da":
-        return (qp - prec).abs() * charge <= tol_val
-    return (qp - prec).abs() / prec.clamp_min(1e-6) * 1e6 <= tol_val
-
-
 def _canonical_topk_keys(keys: torch.Tensor, k_sel: int):
     """Canonical top-k (key desc, position asc) over (T, n) 16-bit keys.
 
@@ -337,6 +346,14 @@ def _canonical_topk_keys(keys: torch.Tensor, k_sel: int):
     top = torch.topk(packed, min(k_sel, n), dim=1, sorted=True).values
     pos = (n - 1) - (top & _U32)
     return _key16_to_f32(top >> 32), pos
+
+
+def _probe_lists(queries, centroids, p: int) -> torch.Tensor:
+    """Each query's top-`p` coarse lists by the f32 dot (lower list id
+    first on ties, as `lax.top_k`), sorted ascending: lanes gathered in
+    this order are in global position order, the canonical tie-break."""
+    coarse = queries @ centroids.T
+    return torch.sort(stable_topk_desc(coarse, p)[1], dim=1).values
 
 
 @torch.no_grad()
@@ -374,8 +391,7 @@ def _ivf_search_fullscan(
         qt = queries[start:start + _TILE_Q]
         qpt = q_prec[start:start + _TILE_Q]
         t = qt.shape[0]
-        coarse = qt @ centroids.T  # (T, L) f32
-        probe_ids = torch.sort(stable_topk_desc(coarse, p)[1], dim=1).values
+        probe_ids = _probe_lists(qt, centroids, p)
         # Exact bf16 x bf16 products accumulated in f32 (int8 and bf16
         # storage values are exact in f32; TF32 is off).
         q_scan = qt.to(torch.bfloat16).to(torch.float32) if cast else qt
@@ -406,6 +422,115 @@ def _ivf_search_fullscan(
         out_s.append(top_s)
         out_i.append(top_i)
     return torch.cat(out_s), torch.cat(out_i)
+
+
+@torch.no_grad()
+def _ivf_search_perquery(
+    padded_vectors,  # (L, cap, D) int8/bfloat16/float32
+    padded_ids,  # (L, cap) int32, -1 = padding
+    padded_prec,  # (L, cap) float32
+    padded_scales,  # (L, cap) float32
+    centroids,  # (L, D) float32
+    queries,  # (B, D) float32
+    q_prec,  # (B,) float32
+    charge: float,
+    num_probe: int,
+    k: int,
+    k_scan: int,  # entries selected before dedup (R * k)
+    tol_val: float,
+    tol_mode: str,
+    redundant: bool,
+):
+    """Exact per-query probe scan (JAX `_ivf_search_perquery`): the
+    oracle of the probe path, and the regime of f32 storage beyond the
+    full scan.
+
+    Each query gathers its own top-`num_probe` lists in ascending id
+    order, scores them as bf16(q) . storage accumulated in f32 (the f32
+    query for f32 storage) times the slot scale, masks empty and
+    out-of-window slots, and takes the canonical top-k (16-bit keys for
+    int8/bf16 storage, exact f32 scores otherwise).  Queries go in
+    groups whose gathered rows fit `_PERQUERY_GATHER_BYTES`; the results
+    do not depend on the group size."""
+    l, cap, d = padded_vectors.shape
+    b = queries.shape[0]
+    p = min(num_probe, l)
+    k_eff = min(k_scan, p * cap)
+    cast = padded_vectors.dtype != torch.float32
+    probe_ids = _probe_lists(queries, centroids, p)
+    q_scan = queries.to(torch.bfloat16).to(torch.float32) if cast else queries
+    per_query = p * cap * d * (padded_vectors.element_size() + 4)
+    group = max(1, _PERQUERY_GATHER_BYTES // per_query)
+    out_s, out_i = [], []
+    for start in range(0, b, group):
+        probes = probe_ids[start:start + group]
+        g = probes.shape[0]
+        vecs = padded_vectors[probes].to(torch.float32)  # (G, P, cap, D)
+        scores = torch.einsum("gd,gpcd->gpc", q_scan[start:start + g], vecs)
+        scores = scores * padded_scales[probes]
+        ids = padded_ids[probes]  # (G, P, cap)
+        mask = ids >= 0
+        if tol_val > 0:
+            mask &= _window_mask(
+                q_prec[start:start + g, None, None], padded_prec[probes],
+                charge, tol_val, tol_mode,
+            )
+        flat = torch.where(mask, scores, float("-inf")).view(g, p * cap)
+        if cast:
+            top_s, pos = _canonical_topk_keys(_key16(flat), k_eff)
+        else:
+            top_s, pos = stable_topk_desc(flat, k_eff)
+        top_i = ids.view(g, p * cap).gather(1, pos)
+        out_s.append(top_s)
+        out_i.append(torch.where(top_s > float("-inf"), top_i, -1))
+    scores, ids = torch.cat(out_s), torch.cat(out_i)
+    if redundant or k_eff > k:
+        scores, ids = _dedup_topk(scores, ids, k)
+    return _pad_topk(scores, ids, k)
+
+
+@torch.no_grad()
+def _ivf_probe_scan_tile(
+    padded_vectors,  # (L, cap, D) int8/bfloat16
+    padded_ids,  # (L, cap) int32
+    padded_prec,  # (L, cap) float32
+    padded_scales,  # (L, cap) float32
+    centroids,  # (L, D) float32
+    queries,  # (B, D) float32, contiguous
+    q_prec,  # (B,) float32, contiguous
+    charge: float,
+    num_probe: int,
+    k: int,
+    k_scan: int,
+    tol_val: float,
+    tol_mode: str,
+    redundant: bool,
+):
+    """Exact probe-gather scan of one super-tile (JAX
+    `_ivf_probe_scan_tile`), the big-library select path.
+
+    Kernel B2 writes every probed slot's masked score in (probe rank,
+    slot) lane order, which with ascending probe ids is the oracle's lane
+    order; the same canonical top-k and dedup then run on it, so the
+    results are `_ivf_search_perquery`'s with no certificates and no
+    repair."""
+    l, cap, _ = padded_vectors.shape
+    p = min(num_probe, l)
+    k_eff = min(k_scan, p * cap)
+    probe_ids = _probe_lists(queries, centroids, p)
+    flat = ivf_probe_scan(
+        padded_vectors, padded_ids, padded_prec, padded_scales, queries,
+        q_prec, charge, probe_ids, tol_val, tol_mode,
+    )  # (B, P * cap) f32, -inf masked
+    top_s, pos = _canonical_topk_keys(_key16(flat), k_eff)
+    del flat
+    rank = pos // cap
+    lists = probe_ids.gather(1, rank)
+    top_i = padded_ids[lists, pos - rank * cap]
+    top_i = torch.where(top_s > float("-inf"), top_i, -1)
+    if redundant or k_eff > k:
+        top_s, top_i = _dedup_topk(top_s, top_i, k)
+    return _pad_topk(top_s, top_i, k)
 
 
 class IvfIndex:
@@ -526,12 +651,15 @@ class IvfIndex:
         """Top-k neighbor ids and scores per query ((B, k) int32 ids, -1
         padded; (B, k) float32 scores), as tensors on the index device.
 
-        Only the full-scan regime is ported (the bench scale); any other
-        regime raises NotImplementedError."""
+        Regimes, in the JAX package's order: the full scan where a tile's
+        probe union covers the library and its score block fits; else the
+        probe path (kernel B2) where `probe_scan_supported` holds; else,
+        for f32 storage, the per-query oracle.  Other int8/bf16 shapes
+        raise NotImplementedError (kernel B3 is not ported)."""
         num_probe = int(num_probe or self.num_probe)
         dev = self.device
-        queries = torch.as_tensor(queries).to(device=dev,
-                                              dtype=torch.float32)
+        queries = torch.as_tensor(queries).to(
+            device=dev, dtype=torch.float32).contiguous()
         b = queries.shape[0]
         if b == 0:
             return (
@@ -541,23 +669,61 @@ class IvfIndex:
         if q_prec is None:
             q_prec = torch.zeros(b, device=dev)
             tol_val = 0.0
-        q_prec = torch.as_tensor(q_prec).to(device=dev, dtype=torch.float32)
+        q_prec = torch.as_tensor(q_prec).to(
+            device=dev, dtype=torch.float32).contiguous()
         l, cap, _ = self.padded_vectors.shape
+        dtype = self.padded_vectors.dtype
+        args = (float(charge), num_probe, k, self.redundancy * k,
+                float(tol_val), tol_mode, self.redundancy > 1)
         union_covers = l <= num_probe * _TILE_Q
-        if not (union_covers and l * cap * 4 * _TILE_Q <= _FULLSCAN_TRANSIENT):
-            raise NotImplementedError(
-                "only the full-scan IVF regime is ported; the chunked, "
-                "probe-gather and per-query regimes are ROADMAP item A.11"
+        if union_covers and l * cap * 4 * _TILE_Q <= _FULLSCAN_TRANSIENT:
+            b_pad = -(-b // _TILE_Q) * _TILE_Q
+            if b_pad != b:
+                queries = F.pad(queries, (0, 0, 0, b_pad - b))
+                q_prec = F.pad(q_prec, (0, b_pad - b))
+            scores, ids = _ivf_search_fullscan(
+                self.scan_block(), self.padded_ids, self.padded_prec,
+                self.padded_scales, self.centroids, queries, q_prec, *args,
+                dtype != torch.float32,
             )
-        b_pad = -(-b // _TILE_Q) * _TILE_Q
-        if b_pad != b:
-            queries = F.pad(queries, (0, 0, 0, b_pad - b))
-            q_prec = F.pad(q_prec, (0, b_pad - b))
-        scores, ids = _ivf_search_fullscan(
-            self.scan_block(), self.padded_ids, self.padded_prec,
-            self.padded_scales, self.centroids, queries, q_prec,
-            float(charge), num_probe, k, self.redundancy * k,
-            float(tol_val), tol_mode, self.redundancy > 1,
-            self.padded_vectors.dtype != torch.float32,
-        )
-        return ids[:b].to(torch.int32), scores[:b]
+            return ids[:b].to(torch.int32), scores[:b]
+        if probe_scan_supported(l, cap, num_probe, dtype):
+            scores, ids = self._search_chunked(queries, q_prec, *args)
+        elif dtype == torch.float32:
+            scores, ids = _ivf_search_perquery(*self._blocks(), queries,
+                                               q_prec, *args)
+        else:
+            p = min(num_probe, l)
+            raise NotImplementedError(
+                f"{p} probes x cap {cap} = {p * cap} lanes per query exceed "
+                "the probe path's bound; the JAX package scans such "
+                f"{dtype} indexes with kernel B3 (ROADMAP B3), which is not "
+                "ported yet"
+            )
+        return ids.to(torch.int32), scores
+
+    def _blocks(self):
+        return (self.padded_vectors, self.padded_ids, self.padded_prec,
+                self.padded_scales, self.centroids)
+
+    def _search_chunked(self, queries, q_prec, charge: float,
+                        num_probe: int, k: int, k_scan: int, tol_val: float,
+                        tol_mode: str, redundant: bool):
+        """Big-library search through the probe path (JAX
+        `_search_chunked` with the probe-gather kernel): super-tiles of
+        up to `_CHUNK_TQ` queries, fewer where the (tq, P * cap) f32
+        score block would pass `_PROBE_BLOCK_BYTES`.  Exact by
+        construction: no certificates, no repair."""
+        l, cap, _ = self.padded_vectors.shape
+        lanes = min(num_probe, l) * cap
+        tq = min(_CHUNK_TQ, max(1, _PROBE_BLOCK_BYTES // (lanes * 4)))
+        out_s, out_i = [], []
+        for start in range(0, queries.shape[0], tq):
+            s, i = _ivf_probe_scan_tile(
+                *self._blocks(), queries[start:start + tq],
+                q_prec[start:start + tq], charge, num_probe, k, k_scan,
+                tol_val, tol_mode, redundant,
+            )
+            out_s.append(s)
+            out_i.append(i)
+        return torch.cat(out_s), torch.cat(out_i)

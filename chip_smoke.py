@@ -6,24 +6,42 @@ Phases, each raising on failure (non-zero exit, no final line):
 
 1. device: needs CUDA; prints torch/CUDA versions and the card's name and
    power limit as nvidia-smi reports them;
-2. build: compiles the CUDA kernel from `ann_solo_tpu_torch/csrc/`;
-3. kernel vs plain: the greedy shifted-dot kernel against its plain
+2. build: compiles both CUDA kernels from `ann_solo_tpu_torch/csrc/`, one
+   nvcc per source, all started together;
+3. kernel B1 vs plain: the greedy shifted-dot kernel against its plain
    PyTorch version on the card, at the stage-2 (32,768 pairs) and
    match-extraction (4,096 pairs) shapes of the bench workload plus
    ragged, unequal-width, tie-heavy and K = 20 / 128 cases.  Totals must be
    equal bit for bit (rtol 0: both sum the same float32 terms in the same
    order) and the match tables identical;
+3b. kernel B2 vs plain: the probe-gather scan against its plain version at
+   the 2.1M-spectrum tile shape (B = 1,024, P = 64, cap = 768, D = 800,
+   int8, +-500 Da), bf16 storage with a ppm window, a ragged shape
+   (B = 7, cap = 200, D = 100) and exact tie-heavy data.  The -inf masks
+   must be identical; scores bit-identical on exact data, elsewhere within
+   2 * D * 2^-24 * max|bf16(q)| * max|v * scale| (two float32 summation
+   orders of unit-norm operands; norms measured);
 4. the open-search slice at the bench scale: a 131,072-spectrum library
    (K = 50 peaks, hash_len 800), auto num_list, num_probe 512, x2 SOAR
    redundancy, int8 storage; 4 batches of 4,096 charge-2 queries, +-500 Da,
    512 candidates, fragment tolerance 0.04, certificate rescoring and
-   best-pair matches.  Gate: self-match hit rate >= 0.95 per batch; the
-   kernel's launch count must grow during the timed batches;
+   best-pair matches.  Gate: self-match hit rate >= 0.95 per batch; B1's
+   launch count must grow during the timed batches;
 5. preprocess: a raw 4,096-spectrum block through `preprocess_batch`
    (CUDA vs CPU identical) and one more search batch;
 6. CUDA vs CPU: the same slice on a 16,384-spectrum index with 256 queries
    on both devices: the same best index for >= 99.9% of queries, scores at
-   rtol 1e-5.
+   rtol 1e-5;
+7. the big-library slice (SCALE r04's single-chip configuration): a
+   2,097,152-spectrum library made and vectorized on the card, an int8
+   index of 4,096 lists, num_probe 64, no redundancy (the f32 vectors are
+   freed after the build); 4 timed batches of 1,024 queries with 1,024
+   candidates through the probe path.  Gates: B2's launch count grows
+   during the timed batches; on one batch the probe path agrees with the
+   per-query oracle run on the card (>= 99.9% of (id, score) lanes equal,
+   every 16-bit key within one step, no duplicate ids); best-match hit
+   rate >= 0.95 per batch, or, for a batch below it, no lower than the
+   oracle's on the same queries by more than one query.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -59,6 +77,29 @@ KERNEL_CASES = (
     ("k128", 1000, 128, 128, 2, True, False),
     ("k20", 777, 20, 20, 2, True, True),
 )
+
+# Kernel B2 cases: (name, B, L, P, cap, D, storage, tol_val, tol_mode,
+# exact data).
+PROBE_CASES = (
+    ("tile_2m", 1024, 4096, 64, 768, 800, "int8", OPEN_TOL_DA, "Da", False),
+    ("bf16_ppm", 512, 1024, 64, 256, 800, "bf16", 1e5, "ppm", False),
+    ("ragged", 7, 64, 16, 200, 100, "int8", 0.0, "Da", False),
+    ("exact_ties", 256, 256, 32, 256, 128, "int8", 50.0, "Da", True),
+    ("exact_ragged_bf16", 33, 64, 8, 200, 100, "bf16", 50.0, "Da", True),
+)
+
+# The big-library slice (SCALE r04's single-chip point, scale_demo.py).
+N_BIG = 2_097_152
+BIG_QUERIES = 1024
+BIG_CANDIDATES = 1024
+
+
+class ScaleConfig:
+    """IVF settings of SCALE r04's single-chip configuration."""
+
+    num_list = 4096
+    num_probe = 64
+    ivf_redundancy = 1
 
 
 def log(*args):
@@ -166,15 +207,20 @@ def phase_device():
     return dev
 
 
-def phase_build():
+def phase_build(names=("shifted_dot", "ivf_probe_scan")):
+    """Build every kernel source at once (one nvcc each), then load them."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from ann_solo_tpu_torch.ops import _build
 
-    cached = _build.library_path("shifted_dot").exists()
+    cached = {name: _build.library_path(name).exists() for name in names}
     t0 = time.perf_counter()
-    path = _build.ensure_built("shifted_dot")
-    _build.load("shifted_dot")
-    log(f"build: {path.name} in {time.perf_counter() - t0:.2f}s"
-        f"{' (already built)' if cached else ''}")
+    with ThreadPoolExecutor(len(names)) as pool:
+        paths = list(pool.map(_build.ensure_built, names))
+    for name, path in zip(names, paths):
+        _build.load(name)
+        log(f"build: {path.name}{' (already built)' if cached[name] else ''}")
+    log(f"build: {len(names)} kernels in {time.perf_counter() - t0:.2f}s")
 
 
 def phase_kernel(dev, cases=KERNEL_CASES, kernel_reps=20, plain_reps=3):
@@ -221,12 +267,127 @@ def phase_kernel(dev, cases=KERNEL_CASES, kernel_reps=20, plain_reps=3):
     return record
 
 
-def _check_outputs(best, score, n_cands, matches, n_lib, n_q):
+def synth_probe_case(gen, dev, b, l, p, cap, d, storage, exact):
+    """Kernel B2 inputs made on `dev` from `gen`: lists filled to a random
+    count of slots (the rest empty, id -1), probe ids ascending.  Exact
+    data: storage integers in [-4, 4] (int8) or their eighths (bf16),
+    scale 1/8, queries integers / 64.  Otherwise unit-norm queries and
+    rows of unit norm after the scale (int8 scale 1 / |row|, bf16 rows of
+    norm about 1)."""
+    import torch
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    dtype = torch.int8 if storage == "int8" else torch.bfloat16
+    if exact:
+        vals = torch.randint(-4, 5, (l, cap, d), generator=gen, device=dev,
+                             dtype=torch.int8)
+        vectors = vals if storage == "int8" else (vals / 8.0).to(dtype)
+        scales = torch.full((l, cap), 0.125, device=dev)
+        queries = torch.randint(-32, 33, (b, d), generator=gen,
+                                device=dev) / 64.0
+    else:
+        if storage == "int8":
+            vectors = torch.randint(-127, 128, (l, cap, d), generator=gen,
+                                    device=dev, dtype=torch.int8)
+            scales = 1.0 / torch.cat([  # chunked: no full float32 copy
+                torch.linalg.vector_norm(vectors[s:s + 64].float(), dim=-1)
+                for s in range(0, l, 64)
+            ])
+        else:
+            vectors = (torch.randn((l, cap, d), generator=gen, device=dev)
+                       / d ** 0.5).to(dtype)
+            scales = torch.ones((l, cap), device=dev)
+        queries = torch.randn((b, d), generator=gen, device=dev)
+        queries = queries / torch.linalg.vector_norm(queries, dim=1,
+                                                     keepdim=True)
+    fill = (cap * (0.5 + 0.5 * rand(l))).long().clamp(1, cap)
+    slot = torch.arange(cap, device=dev)
+    ids = torch.where(
+        slot[None, :] < fill[:, None],
+        torch.arange(l * cap, device=dev).view(l, cap), -1,
+    ).to(torch.int32)
+    prec = torch.where(ids >= 0, 400.0 + 800.0 * rand(l, cap), 0.0)
+    q_prec = 400.0 + 800.0 * rand(b)
+    probe_ids = torch.sort(rand(b, l).topk(p, dim=1).indices, dim=1).values
+    return (vectors.contiguous(), ids, prec, scales.float().contiguous(),
+            queries.float().contiguous(), q_prec, probe_ids)
+
+
+def probe_tolerance(vectors, scales, queries):
+    """2 * D * 2^-24 * max|bf16(q)| * max|row * scale|: the largest
+    difference two float32 summation orders can make in a lane
+    (Cauchy-Schwarz bounds sum_d |q_d v_d| by the norms)."""
+    import torch
+
+    l, _, d = vectors.shape
+    qn = torch.linalg.vector_norm(
+        queries.to(torch.bfloat16).float(), dim=1).max()
+    rn = max(
+        float((torch.linalg.vector_norm(vectors[s:s + 64].float(), dim=-1)
+               * scales[s:s + 64]).max())
+        for s in range(0, l, 64)
+    )
+    return 2.0 * d * 2.0 ** -24 * float(qn) * rn
+
+
+def phase_probe_kernel(dev, cases=PROBE_CASES, kernel_reps=20,
+                       plain_reps=1):
+    """Kernel B2 vs its plain version on the same tensors; returns the
+    record of the first (2.1M tile) shape and the largest difference."""
+    import torch
+
+    from ann_solo_tpu_torch.ops.ivf_probe import ivf_probe_scan_plain
+    from ann_solo_tpu_torch.ops.ivf_probe_cuda import ivf_probe_scan
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2025)
+    record = {"max_abs_err": 0.0}
+    for (name, b, l, p, cap, d, storage, tol_val, tol_mode,
+         exact) in cases:
+        arrays = synth_probe_case(gen, dev, b, l, p, cap, d, storage, exact)
+        vectors, ids, prec, scales, queries, q_prec, probe_ids = arrays
+        args = (vectors, ids, prec, scales, queries, q_prec, float(CHARGE),
+                probe_ids, tol_val, tol_mode)
+        got = ivf_probe_scan(*args)
+        want = ivf_probe_scan_plain(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        masked = torch.isneginf(want)
+        if not torch.equal(torch.isneginf(got), masked):
+            raise AssertionError(f"B2 masks differ at {name}")
+        err = float(torch.where(masked, 0.0, got - want).abs().max())
+        tol = 0.0 if exact else probe_tolerance(vectors, scales, queries)
+        if exact and not torch.equal(got, want):
+            raise AssertionError(f"B2 != plain on exact data at {name}: "
+                                 f"max |d| {err}")
+        if err > tol:
+            raise AssertionError(f"B2 vs plain at {name}: max |d| {err} > "
+                                 f"tolerance {tol}")
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        ms = time_ms(lambda: ivf_probe_scan(*args), dev, kernel_reps)
+        plain_ms = time_ms(lambda: ivf_probe_scan_plain(*args), dev,
+                           plain_reps)
+        if name == cases[0][0]:
+            record.update(ms=ms, plain_ms=plain_ms)
+        gbytes = b * p * cap * d * vectors.element_size() / 1e9
+        log(f"B2 {name}: B={b} L={l} P={p} cap={cap} D={d} {storage} "
+            f"window={tol_mode if tol_val > 0 else 'none'}: masks identical "
+            f"({float(masked.float().mean()):.3f} masked), max |d| {err:.3g} "
+            f"(tolerance {tol:.3g}); kernel {ms:.3f} ms "
+            f"({gbytes / ms:.3g} TB/s of list rows), plain {plain_ms:.3f} ms")
+        del arrays, vectors, args, got, want
+    return record
+
+
+def _check_outputs(best, score, n_cands, matches, n_lib, n_q,
+                   num_candidates=NUM_CANDIDATES):
     assert best.shape == score.shape == n_cands.shape == (n_q,)
     assert np.all((best >= -1) & (best < n_lib))
     hit = best >= 0
     assert np.all(np.isfinite(score[hit])) and np.all(score[hit] >= 0)
-    assert np.all(n_cands[hit] > 0) and np.all(n_cands <= NUM_CANDIDATES)
+    assert np.all(n_cands[hit] > 0) and np.all(n_cands <= num_candidates)
     assert len(matches) == int(hit.sum())
     for m in matches.values():
         assert m.ndim == 2 and m.shape[1] == 2
@@ -466,6 +627,226 @@ def phase_cuda_vs_cpu(dev, n_lib=16384, n_q=256):
             raise AssertionError(f"CUDA vs CPU matches differ, query {row}")
 
 
+def synth_library_torch(gen, n, dev, k=K_PEAKS):
+    """`synth_library` made on `dev` from `gen` (same distributions)."""
+    import torch
+
+    mz = torch.sort(101.0 + 1399.0 * torch.rand(
+        (n, k), generator=gen, device=dev), dim=1).values
+    intensity = 0.1 + 0.9 * torch.rand((n, k), generator=gen, device=dev)
+    intensity = intensity / torch.linalg.vector_norm(intensity, dim=1,
+                                                     keepdim=True)
+    ann = torch.randint(0, CHARGE + 1, (n, k), generator=gen, device=dev,
+                        dtype=torch.int32)
+    prec = 400.0 + 800.0 * torch.rand(n, generator=gen, device=dev,
+                                      dtype=torch.float64)
+    order = torch.sort(prec, stable=True).indices
+    return mz[order], intensity[order], ann[order], prec[order]
+
+
+def synth_queries_torch(gen, lib, n_q):
+    """`synth_queries` made on the library's device from `gen`."""
+    import torch
+
+    lib_mz, lib_int, _, lib_prec = lib
+    n, k = lib_mz.shape
+    dev = lib_mz.device
+    rows = torch.randperm(n, generator=gen, device=dev)[:n_q]
+    q_mz = lib_mz[rows] + 0.005 * torch.randn(
+        (n_q, k), generator=gen, device=dev)
+    q_int = (lib_int[rows] + 0.02 * torch.randn(
+        (n_q, k), generator=gen, device=dev)).abs()
+    q_int = q_int / torch.linalg.vector_norm(q_int, dim=1, keepdim=True)
+    q_prec = lib_prec[rows] + 0.002 * torch.randn(
+        n_q, generator=gen, device=dev, dtype=torch.float64)
+    return (rows.cpu().numpy(), torch.sort(q_mz, dim=1).values, q_int,
+            q_prec.cpu().numpy())
+
+
+def phase_big_slice(dev, n_lib=N_BIG, n_q=BIG_QUERIES, n_batches=N_BATCHES,
+                    config=ScaleConfig):
+    """The big-library slice through the port's entry points, the probe
+    path against the per-query oracle on one batch."""
+    import torch
+
+    from ann_solo_tpu_torch.device import synchronize
+    from ann_solo_tpu_torch.index.ivf import (
+        IvfIndex,
+        _ivf_search_perquery,
+        _key16,
+    )
+    from ann_solo_tpu_torch.models.vectorize import (
+        VectorizeParams,
+        device_tables,
+        vectorize_batch,
+    )
+    from ann_solo_tpu_torch.ops import ivf_probe_cuda
+    from ann_solo_tpu_torch.ops.rescore import rescore_candidate_matrix
+    from ann_solo_tpu_torch.search import (
+        LibraryBlock,
+        OpenSearchParams,
+        ann_open_search_batch,
+    )
+
+    params = OpenSearchParams(
+        vectorize=VectorizeParams(11.0, 2010.0, 0.04, HASH_LEN),
+        num_candidates=BIG_CANDIDATES,
+        precursor_tolerance_mass_open=OPEN_TOL_DA,
+        precursor_tolerance_mode_open="Da",
+        fragment_mz_tolerance=FRAG_TOL,
+        allow_peak_shifts=True,
+    )
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4242)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    lib_arrays = synth_library_torch(gen, n_lib, dev)
+    lib_mz, lib_int, lib_ann, lib_prec = lib_arrays
+    tables = device_tables(params.vectorize, dev)
+    n_peaks = torch.full((n_lib,), K_PEAKS, device=dev)
+    chunk = 65536
+    lib_vectors = torch.cat([
+        vectorize_batch(params.vectorize, tables, lib_mz[s:s + chunk],
+                        lib_int[s:s + chunk], n_peaks[s:s + chunk])
+        for s in range(0, n_lib, chunk)
+    ])
+    synchronize(dev)
+    t_lib = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = IvfIndex.build(
+        lib_vectors, config(), precursor_mz=lib_prec.to(torch.float32),
+        storage_dtype=torch.int8, device=dev,
+    )
+    synchronize(dev)
+    t_build = time.perf_counter() - t0
+    del lib_vectors  # the f32 source block: the search reads the int8 lists
+    build_peak = 0
+    if dev.type == "cuda":
+        build_peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    l, cap, d = index.padded_vectors.shape
+    log(f"big library: {n_lib} spectra made and vectorized in {t_lib:.3f}s; "
+        f"IVF build {t_build:.3f}s ({l} lists x cap {cap} x {d}, int8, "
+        f"x{index.redundancy}, num_probe {index.num_probe})")
+    lib = LibraryBlock(lib_mz, lib_int, lib_ann, lib_prec.to(torch.float32))
+    batches = [synth_queries_torch(gen, lib_arrays, n_q)
+               for _ in range(n_batches)]
+    q_n = np.full(n_q, K_PEAKS, np.int32)
+
+    def run(batch, stages=None):
+        _, q_mz, q_int, q_prec = batch
+        return ann_open_search_batch(
+            index, lib, q_mz, q_int, q_n, q_prec, CHARGE, params,
+            stage_seconds=stages,
+        )
+
+    run(batches[0])  # warm-up
+    synchronize(dev)
+    ivf_probe_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    outs = [run(batch) for batch in batches]
+    synchronize(dev)
+    elapsed = time.perf_counter() - t0
+    launches = ivf_probe_cuda.LAUNCHES
+    hit_rates = []
+    for batch, (best, score, n_cands, matches) in zip(batches, outs):
+        _check_outputs(best, score, n_cands, matches, n_lib, n_q,
+                       BIG_CANDIDATES)
+        hit_rates.append(float(np.mean(best == batch[0])))
+    stages = {}
+    run(batches[1], stages)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+    def select(batch, oracle):
+        """(ids, scores) of the select stage alone, probe path or oracle."""
+        _, q_mz, q_int, q_prec = batch
+        vectors = vectorize_batch(params.vectorize, tables, q_mz, q_int,
+                                  torch.as_tensor(q_n, device=dev))
+        qp = torch.as_tensor(q_prec, dtype=torch.float32, device=dev)
+        if not oracle:
+            return index.search_device(
+                vectors, BIG_CANDIDATES, q_prec=qp, charge=float(CHARGE),
+                tol_val=OPEN_TOL_DA, tol_mode="Da",
+            )
+        scores, ids = _ivf_search_perquery(
+            index.padded_vectors, index.padded_ids, index.padded_prec,
+            index.padded_scales, index.centroids, vectors, qp,
+            float(CHARGE), index.num_probe, BIG_CANDIDATES,
+            index.redundancy * BIG_CANDIDATES, OPEN_TOL_DA, "Da",
+            index.redundancy > 1,
+        )
+        return ids.to(torch.int32), scores
+
+    def best_match_rate(batch, ids):
+        rows, q_mz, q_int, q_prec = batch
+        best, _, _ = rescore_candidate_matrix(
+            q_mz, q_int, torch.as_tensor(q_prec, dtype=torch.float32,
+                                         device=dev),
+            lib.mz, lib.intensity, lib.ann_charge, lib.precursor_mz, ids,
+            FRAG_TOL, params.num_shifts(CHARGE), params.allow_peak_shifts,
+        )
+        return float(np.mean(best == rows))
+
+    # The probe path against the per-query oracle on the card, batch 0.
+    t0 = time.perf_counter()
+    p_ids, p_s = select(batches[0], oracle=False)
+    synchronize(dev)
+    t_probe = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    o_ids, o_s = select(batches[0], oracle=True)
+    synchronize(dev)
+    t_oracle = time.perf_counter() - t0
+    same_lane = float(((p_ids == o_ids) & (p_s == o_s)).float().mean())
+    key_step = int((_key16(p_s) - _key16(o_s)).abs().max())
+    for ids in (p_ids, o_ids):
+        srt = torch.sort(ids, dim=1).values
+        if bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()):
+            raise AssertionError("a query holds a duplicate id")
+    rows0 = torch.as_tensor(batches[0][0], device=dev)
+    in_cands = {
+        name: float((ids == rows0[:, None]).any(1).float().mean())
+        for name, ids in (("probe", p_ids), ("oracle", o_ids))
+    }
+    oracle_rates = {0: best_match_rate(batches[0], o_ids)}
+    for i, rate in enumerate(hit_rates):
+        if rate < HIT_RATE_GATE and i not in oracle_rates:
+            oracle_rates[i] = best_match_rate(
+                batches[i], select(batches[i], oracle=True)[0])
+    summary = {
+        "queries_per_sec": n_batches * n_q / elapsed,
+        "batch_sec": elapsed / n_batches,
+        "stages_sec_per_batch": stages,
+        "library_make_vectorize_sec": t_lib,
+        "ivf_build_sec": t_build,
+        "max_memory_allocated_bytes": {"build": build_peak,
+                                       "search": peak},
+        "best_match_hit_rates": hit_rates,
+        "oracle_best_match_hit_rates": oracle_rates,
+        "source_in_candidates_batch0": in_cands,
+        "probe_vs_oracle_same_lanes": same_lane,
+        "probe_vs_oracle_max_key16_step": key_step,
+        "select_sec_probe_vs_oracle": [t_probe, t_oracle],
+        "mean_candidates": float(np.mean(outs[-1][2])),
+        "b2_launches": launches,
+    }
+    log("big slice: " + json.dumps(summary))
+    if launches <= 0 and dev.type == "cuda":
+        raise AssertionError("kernel B2 was not launched")
+    if same_lane < 0.999 or key_step > 1:
+        raise AssertionError(
+            f"probe path vs oracle: {same_lane} lanes equal, key16 step "
+            f"{key_step}")
+    for i, rate in enumerate(hit_rates):
+        if rate < HIT_RATE_GATE and rate < oracle_rates[i] - 1.0 / n_q:
+            raise AssertionError(
+                f"batch {i}: best-match hit rate {rate} below the gate and "
+                f"below the oracle's {oracle_rates[i]}")
+    return launches
+
+
 def main():
     import torch
 
@@ -477,21 +858,35 @@ def main():
     dev = phase_device()
     phase_build()
     record = phase_kernel(dev)
+    probe_record = phase_probe_kernel(dev)
     launches, index, lib, lib_arrays, params = phase_slice(dev)
     phase_preprocess(dev, index, lib, lib_arrays, params)
     del index, lib
     phase_cuda_vs_cpu(dev)
+    probe_launches = phase_big_slice(dev)
     log(f"total {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"kernels": [{
-        "name": "shifted_dot_greedy",
-        "route": "cuda",
-        "source": "ann_solo_tpu_torch/csrc/shifted_dot.cu",
-        "replaces": "ann_solo_tpu/ops/shifted_dot_pallas.py:35",
-        "launches": launches,
-        "max_abs_err": record["max_abs_err"],
-        "ms": record["ms"],
-        "plain_ms": record["plain_ms"],
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        {
+            "name": "shifted_dot_greedy",
+            "route": "cuda",
+            "source": "ann_solo_tpu_torch/csrc/shifted_dot.cu",
+            "replaces": "ann_solo_tpu/ops/shifted_dot_pallas.py:35",
+            "launches": launches,
+            "max_abs_err": record["max_abs_err"],
+            "ms": record["ms"],
+            "plain_ms": record["plain_ms"],
+        },
+        {
+            "name": "ivf_probe_scan",
+            "route": "cuda",
+            "source": "ann_solo_tpu_torch/csrc/ivf_probe_scan.cu",
+            "replaces": "ann_solo_tpu/ops/ivf_probe_pallas.py:105",
+            "launches": probe_launches,
+            "max_abs_err": probe_record["max_abs_err"],
+            "ms": probe_record["ms"],
+            "plain_ms": probe_record["plain_ms"],
+        },
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

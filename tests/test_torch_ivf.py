@@ -268,13 +268,26 @@ def test_resolvers_and_convert_roundtrip():
     assert arrays["redundancy"] == index.redundancy
 
 
-def test_non_fullscan_regime_raises():
-    """A library whose probe union cannot cover it is not ported yet."""
+def test_non_fullscan_regime_raises(monkeypatch):
+    """A library whose probe union cannot cover it returns the per-query
+    oracle's results (through the probe path); only an int8/bf16 shape
+    beyond the probe path's lane bound still raises, naming kernel B3."""
+    from ann_solo_tpu_torch.ops import ivf_probe
+
     rng = np.random.default_rng(1)
     vectors = _clustered_vectors(rng, n=512, d=16, n_clusters=8)
     index = pivf.IvfIndex.build(
         torch.from_numpy(vectors), IvfConfig(num_list=256, num_probe=1),
         device="cpu", redundancy=1,
     )
-    with pytest.raises(NotImplementedError, match="A.11"):
-        index.search_device(torch.from_numpy(vectors[:4]), 8)
+    queries = torch.from_numpy(vectors[:4])
+    ids, scores = index.search_device(queries, 8)
+    w_s, w_ids = pivf._ivf_search_perquery(
+        *index._blocks(), queries, torch.zeros(4), 1.0, 1, 8, 8, 0.0, "Da",
+        False,
+    )
+    assert torch.equal(ids, w_ids.to(torch.int32))
+    assert torch.equal(scores, w_s)
+    monkeypatch.setattr(ivf_probe, "MAX_PROBE_LANES", 1)
+    with pytest.raises(NotImplementedError, match="B3"):
+        index.search_device(queries, 8)
