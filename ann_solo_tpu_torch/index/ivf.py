@@ -1,6 +1,7 @@
 """IVF (inverted file) index in PyTorch: build and search.
 
-Port of `ann_solo_tpu/index/ivf.py` up to the big-library probe path:
+Port of `ann_solo_tpu/index/ivf.py`, build and every search regime but
+the voting budget:
 
 * **Build** (`IvfIndex.build`): spherical k-means on a FAISS-style
   subsample, top-A centroid choices, the sort-based balanced fill of
@@ -13,16 +14,23 @@ Port of `ann_solo_tpu/index/ivf.py` up to the big-library probe path:
   - full scan (`_ivf_search_fullscan`): a 128-query tile's probed-list
     union covers the library and the (T, L, cap) f32 score block fits
     512 MB; every list is scanned and the probe set is a selection mask;
-  - probe path (`IvfIndex._search_chunked`, `_ivf_probe_scan_tile`):
-    bigger libraries with int8/bf16 storage, covering or not; each query
-    scans only its own probed lists through kernel B2
-    (`ops/ivf_probe_cuda.py`) in super-tiles of up to 1,024 queries;
-  - per-query oracle (`_ivf_search_perquery`): f32 storage beyond the
-    full scan, and the reference the probe path is tested against.
-  The JAX package's voting-budget regime is not ported (the probe path
-  gives the same results); int8/bf16 shapes beyond B2's lane bound, which
-  the JAX package sends to its fused chunked kernel, raise until kernel
-  B3 is ported.
+  - chunked regimes (`IvfIndex._search_chunked`), in super-tiles of up
+    to 1,024 queries:
+    - probe path (`_ivf_probe_scan_tile`): int8/bf16 storage within B2's
+      lane bound; each query scans only its own probed lists through
+      kernel B2 (`ops/ivf_probe_cuda.py`); exact, no certificates;
+    - fused chunked scan (`_ivf_chunked_scan_tile`): int8/bf16 shapes
+      beyond that bound where `chunked_pallas_supported` holds; each
+      query's 8 best lists scanned exactly (B2), the cold tail through
+      kernel B3 (`ops/ivf_scan_cuda.py`), with truncation certificates;
+    - plain chunked scan (`_ivf_search_chunked`): f32 storage and the
+      other shapes, pooled-max group selection with a tie certificate;
+    flagged queries are repaired through the per-query oracle;
+  - per-query oracle (`_ivf_search_perquery`): non-covering libraries
+    too large for the chunked regimes, and the reference the others are
+    tested against.
+  The JAX package's voting-budget regime is not ported: its
+  degenerate-tile rule picks between the chunked regimes and the oracle.
 
 Placement and selection are bit-for-bit those of the JAX package given the
 same inputs: stable sorts wherever the JAX code relies on `lax.top_k` or a
@@ -43,6 +51,16 @@ from ann_solo_tpu_torch.device import resolve_device
 from ann_solo_tpu_torch.ops.ivf_probe import probe_scan_supported
 from ann_solo_tpu_torch.ops.ivf_probe import window_mask as _window_mask
 from ann_solo_tpu_torch.ops.ivf_probe_cuda import ivf_probe_scan
+from ann_solo_tpu_torch.ops.ivf_scan import (
+    _KEY_NEG_INF as _KEY16_NINF,
+    _U32,
+    _key16,
+    _key16_to_f32,
+    canonical_topk,
+    chunked_pallas_supported,
+    hot_list_count,
+    ivf_chunked_scan_select,
+)
 from ann_solo_tpu_torch.ops.kmeans import (
     assign_topk_blocked,
     soar_round2_choices,
@@ -54,14 +72,14 @@ logger = logging.getLogger(__name__)
 
 _TILE_Q = 128  # queries per search tile
 _FULLSCAN_TRANSIENT = 1 << 29  # bytes of the (T, L, cap) f32 score block
-_CHUNK_TQ = 1024  # queries per probe-path super-tile
+_CHUNK_TQ = 1024  # queries per chunked-regime super-tile
 _PROBE_BLOCK_BYTES = 1 << 29  # bytes of a super-tile's (tq, P*cap) f32 block
+_CHUNK_TRANSIENT = 1 << 28  # bytes of the plain chunked scan's chunk block
+_CHUNK_SCORE_BYTES = 4 << 30  # bytes of its stacked (B, L*cap) score block
 _PERQUERY_GATHER_BYTES = 1 << 30  # bytes of an oracle group's gathered rows
 _FILL_SLACK = 1.5  # list capacity = slack * mean list size
 _N_CHOICES = 4  # spill candidates per vector (nearest centroids)
 _TRAIN_POINTS_PER_CENTROID = 256  # FAISS subsampling rule
-_KEY16_NINF = 0x7F  # _key16(-inf): below every finite score's key
-_U32 = 0xFFFFFFFF
 
 
 # --------------------------------------------------------------------- #
@@ -282,27 +300,6 @@ def soar_round_choices(vectors, centroids, choices, r_eff, soar_lambda):
 # Search
 
 
-def _key16(s: torch.Tensor) -> torch.Tensor:
-    """Monotone 16-bit sort key of f32 scores (int64 values in [0, 65535]).
-
-    Key equality is bf16 round-to-nearest-even equality.  Computed on the
-    uint32 bit pattern in int64 (`ivf_scan_pallas.py::_key16` works on
-    int32 with logical shifts; torch's shifts on int32 are arithmetic).
-    """
-    u = s.contiguous().view(torch.int32).to(torch.int64) & _U32
-    rne = (u + 0x7FFF + ((u >> 16) & 1)) & _U32
-    b16 = rne >> 16
-    return torch.where(u >= 0x80000000, 0xFFFF - b16, b16 | 0x8000)
-
-
-def _key16_to_f32(k16: torch.Tensor) -> torch.Tensor:
-    """Inverse of `_key16`: the bf16-rounded score value as float32."""
-    b16 = torch.where(k16 < 0x8000, 0xFFFF - k16, k16 - 0x8000)
-    bits = b16.to(torch.int64) << 16
-    bits = torch.where(bits >= 0x80000000, bits - (1 << 32), bits)
-    return bits.to(torch.int32).view(torch.float32)
-
-
 def _dedup_topk(scores, ids, k: int):
     """Unique-id top-k over lanes in canonical order ((B, K') -> (B, k)):
     each id keeps its first lane, lane order preserved."""
@@ -335,17 +332,10 @@ def _pad_topk(scores, ids, k: int):
 
 
 def _canonical_topk_keys(keys: torch.Tensor, k_sel: int):
-    """Canonical top-k (key desc, position asc) over (T, n) 16-bit keys.
-
-    Key and reversed position pack into one int64, so the canonical order
-    is plain numeric order and every packed value is distinct: `topk` of
-    distinct values has one answer, whatever its tie rule."""
-    n = keys.shape[1]
-    pos_rev = torch.arange(n - 1, -1, -1, device=keys.device)
-    packed = (keys << 32) | pos_rev[None, :]
-    top = torch.topk(packed, min(k_sel, n), dim=1, sorted=True).values
-    pos = (n - 1) - (top & _U32)
-    return _key16_to_f32(top >> 32), pos
+    """Canonical top-k (key desc, position asc) over (T, n) 16-bit keys:
+    the bf16-rounded scores and their lane positions."""
+    top, pos = canonical_topk(keys, k_sel)
+    return _key16_to_f32(top), pos
 
 
 def _probe_lists(queries, centroids, p: int) -> torch.Tensor:
@@ -533,6 +523,215 @@ def _ivf_probe_scan_tile(
     return _pad_topk(top_s, top_i, k)
 
 
+@torch.no_grad()
+def _ivf_chunked_scan_tile(
+    padded_vectors,  # (L, cap, D) int8/bfloat16
+    padded_ids,  # (L, cap) int32
+    padded_prec,  # (L, cap) float32
+    padded_scales,  # (L, cap) float32
+    centroids,  # (L, D) float32
+    queries,  # (B, D) float32, contiguous
+    q_prec,  # (B,) float32, contiguous
+    charge: float,
+    num_probe: int,
+    k: int,
+    k_scan: int,
+    tol_val: float,
+    tol_mode: str,
+    redundant: bool,
+):
+    """Fused chunked scan of one super-tile (JAX `_ivf_chunked_pallas_tile`).
+
+    The query's top `hot_list_count` coarse lists go to the exact hot scan,
+    the rest to kernel B3; each half is sorted ascending (canonical lane
+    order).  Returns (scores, ids, flags): flagged queries may differ from
+    `_ivf_search_perquery` and are repaired by the caller; the others
+    equal it (its canonical order, its dedup)."""
+    l, cap, _ = padded_vectors.shape
+    p = min(num_probe, l)
+    probe_ranked = stable_topk_desc(queries @ centroids.T, p)[1]
+    h = hot_list_count(p)
+    hot_ids = torch.sort(probe_ranked[:, :h], dim=1).values if h else None
+    cold_ids = torch.sort(probe_ranked[:, h:], dim=1).values
+    run_s, flat_pos, inexact = ivf_chunked_scan_select(
+        padded_vectors, padded_ids, padded_prec, padded_scales, queries,
+        q_prec, charge, cold_ids, p - h, k_scan, tol_val, tol_mode,
+        hot_ids=hot_ids,
+    )
+    k_eff = run_s.shape[1]
+    # Lanes of -inf score may carry any position: clamp before the lookup.
+    safe = flat_pos.clamp(0, l * cap - 1)
+    run_i = torch.where(run_s > float("-inf"), padded_ids.view(-1)[safe], -1)
+    if redundant or k_eff > k:
+        run_s, run_i = _dedup_topk(run_s, run_i, k)
+    out_s, out_i = _pad_topk(run_s, run_i, k)
+    return out_s, out_i, inexact
+
+
+def _tie_unsafe(pool_vals, kept_vals):
+    """Boundary-tie detector of the group selection (JAX `_tie_unsafe`): a
+    query is flagged when more groups than were kept hold the kept
+    boundary value (an excluded group could hold an entry that ties into
+    the top-k)."""
+    boundary = kept_vals[:, -1:]
+    finite = torch.isfinite(boundary)
+    n_at = ((pool_vals == boundary) & finite).sum(1)
+    n_kept_at = ((kept_vals == boundary) & finite).sum(1)
+    return n_at > n_kept_at
+
+
+def _total_order_key(x: torch.Tensor) -> torch.Tensor:
+    """int64 key of float32 values in IEEE total order (-0.0 < 0.0), the
+    order `lax.sort` gives floats."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+
+
+@torch.no_grad()
+def _ivf_search_chunked(
+    padded_vectors,  # (L, cap, D) int8/bfloat16/float32
+    padded_ids,  # (L, cap) int32, -1 = padding
+    padded_prec,  # (L, cap) float32
+    padded_scales,  # (L, cap) float32
+    centroids,  # (L, D) float32
+    queries,  # (B, D) float32
+    q_prec,  # (B,) float32
+    charge: float,
+    num_probe: int,
+    k: int,
+    k_scan: int,  # entries selected before dedup (R * k)
+    pool_g: int,  # rows max-pooled per group
+    list_chunk: int,  # lists scanned per chunk
+    tol_val: float,
+    tol_mode: str,
+    redundant: bool = True,
+):
+    """Plain chunked full-library scan with pooled-max group selection
+    (JAX `_ivf_search_chunked`): the regime of f32 storage and of the
+    int8/bf16 shapes the fused kernel does not take.
+
+    Pass A scores `list_chunk` lists at a time (one matrix product; the
+    last chunk is clamped to the library's end and its re-read lists are
+    masked), keeps every masked score in storage precision (bf16 for
+    int8/bf16 storage, f32 otherwise) and each `pool_g`-slot group's max.
+    The top-k_run groups by max contain every top-k_run entry; two pooling
+    levels keep each selection narrow.  Only an exact tie at a group
+    boundary can break that, which `_tie_unsafe` flags.  The final sort is
+    canonical: score desc (total order), true flat position asc.
+    Returns (scores, ids, flags)."""
+    l, cap, d = padded_vectors.shape
+    b = queries.shape[0]
+    dev = queries.device
+    p = min(num_probe, l)
+    g = pool_g
+    while cap % g:
+        g -= 1  # largest divisor of cap <= pool_g
+    c_lists = min(list_chunk, l)
+    n_chunks = -(-l // c_lists)
+    k_run = min(k_scan, p * cap)
+    cast = padded_vectors.dtype != torch.float32
+    score_dtype = torch.bfloat16 if cast else torch.float32
+    npl = cap // g
+    inner = c_lists * cap
+    n_groups = n_chunks * c_lists * npl
+    neg = float("-inf")
+
+    probe_ids = stable_topk_desc(queries @ centroids.T, p)[1]
+    probed = torch.zeros((b, l), dtype=torch.bool, device=dev)
+    probed.scatter_(1, probe_ids, True)
+    q_scan = queries.to(torch.bfloat16).to(torch.float32) if cast else queries
+    fresh_iota = torch.arange(c_lists, device=dev)
+    scores_st = torch.empty((n_chunks, b, inner), dtype=score_dtype,
+                            device=dev)
+    pooled = torch.empty((b, n_chunks, c_lists * npl), dtype=score_dtype,
+                         device=dev)
+    for c in range(n_chunks):
+        start = min(c * c_lists, l - c_lists)
+        lists = slice(start, start + c_lists)
+        vecs = padded_vectors[lists].reshape(inner, d).to(torch.float32)
+        s = (q_scan @ vecs.T).view(b, c_lists, cap) * padded_scales[lists]
+        fresh = (start + fresh_iota) >= c * c_lists
+        mask = ((padded_ids[lists] >= 0)[None] & probed[:, lists, None]
+                & fresh[None, :, None])
+        if tol_val > 0:
+            mask &= _window_mask(q_prec[:, None, None],
+                                 padded_prec[lists][None], charge, tol_val,
+                                 tol_mode)
+        s = torch.where(mask, s.to(score_dtype), neg)
+        scores_st[c] = s.view(b, inner)
+        pooled[:, c] = s.view(b, c_lists * npl, g).amax(-1)
+        del s, mask
+    pooled = pooled.view(b, n_groups)
+
+    g2 = 32  # level-2 pooling keeps each selection narrow
+    n_g2 = -(-n_groups // g2)
+    pooled2 = F.pad(pooled, (0, n_g2 * g2 - n_groups), value=neg).view(
+        b, n_g2, g2).amax(-1)
+    inexact = torch.zeros((b,), dtype=torch.bool, device=dev)
+    if k_run < n_g2:
+        v2, i2 = stable_topk_desc(pooled2, k_run)
+        inexact |= _tie_unsafe(pooled2, v2)
+        # Level-2 padding lanes are -inf, not clamped copies of a real
+        # group (a copy could be selected twice and surface duplicates).
+        g1_raw = (i2[:, :, None] * g2
+                  + torch.arange(g2, device=dev)).view(b, k_run * g2)
+        g1_pos = g1_raw.clamp_max(n_groups - 1)
+        g1_vals = torch.where(g1_raw < n_groups, pooled.gather(1, g1_pos),
+                              neg)
+    else:
+        g1_pos = torch.arange(n_groups, device=dev).expand(b, n_groups)
+        g1_vals = pooled
+    if k_run < g1_vals.shape[1]:
+        v1, i1 = stable_topk_desc(g1_vals, k_run)
+        sel_groups = g1_pos.gather(1, i1)
+        inexact |= _tie_unsafe(pooled, v1)
+    else:
+        sel_groups = g1_pos
+
+    # Members of the chosen groups, in the chunk-stacked space; true flat
+    # positions account for the clamped last chunk.
+    n_members = sel_groups.shape[1] * g
+    member = (sel_groups[:, :, None] * g
+              + torch.arange(g, device=dev)).reshape(b, n_members)
+    chunk_idx = member // inner
+    inner_idx = member - chunk_idx * inner
+    member_pos = ((chunk_idx * c_lists).clamp_max(l - c_lists) * cap
+                  + inner_idx)
+    member_s = scores_st[chunk_idx, torch.arange(b, device=dev)[:, None],
+                         inner_idx]
+    del scores_st
+    k_eff = min(k_run, n_members)
+    # Canonical order: score desc in total order, then position asc, as
+    # one int64 per lane (equal values are the same (score, position)).
+    packed = (_total_order_key(member_s) * (1 << 32)
+              + (_U32 - member_pos))
+    lane = torch.topk(packed, k_eff, dim=1, sorted=True).indices
+    run_s = member_s.gather(1, lane).to(torch.float32)
+    run_pos = member_pos.gather(1, lane)
+    run_s = torch.where(torch.isfinite(run_s), run_s, neg)
+    run_i = torch.where(run_s > neg, padded_ids.view(-1)[run_pos], -1)
+    if redundant or k_eff > k:
+        run_s, run_i = _dedup_topk(run_s, run_i, k)
+    out_s, out_i = _pad_topk(run_s, run_i, k)
+    return out_s, out_i, inexact
+
+
+def chunked_scan_params(l: int, cap: int, num_probe: int, k_scan: int,
+                        b: int):
+    """(pool_g, list_chunk) of `_ivf_search_chunked`: 32-slot pooling
+    groups, and chunks whose (B, C, cap) f32 score block fits
+    `_CHUNK_TRANSIENT`, preferring a divisor of L close below."""
+    pool_g = 32
+    c_max = max(1, _CHUNK_TRANSIENT // (max(b, 1) * cap * 4))
+    list_chunk = min(l, c_max)
+    if l % list_chunk:
+        for c in range(list_chunk, list_chunk // 2, -1):
+            if l % c == 0:
+                list_chunk = c
+                break
+    return pool_g, list_chunk
+
+
 class IvfIndex:
     """Inverted-file index over one charge partition, on one device."""
 
@@ -556,6 +755,9 @@ class IvfIndex:
         self.padded_prec = padded_prec.to(torch.float32)
         self.padded_scales = padded_scales.to(torch.float32)
         self._scan_block = None
+        # Queries the last chunked-regime search repaired (0 on the
+        # probe path, which is exact).
+        self._last_chunked_flagged = 0
 
     @property
     def device(self) -> torch.device:
@@ -653,9 +855,12 @@ class IvfIndex:
 
         Regimes, in the JAX package's order: the full scan where a tile's
         probe union covers the library and its score block fits; else the
-        probe path (kernel B2) where `probe_scan_supported` holds; else,
-        for f32 storage, the per-query oracle.  Other int8/bf16 shapes
-        raise NotImplementedError (kernel B3 is not ported)."""
+        chunked regimes of `_search_chunked` (kernel B2's probe path, kernel
+        B3, or the plain chunked scan) where the union covers the library;
+        where it does not (the JAX package's voting regime, not ported),
+        its degenerate-tile rule: `_search_chunked` when the probe path
+        applies or the library has at most num_probe * `_CHUNK_TQ` lists,
+        else the per-query oracle."""
         num_probe = int(num_probe or self.num_probe)
         dev = self.device
         queries = torch.as_tensor(queries).to(
@@ -687,19 +892,12 @@ class IvfIndex:
                 dtype != torch.float32,
             )
             return ids[:b].to(torch.int32), scores[:b]
-        if probe_scan_supported(l, cap, num_probe, dtype):
+        if (union_covers or probe_scan_supported(l, cap, num_probe, dtype)
+                or l <= num_probe * _CHUNK_TQ):
             scores, ids = self._search_chunked(queries, q_prec, *args)
-        elif dtype == torch.float32:
+        else:
             scores, ids = _ivf_search_perquery(*self._blocks(), queries,
                                                q_prec, *args)
-        else:
-            p = min(num_probe, l)
-            raise NotImplementedError(
-                f"{p} probes x cap {cap} = {p * cap} lanes per query exceed "
-                "the probe path's bound; the JAX package scans such "
-                f"{dtype} indexes with kernel B3 (ROADMAP B3), which is not "
-                "ported yet"
-            )
         return ids.to(torch.int32), scores
 
     def _blocks(self):
@@ -709,21 +907,74 @@ class IvfIndex:
     def _search_chunked(self, queries, q_prec, charge: float,
                         num_probe: int, k: int, k_scan: int, tol_val: float,
                         tol_mode: str, redundant: bool):
-        """Big-library search through the probe path (JAX
-        `_search_chunked` with the probe-gather kernel): super-tiles of
-        up to `_CHUNK_TQ` queries, fewer where the (tq, P * cap) f32
-        score block would pass `_PROBE_BLOCK_BYTES`.  Exact by
-        construction: no certificates, no repair."""
-        l, cap, _ = self.padded_vectors.shape
-        lanes = min(num_probe, l) * cap
-        tq = min(_CHUNK_TQ, max(1, _PROBE_BLOCK_BYTES // (lanes * 4)))
-        out_s, out_i = [], []
-        for start in range(0, queries.shape[0], tq):
-            s, i = _ivf_probe_scan_tile(
-                *self._blocks(), queries[start:start + tq],
-                q_prec[start:start + tq], charge, num_probe, k, k_scan,
-                tol_val, tol_mode, redundant,
-            )
+        """Big-library search over super-tiles (JAX `_search_chunked`).
+
+        The probe path (kernel B2, `_ivf_probe_scan_tile`) where
+        `probe_scan_supported` holds: exact by construction, super-tiles
+        of up to `_CHUNK_TQ` queries whose (tq, P * cap) f32 block fits
+        `_PROBE_BLOCK_BYTES`.  Else kernel B3 (`_ivf_chunked_scan_tile`)
+        where `chunked_pallas_supported` holds, in `_CHUNK_TQ`-query
+        super-tiles.  Else the plain chunked scan (`_ivf_search_chunked`),
+        in power-of-two super-tiles of at least 128 queries whose stacked
+        score block fits `_CHUNK_SCORE_BYTES`.  The last two carry
+        certificates: one host download of the flags, then the flagged
+        queries are repaired through the per-query oracle; their count is
+        kept in ``_last_chunked_flagged``."""
+        l, cap, d = self.padded_vectors.shape
+        dtype = self.padded_vectors.dtype
+        b = queries.shape[0]
+        use_probe = probe_scan_supported(l, cap, num_probe, dtype)
+        use_fused = not use_probe and chunked_pallas_supported(
+            l, cap, d, num_probe, k_scan, dtype)
+        if use_probe:
+            lanes = min(num_probe, l) * cap
+            tq = min(_CHUNK_TQ, max(1, _PROBE_BLOCK_BYTES // (lanes * 4)))
+        elif use_fused:
+            tq = _CHUNK_TQ
+        else:
+            score_bytes = 4 if dtype == torch.float32 else 2
+            tq = min(_CHUNK_TQ,
+                     max(128, _CHUNK_SCORE_BYTES // (l * cap * score_bytes)))
+            tq = 1 << (max(128, tq).bit_length() - 1)  # floor to pow2
+        out_s, out_i, flags = [], [], []
+        for start in range(0, b, tq):
+            qt = queries[start:start + tq]
+            qpt = q_prec[start:start + tq]
+            if use_probe:
+                s, i = _ivf_probe_scan_tile(
+                    *self._blocks(), qt, qpt, charge, num_probe, k, k_scan,
+                    tol_val, tol_mode, redundant,
+                )
+            elif use_fused:
+                s, i, f = _ivf_chunked_scan_tile(
+                    *self._blocks(), qt, qpt, charge, num_probe, k, k_scan,
+                    tol_val, tol_mode, redundant,
+                )
+                flags.append(f)
+            else:
+                pool_g, list_chunk = chunked_scan_params(
+                    l, cap, num_probe, k_scan, qt.shape[0])
+                s, i, f = _ivf_search_chunked(
+                    *self._blocks(), qt, qpt, charge, num_probe, k, k_scan,
+                    pool_g, list_chunk, tol_val, tol_mode, redundant,
+                )
+                flags.append(f)
             out_s.append(s)
             out_i.append(i)
-        return torch.cat(out_s), torch.cat(out_i)
+        out_s, out_i = torch.cat(out_s), torch.cat(out_i)
+        if use_probe:
+            self._last_chunked_flagged = 0
+            return out_s, out_i
+        rows = torch.nonzero(torch.cat(flags).cpu()).flatten()  # one download
+        self._last_chunked_flagged = len(rows)
+        if len(rows):
+            logger.debug("IVF chunked-scan certificate flagged %d/%d "
+                         "queries; per-query repair", len(rows), b)
+            rows = rows.to(queries.device)
+            r_s, r_i = _ivf_search_perquery(
+                *self._blocks(), queries[rows], q_prec[rows], charge,
+                num_probe, k, k_scan, tol_val, tol_mode, redundant,
+            )
+            out_s[rows] = r_s
+            out_i[rows] = r_i.to(out_i.dtype)
+        return out_s, out_i

@@ -6,8 +6,8 @@ Phases, each raising on failure (non-zero exit, no final line):
 
 1. device: needs CUDA; prints torch/CUDA versions and the card's name and
    power limit as nvidia-smi reports them;
-2. build: compiles both CUDA kernels from `ann_solo_tpu_torch/csrc/`, one
-   nvcc per source, all started together;
+2. build: compiles the three CUDA kernels from `ann_solo_tpu_torch/csrc/`,
+   one nvcc per source, all started together;
 3. kernel B1 vs plain: the greedy shifted-dot kernel against its plain
    PyTorch version on the card, at the stage-2 (32,768 pairs) and
    match-extraction (4,096 pairs) shapes of the bench workload plus
@@ -21,6 +21,19 @@ Phases, each raising on failure (non-zero exit, no final line):
    must be identical; scores bit-identical on exact data, elsewhere within
    2 * D * 2^-24 * max|bf16(q)| * max|v * scale| (two float32 summation
    orders of unit-norm operands; norms measured);
+3c. kernel B3 vs plain: the fused chunked scan's (B, n_chunks, 128) rows
+   against its plain version, then both finished by the same selection
+   (`ivf_chunked_scan_select`, hot lists through B2), at the 2.1M tile
+   (B = 1,024, L = 4,096, cap = 768, D = 800, int8, 56 cold + 8 hot
+   probes, +-500 Da), bf16 storage with a ppm window (L = 1,024, cap = 256,
+   C = 8), exact tie-heavy data, and 8 probes (no hot lists, so the
+   certificates must fire).  Rule: the finite-lane masks of the rows are
+   identical everywhere.  Exact data: rows and the finished (scores,
+   positions, flags) bit-identical.  Random data: >= 99% of (query,
+   chunk) rows identical (another float32 summation order can move a
+   score across a bf16 rounding boundary), and over the queries neither
+   side flags, >= 99.9% of (position, score) lanes equal with every
+   16-bit key within one step;
 4. the open-search slice at the bench scale: a 131,072-spectrum library
    (K = 50 peaks, hash_len 800), auto num_list, num_probe 512, x2 SOAR
    redundancy, int8 storage; 4 batches of 4,096 charge-2 queries, +-500 Da,
@@ -41,7 +54,17 @@ Phases, each raising on failure (non-zero exit, no final line):
    per-query oracle run on the card (>= 99.9% of (id, score) lanes equal,
    every 16-bit key within one step, no duplicate ids); best-match hit
    rate >= 0.95 per batch, or, for a batch below it, no lower than the
-   oracle's on the same queries by more than one query.
+   oracle's on the same queries by more than one query;
+8. the B3 path at full width: phase 7's index and query batches, with the
+   probe path's lane bound (`ops.ivf_probe.MAX_PROBE_LANES`) set below
+   P * cap so that `search_device` takes kernel B3 (restored afterwards);
+   4 timed batches with stage seconds, flagged queries per batch and the
+   B3 and B2 (hot lists) launch counts.  On batch 0 the B3 select is held
+   against phase 7's probe path, the on-card per-query oracle and a direct
+   call of the plain chunked scan.  Gates: B3's launch count grows; >=
+   99.9% of (id, score) lanes equal to the probe path, every 16-bit key
+   within one step, no duplicate ids; each batch's best-match hit rate
+   equal to phase 7's within one query.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -86,6 +109,17 @@ PROBE_CASES = (
     ("ragged", 7, 64, 16, 200, 100, "int8", 0.0, "Da", False),
     ("exact_ties", 256, 256, 32, 256, 128, "int8", 50.0, "Da", True),
     ("exact_ragged_bf16", 33, 64, 8, 200, 100, "bf16", 50.0, "Da", True),
+)
+
+# Kernel B3 cases: (name, B, L, cold probes, hot probes, cap, D, storage,
+# tol_val, tol_mode, k_scan, exact data).
+SCAN_CASES = (
+    ("tile_2m", 1024, 4096, 56, 8, 768, 800, "int8", OPEN_TOL_DA, "Da",
+     1024, False),
+    ("bf16_ppm", 512, 1024, 56, 8, 256, 800, "bf16", 1e5, "ppm", 1024,
+     False),
+    ("exact_ties", 256, 256, 24, 8, 256, 128, "int8", 50.0, "Da", 512, True),
+    ("few_probes", 256, 512, 8, 0, 256, 128, "bf16", 0.0, "Da", 512, False),
 )
 
 # The big-library slice (SCALE r04's single-chip point, scale_demo.py).
@@ -207,7 +241,7 @@ def phase_device():
     return dev
 
 
-def phase_build(names=("shifted_dot", "ivf_probe_scan")):
+def phase_build(names=("shifted_dot", "ivf_probe_scan", "ivf_chunked_scan")):
     """Build every kernel source at once (one nvcc each), then load them."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -378,6 +412,104 @@ def phase_probe_kernel(dev, cases=PROBE_CASES, kernel_reps=20,
             f"(tolerance {tol:.3g}); kernel {ms:.3f} ms "
             f"({gbytes / ms:.3g} TB/s of list rows), plain {plain_ms:.3f} ms")
         del arrays, vectors, args, got, want
+    return record
+
+
+def split_hot(probe_ids, h):
+    """(cold, hot) halves of ascending probe ids: every (P / h)-th id is
+    hot, so both halves stay ascending and disjoint; hot is None at h 0."""
+    import torch
+
+    if h == 0:
+        return probe_ids, None
+    step = probe_ids.shape[1] // h
+    is_hot = torch.zeros(probe_ids.shape[1], dtype=torch.bool,
+                         device=probe_ids.device)
+    is_hot[torch.arange(h, device=probe_ids.device) * step] = True
+    return (probe_ids[:, ~is_hot].contiguous(),
+            probe_ids[:, is_hot].contiguous())
+
+
+def phase_scan_kernel(dev, cases=SCAN_CASES, kernel_reps=5, plain_reps=1):
+    """Kernel B3 vs its plain version on the same tensors, rows and the
+    finished selection; returns the record of the first (2.1M tile)
+    shape: times and the largest score difference of the finished
+    selections."""
+    import torch
+
+    from ann_solo_tpu_torch.index.ivf import _key16
+    from ann_solo_tpu_torch.ops.ivf_scan import (
+        _KEY_NEG_INF,
+        chunk_layout,
+        ivf_chunked_scan_rows_plain,
+        ivf_chunked_scan_select,
+    )
+    from ann_solo_tpu_torch.ops.ivf_scan_cuda import ivf_chunked_scan_rows
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2026)
+    record = {"max_abs_err": 0.0}
+    for (name, b, l, p, h, cap, d, storage, tol_val, tol_mode, k_scan,
+         exact) in cases:
+        arrays = synth_probe_case(gen, dev, b, l, p + h, cap, d, storage,
+                                  exact)
+        vectors, ids, prec, scales, queries, q_prec, probe_ids = arrays
+        cold, hot = split_hot(probe_ids, h)
+        probed = torch.zeros((b, l), dtype=torch.uint8, device=dev)
+        probed.scatter_(1, cold, 1)
+        pos_bits = chunk_layout(l, cap)[4]
+        args = (vectors, ids, prec, scales, queries, q_prec, float(CHARGE),
+                probed, tol_val, tol_mode)
+        rows = ivf_chunked_scan_rows(*args)
+        want = ivf_chunked_scan_rows_plain(*args)
+        sel_args = (vectors, ids, prec, scales, queries, q_prec,
+                    float(CHARGE), cold, p, k_scan, tol_val, tol_mode)
+        s_k, pos_k, f_k = ivf_chunked_scan_select(*sel_args, hot_ids=hot)
+        s_p, pos_p, f_p = ivf_chunked_scan_select(
+            *sel_args, hot_ids=hot, scan_rows=ivf_chunked_scan_rows_plain)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+        def finite(r):
+            return (r > -1) & ((r >> pos_bits) > _KEY_NEG_INF)
+
+        if not (torch.equal(finite(rows), finite(want))
+                and torch.equal(rows == -1, want == -1)):
+            raise AssertionError(f"B3 finite-lane masks differ at {name}")
+        same_rows = float((rows == want).all(-1).float().mean())
+        clean = ~(f_k | f_p)
+        both = clean[:, None] & torch.isfinite(s_k) & torch.isfinite(s_p)
+        err = float(torch.where(both, s_k - s_p, 0.0).abs().max())
+        same_lanes = float(((s_k == s_p) & (pos_k == pos_p))[clean].float()
+                           .mean()) if bool(clean.any()) else 1.0
+        key_step = int((_key16(s_k) - _key16(s_p))[clean].abs().max()) \
+            if bool(clean.any()) else 0
+        if exact and not (torch.equal(rows, want) and torch.equal(s_k, s_p)
+                          and torch.equal(pos_k, pos_p)
+                          and torch.equal(f_k, f_p)):
+            raise AssertionError(
+                f"B3 != plain on exact data at {name}: {same_rows} of rows "
+                f"equal, {same_lanes} of lanes")
+        if same_rows < 0.99 or same_lanes < 0.999 or key_step > 1:
+            raise AssertionError(
+                f"B3 vs plain at {name}: {same_rows} of rows equal, "
+                f"{same_lanes} of lanes, key16 step {key_step}")
+        if h == 0 and not bool(f_k.any()):
+            raise AssertionError(f"B3 at {name}: no certificate fired")
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        ms = time_ms(lambda: ivf_chunked_scan_rows(*args), dev, kernel_reps)
+        plain_ms = time_ms(lambda: ivf_chunked_scan_rows_plain(*args), dev,
+                           plain_reps)
+        if name == cases[0][0]:
+            record.update(ms=ms, plain_ms=plain_ms)
+        log(f"B3 {name}: B={b} L={l} P={p}+{h} hot cap={cap} D={d} "
+            f"{storage} window={tol_mode if tol_val > 0 else 'none'} "
+            f"k_scan={k_scan}: masks identical, rows equal {same_rows:.5f}, "
+            f"select lanes equal {same_lanes:.5f} (key16 step {key_step}, "
+            f"max |d score| {err:.3g}), flagged {float(f_k.float().mean()):.4f}"
+            f" / plain {float(f_p.float().mean()):.4f}; kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms")
+        del arrays, vectors, args, sel_args, rows, want
     return record
 
 
@@ -760,12 +892,18 @@ def phase_big_slice(dev, n_lib=N_BIG, n_q=BIG_QUERIES, n_batches=N_BATCHES,
     run(batches[1], stages)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
 
-    def select(batch, oracle):
-        """(ids, scores) of the select stage alone, probe path or oracle."""
+    def embed(batch):
+        """(query vectors, precursor m/z) of a batch on the card."""
         _, q_mz, q_int, q_prec = batch
         vectors = vectorize_batch(params.vectorize, tables, q_mz, q_int,
                                   torch.as_tensor(q_n, device=dev))
-        qp = torch.as_tensor(q_prec, dtype=torch.float32, device=dev)
+        return vectors, torch.as_tensor(q_prec, dtype=torch.float32,
+                                        device=dev)
+
+    def select(batch, oracle):
+        """(ids, scores) of the select stage alone: `search_device` or the
+        per-query oracle."""
+        vectors, qp = embed(batch)
         if not oracle:
             return index.search_device(
                 vectors, BIG_CANDIDATES, q_prec=qp, charge=float(CHARGE),
@@ -844,7 +982,136 @@ def phase_big_slice(dev, n_lib=N_BIG, n_q=BIG_QUERIES, n_batches=N_BATCHES,
             raise AssertionError(
                 f"batch {i}: best-match hit rate {rate} below the gate and "
                 f"below the oracle's {oracle_rates[i]}")
-    return launches
+    return {"launches": launches, "index": index, "lib": lib,
+            "batches": batches, "run": run, "embed": embed, "select": select,
+            "best_match_rate": best_match_rate, "hit_rates": hit_rates,
+            "probe": (p_ids, p_s), "oracle": (o_ids, o_s)}
+
+
+def _lanes_vs(ids, scores, ref_ids, ref_scores, rows=None):
+    """(share of equal (id, score) lanes, largest key16 step) of a select
+    result against a reference, over `rows` (all queries if None)."""
+    from ann_solo_tpu_torch.index.ivf import _key16
+
+    if rows is not None:
+        ids, scores = ids[rows], scores[rows]
+        ref_ids, ref_scores = ref_ids[rows], ref_scores[rows]
+    if ids.numel() == 0:
+        return 1.0, 0
+    same = float(((ids == ref_ids) & (scores == ref_scores)).float().mean())
+    return same, int((_key16(scores) - _key16(ref_scores)).abs().max())
+
+
+def phase_b3_slice(dev, big):
+    """The B3 path at full width on phase 7's index and query batches."""
+    import torch
+
+    from ann_solo_tpu_torch.device import synchronize
+    from ann_solo_tpu_torch.index.ivf import (
+        _ivf_search_chunked,
+        chunked_scan_params,
+    )
+    from ann_solo_tpu_torch.ops import ivf_probe, ivf_probe_cuda, ivf_scan_cuda
+
+    index, batches, run = big["index"], big["batches"], big["run"]
+    l, cap, _ = index.padded_vectors.shape
+    n_q = len(batches[0][0])
+    n_lib = len(big["lib"].mz)
+    bound = ivf_probe.MAX_PROBE_LANES
+    ivf_probe.MAX_PROBE_LANES = min(index.num_probe, l) * cap - 1
+    try:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        run(batches[0])  # warm-up
+        synchronize(dev)
+        ivf_scan_cuda.LAUNCHES = 0
+        ivf_probe_cuda.LAUNCHES = 0
+        flagged = []
+        t0 = time.perf_counter()
+        outs = []
+        for batch in batches:
+            outs.append(run(batch))
+            flagged.append(index._last_chunked_flagged)
+        synchronize(dev)
+        elapsed = time.perf_counter() - t0
+        b3_launches = ivf_scan_cuda.LAUNCHES
+        b2_launches = ivf_probe_cuda.LAUNCHES
+        hit_rates = []
+        for batch, (best, score, n_cands, matches) in zip(batches, outs):
+            _check_outputs(best, score, n_cands, matches, n_lib, n_q,
+                           BIG_CANDIDATES)
+            hit_rates.append(float(np.mean(best == batch[0])))
+        stages = {}
+        run(batches[1], stages)
+        peak = (torch.cuda.max_memory_allocated(dev)
+                if dev.type == "cuda" else 0)
+
+        t0 = time.perf_counter()
+        f_ids, f_s = big["select"](batches[0], oracle=False)
+        synchronize(dev)
+        t_fused = time.perf_counter() - t0
+        flagged0 = index._last_chunked_flagged
+    finally:
+        ivf_probe.MAX_PROBE_LANES = bound
+
+    # The plain chunked scan called directly on batch 0.
+    vectors, qp = big["embed"](batches[0])
+    k_scan = index.redundancy * BIG_CANDIDATES
+    pool_g, list_chunk = chunked_scan_params(l, cap, index.num_probe, k_scan,
+                                             n_q)
+    t0 = time.perf_counter()
+    c_s, c_ids, c_flags = _ivf_search_chunked(
+        *index._blocks(), vectors, qp, float(CHARGE), index.num_probe,
+        BIG_CANDIDATES, k_scan, pool_g, list_chunk, OPEN_TOL_DA, "Da",
+        index.redundancy > 1,
+    )
+    synchronize(dev)
+    t_plain = time.perf_counter() - t0
+    del vectors
+
+    p_ids, p_s = big["probe"]
+    o_ids, o_s = big["oracle"]
+    srt = torch.sort(f_ids, dim=1).values
+    if bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()):
+        raise AssertionError("a B3 query holds a duplicate id")
+    same_probe, step_probe = _lanes_vs(f_ids, f_s, p_ids, p_s)
+    same_oracle, step_oracle = _lanes_vs(f_ids, f_s, o_ids, o_s)
+    clean = ~c_flags
+    same_plain, step_plain = _lanes_vs(c_ids, c_s, o_ids, o_s, clean)
+    summary = {
+        "queries_per_sec": len(batches) * n_q / elapsed,
+        "batch_sec": elapsed / len(batches),
+        "stages_sec_per_batch": stages,
+        "flagged_per_batch": flagged,
+        "max_memory_allocated_bytes": peak,
+        "best_match_hit_rates": hit_rates,
+        "phase7_best_match_hit_rates": big["hit_rates"],
+        "b3_vs_probe_same_lanes": same_probe,
+        "b3_vs_probe_max_key16_step": step_probe,
+        "b3_vs_oracle_same_lanes": same_oracle,
+        "b3_vs_oracle_max_key16_step": step_oracle,
+        "b3_select_flagged_batch0": flagged0,
+        "plain_chunked_flagged_batch0": int(c_flags.sum()),
+        "plain_chunked_vs_oracle_same_lanes_unflagged": same_plain,
+        "plain_chunked_vs_oracle_max_key16_step_unflagged": step_plain,
+        "select_sec_b3_vs_plain_chunked": [t_fused, t_plain],
+        "plain_chunked_pool_g_list_chunk": [pool_g, list_chunk],
+        "mean_candidates": float(np.mean(outs[-1][2])),
+        "b3_launches": b3_launches,
+        "b2_launches": b2_launches,
+    }
+    log("b3 slice: " + json.dumps(summary))
+    if b3_launches <= 0 and dev.type == "cuda":
+        raise AssertionError("kernel B3 was not launched")
+    if same_probe < 0.999 or step_probe > 1:
+        raise AssertionError(
+            f"B3 path vs probe path: {same_probe} lanes equal, key16 step "
+            f"{step_probe}")
+    for i, (rate, rate7) in enumerate(zip(hit_rates, big["hit_rates"])):
+        if abs(rate - rate7) > 1.0 / n_q:
+            raise AssertionError(
+                f"batch {i}: B3 path hit rate {rate} vs phase 7's {rate7}")
+    return b3_launches
 
 
 def main():
@@ -859,11 +1126,13 @@ def main():
     phase_build()
     record = phase_kernel(dev)
     probe_record = phase_probe_kernel(dev)
+    scan_record = phase_scan_kernel(dev)
     launches, index, lib, lib_arrays, params = phase_slice(dev)
     phase_preprocess(dev, index, lib, lib_arrays, params)
     del index, lib
     phase_cuda_vs_cpu(dev)
-    probe_launches = phase_big_slice(dev)
+    big = phase_big_slice(dev)
+    b3_launches = phase_b3_slice(dev, big)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [
         {
@@ -881,10 +1150,20 @@ def main():
             "route": "cuda",
             "source": "ann_solo_tpu_torch/csrc/ivf_probe_scan.cu",
             "replaces": "ann_solo_tpu/ops/ivf_probe_pallas.py:105",
-            "launches": probe_launches,
+            "launches": big["launches"],
             "max_abs_err": probe_record["max_abs_err"],
             "ms": probe_record["ms"],
             "plain_ms": probe_record["plain_ms"],
+        },
+        {
+            "name": "ivf_chunked_scan",
+            "route": "cuda",
+            "source": "ann_solo_tpu_torch/csrc/ivf_chunked_scan.cu",
+            "replaces": "ann_solo_tpu/ops/ivf_scan_pallas.py:146",
+            "launches": b3_launches,
+            "max_abs_err": scan_record["max_abs_err"],
+            "ms": scan_record["ms"],
+            "plain_ms": scan_record["plain_ms"],
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

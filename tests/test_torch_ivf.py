@@ -270,8 +270,9 @@ def test_resolvers_and_convert_roundtrip():
 
 def test_non_fullscan_regime_raises(monkeypatch):
     """A library whose probe union cannot cover it returns the per-query
-    oracle's results (through the probe path); only an int8/bf16 shape
-    beyond the probe path's lane bound still raises, naming kernel B3."""
+    oracle's results through the probe path and, beyond the probe path's
+    lane bound (where this search used to raise), through the plain
+    chunked scan with its repair."""
     from ann_solo_tpu_torch.ops import ivf_probe
 
     rng = np.random.default_rng(1)
@@ -289,5 +290,11 @@ def test_non_fullscan_regime_raises(monkeypatch):
     assert torch.equal(ids, w_ids.to(torch.int32))
     assert torch.equal(scores, w_s)
     monkeypatch.setattr(ivf_probe, "MAX_PROBE_LANES", 1)
-    with pytest.raises(NotImplementedError, match="B3"):
-        index.search_device(queries, 8)
+    chunked = []
+    scan = pivf._ivf_search_chunked
+    monkeypatch.setattr(pivf, "_ivf_search_chunked",
+                        lambda *a, **kw: chunked.append(1) or scan(*a, **kw))
+    ids, scores = index.search_device(queries, 8)
+    assert chunked == [1]
+    assert torch.equal(ids, w_ids.to(torch.int32))
+    assert torch.equal(scores, w_s)

@@ -1,8 +1,10 @@
 """The port's big-library select path vs the JAX package.
 
 Kernel B2's plain version against the Pallas kernel in interpret mode, the
-per-query oracle, the probe path of `search_device` and its dispatch, and
-the open-search slice on a probe-path index.  The JAX package takes its
+per-query oracle, the probe path of `search_device` and its dispatch
+(kernel B3's path and the plain chunked scan are in
+`test_torch_ivf_scan.py`), and the open-search slice on a probe-path
+index.  The JAX package takes its
 probe path the way its own tests force it (`test_ivf_probe_pallas.py`):
 `_FULLSCAN_TRANSIENT = 0`, `ANN_SOLO_TPU_PROBE_PALLAS=force`,
 `ANN_SOLO_TPU_CHUNKED_PALLAS=0`.
@@ -381,26 +383,71 @@ def test_non_covering_union_runs_probe_path(monkeypatch):
 
 
 def test_f32_storage_beyond_fullscan_is_the_oracle(monkeypatch):
+    """f32 storage beyond the full scan, union not covering: the JAX
+    package's degenerate-tile rule (256 lists <= 1 probe x 1,024) takes the
+    plain chunked scan, whose results after repair are the oracle's: the
+    same ids, and the same exact f32 scores up to the rounding of another
+    summation order (a matrix product against the oracle's gathered
+    einsum), rtol 1e-6 as for f32 storage elsewhere."""
     index, queries = _non_covering(torch.float32)
     tiles = _count_probe_tiles(monkeypatch)
+    chunked = []
+    scan = pivf._ivf_search_chunked
+    monkeypatch.setattr(pivf, "_ivf_search_chunked",
+                        lambda *a, **kw: chunked.append(1) or scan(*a, **kw))
     ids, scores = index.search_device(queries, 8)
-    assert tiles == []
+    assert tiles == [] and chunked == [1]
     w_s, w_ids = pivf._ivf_search_perquery(
         *index._blocks(), queries, torch.zeros(40), 1.0, 1, 8, 8, 0.0,
         "Da", False,
     )
     assert torch.equal(ids, w_ids.to(torch.int32))
-    assert torch.equal(scores, w_s)
+    torch.testing.assert_close(scores, w_s, rtol=1e-6, atol=0.0)
 
 
-def test_beyond_lane_bound_raises_b3(monkeypatch):
-    index, queries = _non_covering(torch.bfloat16)
-    cap = index.padded_vectors.shape[1]
-    monkeypatch.setattr(ivf_probe, "MAX_PROBE_LANES", cap)
-    index.search_device(queries, 8)  # 1 probe x cap lanes: within the bound
-    monkeypatch.setattr(ivf_probe, "MAX_PROBE_LANES", cap - 1)
-    with pytest.raises(NotImplementedError, match="B3"):
-        index.search_device(queries, 8)
+def test_beyond_lane_bound_runs_b3(monkeypatch):
+    """A bf16 index beyond the probe path's lane bound takes the fused
+    chunked scan (B3's plain version on the CPU) and returns the JAX
+    package's forced fused search: 8 hot + 8 cold lists, 2 chunks of 16
+    lists, a ppm window, certificates and repair."""
+    rng = np.random.default_rng(97)
+    n, d, l = 5400, 128, 64  # cap lands on 128
+    vectors = _clustered_vectors(rng, n=n, d=d, n_clusters=16)
+    p_mz = np.sort(rng.uniform(400, 1200, n)).astype(np.float32)
+    index = jivf.IvfIndex.build(
+        vectors, IvfConfig(num_list=l, num_probe=16), redundancy=1,
+        storage_dtype=_STORAGE["bf16"][0], precursor_mz=p_mz,
+    )
+    b, k = 96, 32
+    rows = rng.choice(n, b, replace=False)
+    queries = vectors[rows] + 0.05 * rng.normal(size=(b, d)).astype(
+        np.float32)
+    queries = (queries / np.linalg.norm(queries, axis=1, keepdims=True)
+               ).astype(np.float32)
+    q_prec = p_mz[rows].copy()
+    args = dict(charge=2.0, tol_val=50000.0, tol_mode="ppm")
+    port = _port(index)
+    cap = port.padded_vectors.shape[1]
+    assert cap == 128
+    monkeypatch.setattr(jivf, "_FULLSCAN_TRANSIENT", 0)
+    monkeypatch.setenv("ANN_SOLO_TPU_CHUNKED_PALLAS", "force")
+    monkeypatch.setenv("ANN_SOLO_TPU_PROBE_PALLAS", "0")
+    index._device = None
+    e_ids, e_s = index.search_device(queries, k, q_prec=q_prec, **args)
+    monkeypatch.setattr(pivf, "_FULLSCAN_TRANSIENT", 0)
+    monkeypatch.setattr(ivf_probe, "MAX_PROBE_LANES", 16 * cap - 1)
+    fused = []
+    tile = pivf._ivf_chunked_scan_tile
+    monkeypatch.setattr(pivf, "_ivf_chunked_scan_tile",
+                        lambda *a, **kw: fused.append(1) or tile(*a, **kw))
+    tiles = _count_probe_tiles(monkeypatch)
+    g_ids, g_s = port.search_device(
+        torch.from_numpy(queries), k, q_prec=torch.from_numpy(q_prec), **args
+    )
+    assert fused == [1] and tiles == []
+    assert port._last_chunked_flagged == index._last_chunked_flagged
+    _assert_lanes_agree(g_ids.numpy(), g_s.numpy(), np.asarray(e_ids),
+                        np.asarray(e_s))
 
 
 # --------------------------------------------------------------------- #

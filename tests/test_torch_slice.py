@@ -186,6 +186,23 @@ GUARD = textwrap.dedent("""
         OpenSearchParams(vectorize=vp, num_candidates=32))
     assert best.shape == (64,) and (best >= 0).all()
     assert np.isfinite(score).all() and len(matches) == 64
+    # The chunked regimes: kernel B3's plain version with its selection,
+    # and the plain chunked scan (probe path switched off).
+    from ann_solo_tpu_torch.index import ivf
+    from ann_solo_tpu_torch.ops import ivf_probe, ivf_scan, ivf_scan_cuda
+    assert ivf_scan_cuda.LAUNCHES == 0
+    blk = IvfIndex(torch.zeros(8, 64), torch.ones(8, 128, 64,
+                   dtype=torch.int8), torch.arange(8 * 128).view(8, 128),
+                   4, torch.zeros(8, 128), torch.ones(8, 128))
+    q = torch.from_numpy(rng.normal(size=(4, 64)).astype(np.float32))
+    s, pos, flags = ivf_scan.ivf_chunked_scan_select(
+        *blk._blocks()[:4], q, torch.zeros(4), 1.0,
+        torch.tensor([[0, 5]] * 4), 2, 16, 0.0, "Da")
+    assert s.shape == pos.shape == (4, 16) and flags.shape == (4,)
+    ivf._FULLSCAN_TRANSIENT = 0
+    ivf_probe.MAX_PROBE_LANES = 0
+    ids, _ = index.search_device(vec[:8], 4)
+    assert ids.shape == (8, 4) and (ids >= 0).all()
     assert sys.modules["jax"] is None
     print("guard ok", float((best == np.arange(64)).mean()))
 """)
