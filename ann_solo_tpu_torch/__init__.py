@@ -6,9 +6,10 @@ reference this package is tested against).  Modules mirror the JAX layout:
 (preprocessing and hashed vectorization), `index/` (the IVF index) and
 `search.py` (the ANN open-search batch path).
 
-This package imports torch, numpy and the JAX-free host modules of
-`ann_solo_tpu` (`ops.murmur`, `io.masses`); never jax, ml_dtypes, sklearn,
-pandas or h5py.
+This package imports torch and numpy, and nothing of `ann_solo_tpu`:
+what it needs from there (the MurmurHash3 bin table, the proton and
+neutron masses) it keeps as its own copy (`ops/murmur.py`,
+`io/masses.py`).  Never jax, ml_dtypes, sklearn, pandas or h5py.
 """
 
 import torch

@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ann_solo_tpu.io.masses import NEUTRON, PROTON
+from ann_solo_tpu_torch.io.masses import NEUTRON, PROTON
 
 
 class PreprocessParams(NamedTuple):

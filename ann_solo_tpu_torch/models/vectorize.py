@@ -2,9 +2,9 @@
 
 Port of `ann_solo_tpu/models/vectorize.py` (reference
 ann_solo/spectrum.py:122-214).  The bin -> bucket table comes from the
-JAX-free `ann_solo_tpu.ops.murmur`; the float64-exact bin-edge thresholds
-are the same NumPy computation as the JAX package's (copied, because that
-module imports jax).  Peaks accumulate into their buckets one peak column
+port's copy of the MurmurHash3 table (`ops/murmur.py`); the float64-exact
+bin-edge thresholds are the same NumPy computation as the JAX package's,
+copied too.  Peaks accumulate into their buckets one peak column
 at a time in lane order, as the JAX version does: no scatter-add, whose
 CUDA atomics would sum in a run-dependent order and change last ulps that
 int8 quantization and the 16-bit scan keys can expose.
@@ -18,7 +18,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ann_solo_tpu.ops.murmur import hash_bin_table
+from ann_solo_tpu_torch.ops.murmur import hash_bin_table
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -58,14 +59,40 @@ def ensure_built(name: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+           str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}"
         )
+    out.with_suffix(".ptxas").write_text(proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
     return out
+
+
+def ptxas_report(name: str) -> list:
+    """One line per kernel of the last build of `csrc/<name>.cu`: its
+    registers and spills as `ptxas -v` reported them (empty if the
+    library was built elsewhere)."""
+    path = library_path(name).with_suffix(".ptxas")
+    if not path.exists():
+        return []
+    lines, kernel, spills = [], None, ""
+    for line in path.read_text().splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            short = re.search(r"([A-Za-z_]*kernel)(I\w*?E)?", entry.group(1))
+            kernel = short.group(1) + (short.group(2) or "") if short else (
+                entry.group(1))
+            spills = ""
+        elif kernel and "spill" in line:
+            spills = line.strip()
+        elif kernel and "Used" in line and "registers" in line:
+            lines.append(f"{kernel}: {line.split(':', 1)[1].strip()}; "
+                         f"{spills}")
+            kernel = None
+    return lines
 
 
 @functools.lru_cache(maxsize=None)

@@ -20,7 +20,9 @@ through the per-query oracle.
 
 The CUDA kernel that replaces the TPU kernel is `csrc/ivf_chunked_scan.cu`
 (wrapper `ops/ivf_scan_cuda.py`); `ivf_chunked_scan_rows_plain` is what it
-is tested against and what CPU tensors run.  `SG`, `M_RANKS`, `CK` and
+is tested against and what CPU tensors run.  The kernel scores only the
+(query, chunk) pairs of the probe set, walking `chunk_query_lists`, and
+writes `unprobed_row` everywhere else.  `SG`, `M_RANKS`, `CK` and
 `HOT_LISTS` keep the JAX package's values: they define the row format and
 the certificates, so both packages give the same rows.
 """
@@ -133,6 +135,38 @@ def chunk_layout(l: int, cap: int):
         raise ValueError(f"chunked scan: L = {l}, cap = {cap} gives a "
                          f"chunk of {cw} slots, outside the row format")
     return c, cw, npc, l // c, pos_bits
+
+
+def unprobed_row(l: int, cap: int, device=None) -> torch.Tensor:
+    """(LANES,) int32 row of a (query, chunk) that the query does not
+    probe: every score is -inf (key `_KEY_NEG_INF`), so each supergroup
+    keeps its lowest `M_RANKS` slots, the chunk the first `CK` of those,
+    and the row depends on the layout alone.  Kernel B3 writes it for
+    every pair outside the probe set without scanning."""
+    _, cw, npc, _, pos_bits = chunk_layout(l, cap)
+    neg = _KEY_NEG_INF << pos_bits
+    row = torch.full((LANES,), _NEG, dtype=torch.int32, device=device)
+    k_top = min(CK, npc * M_RANKS)
+    lane = torch.arange(k_top, device=device)
+    slot = (lane // M_RANKS) * SG + lane % M_RANKS
+    row[:k_top] = (neg | (cw - 1 - slot)).to(torch.int32)
+    g = torch.arange(npc, device=device)
+    row[CK:CK + npc] = (neg | (cw - 1 - (g * SG + M_RANKS - 1))).to(
+        torch.int32)
+    return row
+
+
+def chunk_query_lists(probed, c: int):
+    """Each chunk's probing queries: ``(lists, counts)``, (n_chunks, B)
+    and (n_chunks,) int32, where row j of ``lists`` starts with the
+    ``counts[j]`` queries (ascending) that probe any of chunk j's ``c``
+    lists in the (B, L) ``probed`` bitmap.  The rest of the row holds
+    the other queries; kernel B3 reads only the first ``counts[j]``."""
+    b, l = probed.shape
+    hit = probed.view(b, l // c, c).amax(dim=2).T  # (n_chunks, B)
+    lists = torch.sort(hit, dim=1, descending=True, stable=True).indices
+    counts = (hit != 0).sum(dim=1, dtype=torch.int32)
+    return lists.to(torch.int32).contiguous(), counts
 
 
 @torch.no_grad()

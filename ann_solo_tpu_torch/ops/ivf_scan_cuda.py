@@ -6,9 +6,14 @@ Replaces the TPU kernel `ann_solo_tpu/ops/ivf_scan_pallas.py::_scan_kernel`
 `ops/ivf_scan.py::ivf_chunked_scan_rows_plain`; the selection that
 follows the rows is `ops/ivf_scan.py::ivf_chunked_scan_select`.
 
-On the H100 the scan is bound by arithmetic on the CUDA cores (B * L *
-cap * D multiply-adds); scores never leave shared memory, and only the
-(B, n_chunks, 128) int32 rows are written.
+On the H100 the function is bound by memory: the list rows read once
+and the (B, n_chunks, 128) int32 rows written.  The kernel scores only
+the (query, chunk) pairs of the probe set, on the tensor cores, walking
+each chunk's list of probing queries (`ops/ivf_scan.py::
+chunk_query_lists`, built here in PyTorch); every other row is the
+layout's constant row (`ops/ivf_scan.py::unprobed_row`), which a fill
+kernel of the same source writes first.  Scores never leave shared
+memory.
 
 Routing is decided by the tensors, never by a fallback: CPU tensors take
 the plain version, CUDA tensors launch the kernel or raise.
@@ -25,6 +30,7 @@ from ann_solo_tpu_torch.ops import _build
 from ann_solo_tpu_torch.ops.ivf_scan import (
     LANES,
     chunk_layout,
+    chunk_query_lists,
     ivf_chunked_scan_rows_plain,
 )
 
@@ -40,14 +46,20 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("ivf_chunked_scan")
     lib.ivf_chunked_scan.restype = ctypes.c_int
     lib.ivf_chunked_scan.argtypes = (
-        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 11
         + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int]
         + [ctypes.c_void_p]
     )
     lib.ivf_chunked_scan_error_string.restype = ctypes.c_char_p
     lib.ivf_chunked_scan_error_string.argtypes = [ctypes.c_int]
-    lib.ivf_chunked_scan_query_tile.restype = ctypes.c_int
-    lib.ivf_chunked_scan_query_tile.argtypes = [ctypes.c_int] * 3
+    lib.ivf_chunked_scan_padded_dim.restype = ctypes.c_int
+    lib.ivf_chunked_scan_padded_dim.argtypes = [ctypes.c_int]
+    lib.ivf_chunked_scan_queries_per_pass.restype = ctypes.c_int
+    lib.ivf_chunked_scan_queries_per_pass.argtypes = []
+    lib.ivf_chunked_scan_smem_bytes.restype = ctypes.c_longlong
+    lib.ivf_chunked_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.ivf_chunked_scan_resident_blocks.restype = ctypes.c_int
+    lib.ivf_chunked_scan_resident_blocks.argtypes = [ctypes.c_int] * 3
     return lib
 
 
@@ -101,18 +113,24 @@ def _launch(vectors, ids, prec, scales, queries, q_prec, charge: float,
     global LAUNCHES
     l, cap, d = vectors.shape
     b = queries.shape[0]
-    c, cw, _, n_chunks, pos_bits = chunk_layout(l, cap)
+    c, _, _, n_chunks, pos_bits = chunk_layout(l, cap)
     lib = _library()
-    if lib.ivf_chunked_scan_query_tile(cw, c, d) == 0:
-        raise ValueError(f"ivf_chunked_scan: D = {d} with {cw}-slot chunks "
-                         "does not fit the kernel's shared memory")
+    lists, counts = chunk_query_lists(probed, c)
+    # Work items: passes of up to `per_pass` probing queries a chunk.
+    per_pass = lib.ivf_chunked_scan_queries_per_pass()
+    ends = torch.cumsum((counts + per_pass - 1) // per_pass, 0,
+                        dtype=torch.int32)
+    q_bf16 = torch.empty((b, lib.ivf_chunked_scan_padded_dim(d)),
+                         dtype=torch.bfloat16, device=vectors.device)
     out = torch.empty((b, n_chunks, LANES), dtype=torch.int32,
                       device=vectors.device)
     stream = torch.cuda.current_stream(vectors.device).cuda_stream
     err = lib.ivf_chunked_scan(
         vectors.data_ptr(), _STORAGE_CODE[vectors.dtype], ids.data_ptr(),
         prec.data_ptr(), scales.data_ptr(), queries.data_ptr(),
-        q_prec.data_ptr(), probed.data_ptr(), out.data_ptr(),
+        q_prec.data_ptr(), probed.data_ptr(), lists.data_ptr(),
+        counts.data_ptr(), ends.data_ptr(), q_bf16.data_ptr(),
+        out.data_ptr(),
         l, cap, c, d, b, pos_bits, float(charge), float(tol_val),
         int(tol_mode == "ppm"), stream,
     )

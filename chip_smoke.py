@@ -26,14 +26,20 @@ Phases, each raising on failure (non-zero exit, no final line):
    (`ivf_chunked_scan_select`, hot lists through B2), at the 2.1M tile
    (B = 1,024, L = 4,096, cap = 768, D = 800, int8, 56 cold + 8 hot
    probes, +-500 Da), bf16 storage with a ppm window (L = 1,024, cap = 256,
-   C = 8), exact tie-heavy data, and 8 probes (no hot lists, so the
-   certificates must fire).  Rule: the finite-lane masks of the rows are
+   C = 8), exact tie-heavy data, 8 probes (no hot lists, so the
+   certificates must fire), the 2.1M tile with every query probing the
+   same 56 cold lists (1,024 queries a probed chunk), and D = 100 bf16 on
+   random and on exact data.  Rule: the finite-lane masks of the rows are
    identical everywhere.  Exact data: rows and the finished (scores,
    positions, flags) bit-identical.  Random data: >= 99% of (query,
    chunk) rows identical (another float32 summation order can move a
    score across a bf16 rounding boundary), and over the queries neither
    side flags, >= 99.9% of (position, score) lanes equal with every
-   16-bit key within one step;
+   16-bit key within one step.  Phases 3-3c log each kernel's time
+   beside its bound: the larger of its bytes (each input read once, each
+   output written once; for B2 and B3 only the lists and chunks this
+   run's probes touch) over 3.35 TB/s and its operations over the peak
+   rate of their type (bf16 tensor cores for B2 and B3, f32 for B1);
 4. the open-search slice at the bench scale: a 131,072-spectrum library
    (K = 50 peaks, hash_len 800), auto num_list, num_probe 512, x2 SOAR
    redundancy, int8 storage; 4 batches of 4,096 charge-2 queries, +-500 Da,
@@ -64,7 +70,9 @@ Phases, each raising on failure (non-zero exit, no final line):
    call of the plain chunked scan.  Gates: B3's launch count grows; >=
    99.9% of (id, score) lanes equal to the probe path, every 16-bit key
    within one step, no duplicate ids; each batch's best-match hit rate
-   equal to phase 7's within one query.
+   equal to phase 7's within one query.  Then one batch of the B3 path
+   and one of the probe path run under torch.profiler, which logs wall
+   and kernel seconds, the idle share and the ten costliest kernels.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -112,15 +120,31 @@ PROBE_CASES = (
 )
 
 # Kernel B3 cases: (name, B, L, cold probes, hot probes, cap, D, storage,
-# tol_val, tol_mode, k_scan, exact data).
+# tol_val, tol_mode, k_scan, exact data, every query probes the same
+# lists).
 SCAN_CASES = (
     ("tile_2m", 1024, 4096, 56, 8, 768, 800, "int8", OPEN_TOL_DA, "Da",
-     1024, False),
+     1024, False, False),
     ("bf16_ppm", 512, 1024, 56, 8, 256, 800, "bf16", 1e5, "ppm", 1024,
+     False, False),
+    ("exact_ties", 256, 256, 24, 8, 256, 128, "int8", 50.0, "Da", 512, True,
      False),
-    ("exact_ties", 256, 256, 24, 8, 256, 128, "int8", 50.0, "Da", 512, True),
-    ("few_probes", 256, 512, 8, 0, 256, 128, "bf16", 0.0, "Da", 512, False),
+    ("few_probes", 256, 512, 8, 0, 256, 128, "bf16", 0.0, "Da", 512, False,
+     False),
+    ("clustered", 1024, 4096, 56, 8, 768, 800, "int8", OPEN_TOL_DA, "Da",
+     1024, False, True),
+    ("ragged_bf16", 200, 128, 24, 8, 256, 100, "bf16", 50.0, "Da", 512,
+     False, False),
+    ("exact_ragged_bf16", 200, 128, 24, 8, 256, 100, "bf16", 50.0, "Da", 512,
+     True, False),
 )
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense, 700 W) for the
+# kernels' bounds: HBM bytes/s, bf16 tensor-core FLOP/s, f32 FLOP/s
+# outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 # The big-library slice (SCALE r04's single-chip point, scale_demo.py).
 N_BIG = 2_097_152
@@ -167,6 +191,26 @@ def time_ms(fn, dev, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize(dev)
     return start.elapsed_time(stop) / reps
+
+
+def bound(name, case, ms, n_bytes, ops, flops_per_s):
+    """The least time the card could take for a kernel's work: the larger
+    of its bytes (each input read once, each output written once) over the
+    HBM rate and its operations over the peak rate of their type.  Logs
+    the kernel's time beside it and returns the record's fields."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / flops_per_s * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"bound {name} {case}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {n_bytes / 1e9:.4f} GB -> {t_bytes:.4f} ms, "
+        f"{ops:.4g} ops -> {t_ops:.4f} ms), {100.0 * bound_ms / ms:.2f}% "
+        "of the bound")
+    return {"bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def tensor_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def synth_library(rng, n, k=K_PEAKS):
@@ -254,6 +298,8 @@ def phase_build(names=("shifted_dot", "ivf_probe_scan", "ivf_chunked_scan")):
     for name, path in zip(names, paths):
         _build.load(name)
         log(f"build: {path.name}{' (already built)' if cached[name] else ''}")
+        for line in _build.ptxas_report(name):
+            log(f"ptxas {name}: {line}")
     log(f"build: {len(names)} kernels in {time.perf_counter() - t0:.2f}s")
 
 
@@ -294,7 +340,17 @@ def phase_kernel(dev, cases=KERNEL_CASES, kernel_reps=20, plain_reps=3):
             lambda: shifted_dot_full_plain(*args), dev, plain_reps
         )
         if name == cases[0][0]:  # the stage-2 shape goes in the record
-            record.update(ms=ms, plain_ms=plain_ms)
+            # Operations at the unpadded widths: per shift a difference,
+            # a second difference, |.|, a compare and a max for each of
+            # the Kq x Kc entries, then the intensity product (2); the
+            # greedy scans the Kq x Kc matrix once per match and once to
+            # stop, a compare and a select per entry.
+            n_shifts = charge + 1 if shift else 1
+            ops = (p * kq * kc * (5 * n_shifts + 2)
+                   + (n_match + p) * kq * kc * 2)
+            n_bytes = tensor_bytes(*args[:8], total, match)
+            record.update(ms=ms, plain_ms=plain_ms,
+                          **bound("B1", name, ms, n_bytes, ops, F32_FLOPS))
         log(f"kernel {name}: P={p} K={qm.shape[1]} charge={charge} "
             f"shift={shift} ties={ties}: identical ({n_match} matches); "
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
@@ -404,7 +460,14 @@ def phase_probe_kernel(dev, cases=PROBE_CASES, kernel_reps=20,
         plain_ms = time_ms(lambda: ivf_probe_scan_plain(*args), dev,
                            plain_reps)
         if name == cases[0][0]:
-            record.update(ms=ms, plain_ms=plain_ms)
+            # Each probed list once (rows, ids, prec, scales), queries,
+            # their precursors and probe ids, and the (B, P * cap) output.
+            n_lists = int(torch.unique(probe_ids).numel())
+            n_bytes = (n_lists * cap * (d * vectors.element_size() + 12)
+                       + tensor_bytes(queries, q_prec, probe_ids, got))
+            ops = 2.0 * b * p * cap * d
+            record.update(ms=ms, plain_ms=plain_ms,
+                          **bound("B2", name, ms, n_bytes, ops, BF16_FLOPS))
         gbytes = b * p * cap * d * vectors.element_size() / 1e9
         log(f"B2 {name}: B={b} L={l} P={p} cap={cap} D={d} {storage} "
             f"window={tol_mode if tol_val > 0 else 'none'}: masks identical "
@@ -444,20 +507,23 @@ def phase_scan_kernel(dev, cases=SCAN_CASES, kernel_reps=5, plain_reps=1):
         ivf_chunked_scan_rows_plain,
         ivf_chunked_scan_select,
     )
+    from ann_solo_tpu_torch.ops import ivf_scan_cuda
     from ann_solo_tpu_torch.ops.ivf_scan_cuda import ivf_chunked_scan_rows
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2026)
     record = {"max_abs_err": 0.0}
     for (name, b, l, p, h, cap, d, storage, tol_val, tol_mode, k_scan,
-         exact) in cases:
+         exact, clustered) in cases:
         arrays = synth_probe_case(gen, dev, b, l, p + h, cap, d, storage,
                                   exact)
         vectors, ids, prec, scales, queries, q_prec, probe_ids = arrays
+        if clustered:  # every query probes query 0's lists
+            probe_ids = probe_ids[:1].expand(b, -1).contiguous()
         cold, hot = split_hot(probe_ids, h)
         probed = torch.zeros((b, l), dtype=torch.uint8, device=dev)
         probed.scatter_(1, cold, 1)
-        pos_bits = chunk_layout(l, cap)[4]
+        c, cw, _, n_chunks, pos_bits = chunk_layout(l, cap)
         args = (vectors, ids, prec, scales, queries, q_prec, float(CHARGE),
                 probed, tol_val, tol_mode)
         rows = ivf_chunked_scan_rows(*args)
@@ -500,11 +566,30 @@ def phase_scan_kernel(dev, cases=SCAN_CASES, kernel_reps=5, plain_reps=1):
         ms = time_ms(lambda: ivf_chunked_scan_rows(*args), dev, kernel_reps)
         plain_ms = time_ms(lambda: ivf_chunked_scan_rows_plain(*args), dev,
                            plain_reps)
+        # Each chunk some query probes read once (rows, ids, prec,
+        # scales), the queries, precursors and bitmap, and the rows out;
+        # a bf16 multiply-add for each slot and dimension of each probed
+        # (query, chunk) pair.
+        hit = probed.view(b, n_chunks, c).amax(2) > 0
+        n_bytes = (int(hit.any(0).sum()) * cw
+                   * (d * vectors.element_size() + 12)
+                   + tensor_bytes(queries, q_prec, probed, rows))
+        ops = 2.0 * int(hit.sum()) * cw * d
+        fields = bound("B3", name, ms, n_bytes, ops, BF16_FLOPS)
+        if dev.type == "cuda":
+            lib = ivf_scan_cuda._library()
+            code = 0 if storage == "int8" else 1
+            log(f"B3 {name}: {lib.ivf_chunked_scan_smem_bytes(code, cw, c)} "
+                "bytes of shared memory a block, "
+                f"{lib.ivf_chunked_scan_resident_blocks(code, cw, c)} "
+                "blocks an SM")
         if name == cases[0][0]:
-            record.update(ms=ms, plain_ms=plain_ms)
+            record.update(ms=ms, plain_ms=plain_ms, **fields)
         log(f"B3 {name}: B={b} L={l} P={p}+{h} hot cap={cap} D={d} "
             f"{storage} window={tol_mode if tol_val > 0 else 'none'} "
-            f"k_scan={k_scan}: masks identical, rows equal {same_rows:.5f}, "
+            f"k_scan={k_scan}{' clustered' if clustered else ''}: "
+            f"{int(hit.sum())} probed (query, chunk) pairs of "
+            f"{b * n_chunks}; masks identical, rows equal {same_rows:.5f}, "
             f"select lanes equal {same_lanes:.5f} (key16 step {key_step}, "
             f"max |d score| {err:.3g}), flagged {float(f_k.float().mean()):.4f}"
             f" / plain {float(f_p.float().mean()):.4f}; kernel {ms:.3f} ms, "
@@ -1002,8 +1087,42 @@ def _lanes_vs(ids, scores, ref_ids, ref_scores, rows=None):
     return same, int((_key16(scores) - _key16(ref_scores)).abs().max())
 
 
+def profile_batch(dev, name, fn):
+    """Device time of one batch by kernel (torch.profiler): wall seconds,
+    kernel seconds, idle share and the ten costliest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ann_solo_tpu_torch.device import synchronize
+
+    synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        synchronize(dev)
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "device_time", None)
+            if us is None:
+                us = e.cuda_time
+            by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e6
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    log(f"profile {name}: " + json.dumps({
+        "wall_sec": wall, "kernel_sec": busy,
+        "idle_share": 1.0 - busy / wall if wall > 0 else None,
+        "top_kernels_sec": [[k[:90], v] for k, v in top],
+    }))
+
+
 def phase_b3_slice(dev, big):
-    """The B3 path at full width on phase 7's index and query batches."""
+    """The B3 path at full width on phase 7's index and query batches,
+    then one batch of it and one of the probe path under
+    torch.profiler."""
     import torch
 
     from ann_solo_tpu_torch.device import synchronize
@@ -1051,8 +1170,10 @@ def phase_b3_slice(dev, big):
         synchronize(dev)
         t_fused = time.perf_counter() - t0
         flagged0 = index._last_chunked_flagged
+        profile_batch(dev, "b3 path, last batch", lambda: run(batches[-1]))
     finally:
         ivf_probe.MAX_PROBE_LANES = bound
+    profile_batch(dev, "probe path, last batch", lambda: run(batches[-1]))
 
     # The plain chunked scan called directly on batch 0.
     vectors, qp = big["embed"](batches[0])
@@ -1144,6 +1265,9 @@ def main():
             "max_abs_err": record["max_abs_err"],
             "ms": record["ms"],
             "plain_ms": record["plain_ms"],
+            "bound_ms": record["bound_ms"],
+            "bound_by": record["bound_by"],
+            "library_ms": None,
         },
         {
             "name": "ivf_probe_scan",
@@ -1154,6 +1278,9 @@ def main():
             "max_abs_err": probe_record["max_abs_err"],
             "ms": probe_record["ms"],
             "plain_ms": probe_record["plain_ms"],
+            "bound_ms": probe_record["bound_ms"],
+            "bound_by": probe_record["bound_by"],
+            "library_ms": None,
         },
         {
             "name": "ivf_chunked_scan",
@@ -1164,6 +1291,9 @@ def main():
             "max_abs_err": scan_record["max_abs_err"],
             "ms": scan_record["ms"],
             "plain_ms": scan_record["plain_ms"],
+            "bound_ms": scan_record["bound_ms"],
+            "bound_by": scan_record["bound_by"],
+            "library_ms": None,
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

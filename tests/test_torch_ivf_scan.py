@@ -502,3 +502,112 @@ def test_fused_dispatch_redundant_ragged_d(monkeypatch):
     assert tiles == [32, 32, 16]
     _assert_lanes_agree(ids.numpy(), scores.numpy(), np.asarray(e_ids),
                         np.asarray(e_s))
+
+
+# --------------------------------------------------------------------- #
+# (5) What kernel B3 adds outside its scan: the constant row of an
+# unprobed (query, chunk) and each chunk's list of probing queries
+
+
+def _probed_bitmap(rng, kind, b, l, p):
+    """(B, L) uint8 probe bitmaps: random probe sets, one probe set shared
+    by every query, none, or every list."""
+    probed = np.zeros((b, l), np.uint8)
+    if kind == "random":
+        for q in range(b):
+            probed[q, rng.choice(l, min(p, l), replace=False)] = 1
+    elif kind == "clustered":
+        probed[:, rng.choice(l, min(p, l), replace=False)] = 1
+    elif kind == "all":
+        probed[:] = 1
+    return probed
+
+
+# (L, cap, D): the layouts of chip_smoke.py's phase-3c cases (2.1M tile,
+# bf16 ppm, exact ties, 8 probes, ragged D), cap 384 (C = 4, npc = 6) and
+# a one-supergroup chunk (C = 1: 24 survivors, lanes 24-95 pad with -1).
+@pytest.mark.parametrize("l,cap,d", [
+    (4096, 768, 4), (1024, 256, 8), (256, 256, 8), (512, 256, 8),
+    (128, 256, 100), (64, 384, 16), (3, 256, 16),
+])
+def test_unprobed_row_equals_plain_rows(l, cap, d):
+    rng = np.random.default_rng(l + cap)
+    b = 3
+    c, cw, npc, n_chunks, pos_bits = pscan.chunk_layout(l, cap)
+    vectors = torch.from_numpy(
+        rng.integers(-127, 128, (l, cap, d)).astype(np.int8))
+    ids = torch.arange(l * cap, dtype=torch.int32).view(l, cap)
+    prec = torch.from_numpy(rng.uniform(400, 1200, (l, cap)).astype(
+        np.float32))
+    scales = torch.full((l, cap), 0.01)
+    queries = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+    q_prec = torch.full((b,), 800.0)
+    probed = torch.from_numpy(_probed_bitmap(rng, "random", b, l,
+                                             max(1, l // 8)))
+    probed[0] = 0  # query 0 probes nothing
+    rows = pscan.ivf_chunked_scan_rows_plain(
+        vectors, ids, prec, scales, queries, q_prec, 2.0, probed, 0.0, "Da")
+    hit = probed.view(b, n_chunks, c).amax(2) > 0
+    assert (~hit).sum() > 0
+    want = pscan.unprobed_row(l, cap)
+    assert want.shape == (pscan.LANES,) and want.dtype == torch.int32
+    assert torch.equal(rows[~hit], want.expand(int((~hit).sum()), -1))
+    # Lane 0 of a probed chunk with a finite score ranks above it.
+    finite = hit & ((rows[..., 0] >> pos_bits) > pscan._KEY_NEG_INF)
+    assert bool((rows[..., 0][finite] > want[0]).all())
+    assert int((want[pscan.CK + npc:] == -1).sum()) == pscan.LANES - (
+        pscan.CK + npc)
+    assert int((want[:pscan.CK] >= 0).sum()) == min(pscan.CK,
+                                                    npc * pscan.M_RANKS)
+
+
+@pytest.mark.parametrize("kind", ["random", "clustered", "empty", "all"])
+@pytest.mark.parametrize("l,c", [(64, 1), (64, 2), (128, 8)])
+def test_chunk_query_lists_cover_each_probed_pair_once(kind, l, c):
+    rng = np.random.default_rng(7 * l + c)
+    b = 37
+    probed = _probed_bitmap(rng, kind, b, l, 6)
+    lists, counts = pscan.chunk_query_lists(torch.from_numpy(probed), c)
+    n_chunks = l // c
+    assert lists.shape == (n_chunks, b) and counts.shape == (n_chunks,)
+    assert lists.dtype == counts.dtype == torch.int32
+    assert lists.is_contiguous()
+    want = {(j, q) for q in range(b) for j in range(n_chunks)
+            if probed[q, j * c:(j + 1) * c].any()}
+    got = []
+    for j in range(n_chunks):
+        qs = lists[j, :counts[j]].tolist()
+        assert qs == sorted(set(qs)), "ascending, each query once"
+        got += [(j, q) for q in qs]
+    assert len(got) == len(set(got)) and set(got) == want
+    assert int(counts.sum()) == len(want)
+    if kind == "empty":
+        assert int(counts.sum()) == 0
+    if kind == "all":
+        assert bool((counts == b).all())
+
+
+@pytest.mark.parametrize("kind", ["random", "clustered"])
+def test_rows_from_probed_pairs_equal_plain(kind):
+    """The kernel's decomposition on the CPU: the plain rows of each
+    chunk's probing queries alone, the constant row everywhere else,
+    equal the plain rows of the whole batch."""
+    rng = np.random.default_rng(5)
+    inputs = _select_inputs(rng, "bf16", False, l=32, cap=128, d=40, b=24)
+    vectors, ids, prec, scales, queries, q_prec, _ = (
+        _to_torch(a) for a in inputs)
+    l, cap, _ = vectors.shape
+    c, _, _, n_chunks, _ = pscan.chunk_layout(l, cap)
+    probed = torch.from_numpy(_probed_bitmap(rng, kind, 24, l, 5))
+    args = (2.0, probed, 50.0, "Da")
+    want = pscan.ivf_chunked_scan_rows_plain(vectors, ids, prec, scales,
+                                             queries, q_prec, *args)
+    got = pscan.unprobed_row(l, cap).repeat(24, n_chunks, 1)
+    lists, counts = pscan.chunk_query_lists(probed, c)
+    for j in range(n_chunks):
+        qs = lists[j, :counts[j]].long()
+        if len(qs):
+            got[qs, j] = pscan.ivf_chunked_scan_rows_plain(
+                vectors, ids, prec, scales, queries[qs], q_prec[qs], 2.0,
+                probed[qs], 50.0, "Da")[:, j]
+    assert torch.equal(got, want)
