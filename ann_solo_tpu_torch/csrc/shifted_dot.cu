@@ -16,15 +16,29 @@
 // Outputs: total (P,) float32 and match (P, K) int32, match[p, i] = the
 // candidate peak assigned to query peak i, or -1.
 //
-// What bounds it on the H100: not HBM (a pair reads ~1 KB and does
-// O(K^3) compare/select work, K^2 entries per greedy step), but the K^2
-// compare/select work per pair and the shared memory that holds the K x K
-// matrix, which sets how many pairs are in flight per SM.  The design: one
-// warp per pair, its matrix in shared memory (10 KB at K = 50, 64 KB at
-// K = 128), each greedy step a strided scan plus a 5-step shuffle
-// reduction on (value, flat index), early exit once the maximum is <= 0
-// (typical candidates match only a handful of peaks).  Up to 8 warps share
-// a block, sized so that two blocks fit an SM at K = 50.
+// What bounds it on the H100: operations, not bytes.  A pair reads about
+// 1 KB and the function needs K^2 * (5 * shifts + 2) float operations to
+// build its matrix (at P = 32,768, K = 50, three shifts: 1.4e9, 0.02 ms
+// at 67 TFLOP/s f32); the greedy itself needs no pass over the matrix,
+// because almost every entry is 0: only peaks within the tolerance at one
+// of the shifts are positive, a few dozen a pair.  The design:
+//
+// * one warp per pair, eight pairs a block; the candidate peaks sit in
+//   registers (column j = 32 c + lane), the query peaks in shared memory;
+// * the matrix is never stored: lanes build it row by row (the usual one
+//   or two active shifts unrolled, each column's multipliers in
+//   registers), and a ballot and a prefix count compact its positive
+//   entries, in ascending flat order, into a list of (value, i << 16 | j)
+//   in shared memory;
+// * the greedy is an iterated argmax over that list, skipping entries
+//   whose row or column is taken.  The entries alive at a step of the
+//   dense loop are exactly the positive entries with a free row and
+//   column, so its argmax (value desc, flat index asc, a warp reduction)
+//   is the same entry: same picks, same order, `total += best` in
+//   selection order;
+// * a pair with more than kList positive entries (a wide tolerance) runs
+//   the same argmax over the entries recomputed at each step from the
+//   peaks, skipping taken rows and columns: slower, the same function.
 //
 // Arithmetic matches the plain PyTorch version bit for bit: IEEE division
 // for prec_diff / s (build without fast-math; -fmad=false keeps every
@@ -37,19 +51,97 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr unsigned kFullMask = 0xffffffffu;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxPeaks = 128;
-constexpr int kMaxWarpsPerBlock = 8;
-constexpr size_t kSmemTarget = 96 * 1024;  // per block: two blocks per SM
+constexpr int kCols = kMaxPeaks / kWarp;  // candidate peaks a lane holds
+constexpr int kWarps = 8;                 // pairs a block
+constexpr int kList = 256;                // positive entries kept a pair
 constexpr size_t kSmemDefault = 48 * 1024;
 
-// Floats of shared memory one warp uses: the K x K matrix, four peak rows
-// (q_mz, q_int, c_mz, c_int) and two int rows (c_ann, match).
-__host__ __device__ inline size_t warp_smem_words(int k) {
-  return (size_t)k * k + 6 * (size_t)k;
+// 32-bit words of shared memory one warp uses: q_mz, q_int, match and the
+// taken columns (K each), the shift offsets, the list's values and (i, j).
+__host__ __device__ inline int offset_words(int num_shifts) {
+  return num_shifts > 1 ? num_shifts : 1;
+}
+__host__ __device__ inline size_t warp_smem_words(int k, int num_shifts) {
+  return 4 * (size_t)k + offset_words(num_shifts) + 2 * (size_t)kList;
 }
 
-__global__ void shifted_dot_greedy_kernel(
+// Entry (i, j) of the match-score matrix; off[s] = prec_diff / s.
+__device__ __forceinline__ float entry(float qmz, float qint, float cmz,
+                                       float cint, int ann, int n_shift,
+                                       const float* off, float tol) {
+  const float diff = qmz - cmz;
+  float mult = fabsf(diff) <= tol ? 1.0f : 0.0f;
+  for (int s = 1; s <= n_shift; ++s) {
+    if (fabsf(diff - off[s]) <= tol) {
+      const float m =
+          ann == s ? 1.0f : (ann == 0 ? (float)(2.0 / 3.0) : 0.0f);
+      mult = fmaxf(mult, m);
+    }
+  }
+  return (mult * qint) * cint;
+}
+
+// Compacts the pair's positive entries into (s_val, s_ij), in ascending
+// flat order (row by row, and in a row by ballot order, j = 32 c + lane);
+// returns how many there are (only the first kList are stored).  NS >= 0
+// is the number of active shifts, unrolled with each column's multipliers
+// in registers; NS < 0 takes any count through `entry`.  The same
+// operations in the same order either way.
+template <int NS>
+__device__ __forceinline__ int compact_positive(
+    const float* s_qmz, const float* s_qint, const float (&cmz)[kCols],
+    const float (&cint)[kCols], const int (&cann)[kCols], int k,
+    int n_shift, const float* s_off, float tol, int lane, float* s_val,
+    int* s_ij) {
+  constexpr int kNS = NS > 0 ? NS : 1;
+  float off[kNS], mul[kCols][kNS];
+#pragma unroll
+  for (int s = 0; s < kNS; ++s) {
+    off[s] = NS > 0 ? s_off[s + 1] : 0.0f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      mul[c][s] = cann[c] == s + 1 ? 1.0f
+                                   : (cann[c] == 0 ? (float)(2.0 / 3.0) : 0.0f);
+  }
+  int n = 0;
+  for (int i = 0; i < k; ++i) {
+    const float qm = s_qmz[i];
+    const float qi = s_qint[i];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      if (c * kWarp >= k) break;  // uniform across the warp
+      const int j = c * kWarp + lane;
+      float v = 0.0f;
+      if (j < k) {
+        if (NS < 0) {
+          v = entry(qm, qi, cmz[c], cint[c], cann[c], n_shift, s_off, tol);
+        } else {
+          const float diff = qm - cmz[c];
+          float mult = fabsf(diff) <= tol ? 1.0f : 0.0f;
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            if (fabsf(diff - off[s]) <= tol) mult = fmaxf(mult, mul[c][s]);
+          }
+          v = (mult * qi) * cint[c];
+        }
+      }
+      const unsigned pos = __ballot_sync(kFull, v > 0.0f);
+      if (v > 0.0f) {
+        const int at = n + __popc(pos & ((1u << lane) - 1u));
+        if (at < kList) {
+          s_val[at] = v;
+          s_ij[at] = (i << 16) | j;
+        }
+      }
+      n += __popc(pos);
+    }
+  }
+  return n;
+}
+
+__global__ void __launch_bounds__(kWarps * kWarp) shifted_dot_greedy_kernel(
     const float* __restrict__ q_mz, const float* __restrict__ q_int,
     const float* __restrict__ c_mz, const float* __restrict__ c_int,
     const int* __restrict__ c_ann, const float* __restrict__ q_prec,
@@ -59,85 +151,110 @@ __global__ void shifted_dot_greedy_kernel(
   extern __shared__ float smem[];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  const int pair = blockIdx.x * (blockDim.x / kWarp) + warp;
+  const int pair = blockIdx.x * kWarps + warp;
   if (pair >= n_pairs) return;  // whole warp leaves together
 
-  const int kk = k * k;
-  float* mat = smem + (size_t)warp * warp_smem_words(k);
-  float* s_qmz = mat + kk;
+  float* s_qmz = smem + (size_t)warp * warp_smem_words(k, num_shifts);
   float* s_qint = s_qmz + k;
-  float* s_cmz = s_qint + k;
-  float* s_cint = s_cmz + k;
-  int* s_ann = reinterpret_cast<int*>(s_cint + k);
-  int* s_match = s_ann + k;
+  int* s_match = reinterpret_cast<int*>(s_qint + k);
+  int* s_taken = s_match + k;
+  float* s_off = reinterpret_cast<float*>(s_taken + k);
+  float* s_val = s_off + offset_words(num_shifts);
+  int* s_ij = reinterpret_cast<int*>(s_val + kList);
 
   const size_t row = (size_t)pair * k;
+  float cmz[kCols], cint[kCols];
+  int cann[kCols];
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    const int j = c * kWarp + lane;
+    cmz[c] = j < k ? c_mz[row + j] : 0.0f;
+    cint[c] = j < k ? c_int[row + j] : 0.0f;
+    cann[c] = j < k ? c_ann[row + j] : -1;
+  }
   for (int t = lane; t < k; t += kWarp) {
     s_qmz[t] = q_mz[row + t];
     s_qint[t] = q_int[row + t];
-    s_cmz[t] = c_mz[row + t];
-    s_cint[t] = c_int[row + t];
-    s_ann[t] = c_ann[row + t];
     s_match[t] = -1;
+    s_taken[t] = 0;
   }
-  __syncwarp();
-
   const int chg = charge[pair];
   const float prec_diff = (q_prec[pair] - c_prec[pair]) * (float)chg;
   const bool shifted =
       allow_shift && num_shifts > 1 && fabsf(prec_diff) >= tol;
-  const float two_thirds = (float)(2.0 / 3.0);
-
-  // Match-score matrix, one flat entry per lane per stride.
-  for (int f = lane; f < kk; f += kWarp) {
-    const int i = f / k;
-    const int j = f - i * k;
-    const float diff = s_qmz[i] - s_cmz[j];
-    float mult = fabsf(diff) <= tol ? 1.0f : 0.0f;
-    if (shifted) {
-      const int ann = s_ann[j];
-      for (int s = 1; s < num_shifts && s <= chg; ++s) {
-        const float offset = prec_diff / (float)s;
-        if (fabsf(diff - offset) <= tol) {
-          const float m = ann == s ? 1.0f : (ann == 0 ? two_thirds : 0.0f);
-          mult = fmaxf(mult, m);
-        }
-      }
-    }
-    mat[f] = (mult * s_qint[i]) * s_cint[j];
+  // Active shifts 1..n_shift: s < num_shifts and s <= charge.
+  const int n_shift = shifted ? min(num_shifts - 1, chg) : 0;
+  for (int s = lane; s < num_shifts; s += kWarp) {
+    s_off[s] = s > 0 ? prec_diff / (float)s : 0.0f;
   }
   __syncwarp();
 
-  // Greedy assignment: at most K rounds, each consuming one row and column.
+  // n_shift is uniform across the warp: one branch runs.
+  const int n =
+      n_shift <= 0 ? compact_positive<0>(s_qmz, s_qint, cmz, cint, cann, k,
+                                         n_shift, s_off, tol, lane, s_val,
+                                         s_ij)
+      : n_shift == 1 ? compact_positive<1>(s_qmz, s_qint, cmz, cint, cann, k,
+                                           n_shift, s_off, tol, lane, s_val,
+                                           s_ij)
+      : n_shift == 2 ? compact_positive<2>(s_qmz, s_qint, cmz, cint, cann, k,
+                                           n_shift, s_off, tol, lane, s_val,
+                                           s_ij)
+                     : compact_positive<-1>(s_qmz, s_qint, cmz, cint, cann,
+                                            k, n_shift, s_off, tol, lane,
+                                            s_val, s_ij);
+  __syncwarp();
+
+  // Greedy assignment: at most K rounds, each taking one row and column.
+  // (i << 16 | j) orders entries as their flat index i * K + j does.
+  const bool listed = n <= kList;
   float total = 0.0f;
   for (int step = 0; step < k; ++step) {
     float best = -CUDART_INF_F;
-    int idx = kk;
-    for (int f = lane; f < kk; f += kWarp) {
-      const float v = mat[f];
-      if (v > best) {  // ascending f: the strict > keeps the lowest index
-        best = v;
-        idx = f;
+    int best_ij = 0x7fffffff;
+    if (listed) {
+      for (int t = lane; t < n; t += kWarp) {  // ascending: strict > keeps
+        const int ij = s_ij[t];                // the lowest index
+        if (s_match[ij >> 16] >= 0 || s_taken[ij & 0xffff]) continue;
+        const float v = s_val[t];
+        if (v > best) {
+          best = v;
+          best_ij = ij;
+        }
+      }
+    } else {  // the live entries, recomputed in ascending order
+      for (int i = 0; i < k; ++i) {
+        if (s_match[i] >= 0) continue;  // uniform across the warp
+        const float qm = s_qmz[i];
+        const float qi = s_qint[i];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          const int j = c * kWarp + lane;
+          if (j >= k || s_taken[j]) continue;
+          const float v =
+              entry(qm, qi, cmz[c], cint[c], cann[c], n_shift, s_off, tol);
+          if (v > best) {
+            best = v;
+            best_ij = (i << 16) | j;
+          }
+        }
       }
     }
 #pragma unroll
     for (int off = kWarp / 2; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFullMask, best, off);
-      const int oi = __shfl_xor_sync(kFullMask, idx, off);
-      if (ov > best || (ov == best && oi < idx)) {
+      const float ov = __shfl_xor_sync(kFull, best, off);
+      const int oi = __shfl_xor_sync(kFull, best_ij, off);
+      if (ov > best || (ov == best && oi < best_ij)) {
         best = ov;
-        idx = oi;
+        best_ij = oi;
       }
     }
     if (!(best > 0.0f)) break;  // uniform across the warp
     total += best;
-    const int i = idx / k;
-    const int j = idx - i * k;
-    if (lane == 0) s_match[i] = j;
-    __syncwarp();  // every lane has finished reading before the zeroing
-    for (int t = lane; t < k; t += kWarp) {
-      mat[i * k + t] = 0.0f;
-      mat[t * k + j] = 0.0f;
+    __syncwarp();  // every lane has finished reading before the update
+    if (lane == 0) {
+      s_match[best_ij >> 16] = best_ij & 0xffff;
+      s_taken[best_ij & 0xffff] = 1;
     }
     __syncwarp();
   }
@@ -164,19 +281,15 @@ int shifted_dot_greedy(const float* q_mz, const float* q_int,
     return (int)cudaErrorInvalidValue;
   }
   if (n_pairs == 0) return (int)cudaSuccess;
-  const size_t per_warp = warp_smem_words(k) * sizeof(float);
-  int warps = (int)(kSmemTarget / per_warp);
-  warps = warps < 1 ? 1 : (warps > kMaxWarpsPerBlock ? kMaxWarpsPerBlock
-                                                      : warps);
-  const size_t smem = (size_t)warps * per_warp;
+  const size_t smem = kWarps * warp_smem_words(k, num_shifts) * sizeof(float);
   if (smem > kSmemDefault) {
     const cudaError_t err = cudaFuncSetAttribute(
         shifted_dot_greedy_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int blocks = (n_pairs + warps - 1) / warps;
-  shifted_dot_greedy_kernel<<<blocks, warps * kWarp, smem,
+  const int blocks = (n_pairs + kWarps - 1) / kWarps;
+  shifted_dot_greedy_kernel<<<blocks, kWarps * kWarp, smem,
                               (cudaStream_t)stream>>>(
       q_mz, q_int, c_mz, c_int, c_ann, q_prec, c_prec, charge, total, match,
       n_pairs, k, tol, num_shifts, allow_shift);

@@ -3,8 +3,8 @@
 Each kernel source under `ann_solo_tpu_torch/csrc/` has a plain C entry
 point, so it compiles in seconds without PyTorch's headers.  The shared
 library lands in `build/kernels/` at the root of the checkout, named by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused.  Nothing here runs at import time.
+hash of the source, the shared headers and the flags, so an edited source
+rebuilds and an unchanged one is reused.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -44,8 +44,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the shared library for `csrc/<name>.cu` is (or will be) built."""
-    source = (CSRC_DIR / f"{name}.cu").read_bytes()
+    """Where the shared library for `csrc/<name>.cu` is (or will be) built:
+    keyed by the source, the shared headers `csrc/*.cuh` and the flags."""
+    source = (CSRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
         source + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]

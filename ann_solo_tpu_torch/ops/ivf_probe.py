@@ -9,7 +9,8 @@ tie-break order every search regime shares; no selection happens here.
 
 The CUDA kernel that replaces the TPU kernel is `csrc/ivf_probe_scan.cu`
 (wrapper `ops/ivf_probe_cuda.py`); this module is what it is tested
-against and what CPU tensors run.  Of the JAX package's support rules only
+against and what CPU tensors run, and it builds the kernel's list-major
+index of the probe table (`list_probe_entries`).  Of the JAX package's support rules only
 two are about the computation and are kept here; the rest sized TPU
 memories (scalar-prefetch and VMEM budgets, power-of-two batches, D and
 cap multiples of 128) and have no counterpart.
@@ -49,6 +50,24 @@ def window_mask(qp, prec, charge: float, tol_val: float, tol_mode: str):
     return (qp - prec).abs() / prec.clamp_min(1e-6) * 1e6 <= tol_val
 
 
+def list_probe_entries(probe_ids, l: int):
+    """The (B, P) probe table inverted into each list's entries.
+
+    Returns ``(entries, starts, counts)``: ``entries`` (B * P,) int32 holds
+    every entry e = b * P + p once, grouped by list id and ascending within
+    a list; list j's are ``entries[starts[j]:starts[j + 1]]``, ``counts[j]``
+    of them.  Ids outside [0, L) form a last group, list L, so ``starts``
+    is (L + 2,) and ``counts`` (L + 1,), both int32.  One stable sort and
+    a search on the device: no host synchronisation."""
+    flat = probe_ids.reshape(-1).to(torch.int64)
+    key = torch.where((flat >= 0) & (flat < l), flat, l)
+    key, order = torch.sort(key, stable=True)
+    starts = torch.searchsorted(
+        key, torch.arange(l + 2, dtype=torch.int64, device=key.device))
+    return (order.to(torch.int32), starts.to(torch.int32),
+            starts.diff().to(torch.int32))
+
+
 @torch.no_grad()
 def ivf_probe_scan_plain(
     padded_vectors,  # (L, cap, D) int8 | bfloat16
@@ -63,8 +82,9 @@ def ivf_probe_scan_plain(
     tol_mode: str,
 ):
     """(B, P * cap) float32 masked scores, lane p * cap + s for slot s of
-    the query's p-th probed list; -inf where the slot is empty or (with
-    tol_val > 0) outside the precursor window."""
+    the query's p-th probed list; -inf where the slot is empty, (with
+    tol_val > 0) outside the precursor window, or of a probe id outside
+    [0, L)."""
     l, cap, d = padded_vectors.shape
     b, p = probe_ids.shape
     q = queries.to(torch.bfloat16).to(torch.float32)
@@ -75,12 +95,14 @@ def ivf_probe_scan_plain(
     for start in range(0, b, group):
         probes = probe_ids[start:start + group].to(torch.int64)
         g = probes.shape[0]
+        listed = ((probes >= 0) & (probes < l)).repeat_interleave(cap, 1)
+        probes = probes.clamp(0, l - 1)
         # Exact bf16 x storage products (int8 and bf16 values are exact
         # in float32), accumulated in float32 with TF32 off.
         rows = padded_vectors[probes].to(torch.float32).view(g, p * cap, d)
         scores = torch.bmm(rows, q[start:start + g, :, None])[..., 0]
         scores = scores * padded_scales[probes].view(g, p * cap)
-        mask = padded_ids[probes].view(g, p * cap) >= 0
+        mask = (padded_ids[probes].view(g, p * cap) >= 0) & listed
         if tol_val > 0:
             mask &= window_mask(
                 q_prec[start:start + g, None],

@@ -5,10 +5,13 @@ _probe_scan_kernel` (entry `ivf_probe_scan`).  The kernel source is
 `ann_solo_tpu_torch/csrc/ivf_probe_scan.cu`, its plain PyTorch version
 `ops/ivf_probe.py::ivf_probe_scan_plain`.
 
-On the H100 the scan is bound by device-memory bytes: it reads every
-probed list's rows once per query (B * P * cap * D bytes) and writes the
-(B, P * cap) float32 score block; the kernel streams each row once with
-16-byte loads and keeps the query in shared memory.
+On the H100 the scan is bound by device-memory bytes: the probed lists'
+rows read once, and the (B, P * cap) float32 score block written.  The
+kernel is list-major: the wrapper inverts the probe table into each
+list's entries (`ops/ivf_probe.py::list_probe_entries`) and counts each
+list's work items (passes of up to 32 entries times tiles of 256 slots)
+on the device, with no host synchronisation; one pass over a list's rows
+scores all its entries on the tensor cores.
 
 Routing is decided by the tensors, never by a fallback: CPU tensors take
 the plain version, CUDA tensors launch the kernel or raise.
@@ -22,7 +25,10 @@ import functools
 import torch
 
 from ann_solo_tpu_torch.ops import _build
-from ann_solo_tpu_torch.ops.ivf_probe import ivf_probe_scan_plain
+from ann_solo_tpu_torch.ops.ivf_probe import (
+    ivf_probe_scan_plain,
+    list_probe_entries,
+)
 
 _STORAGE_CODE = {torch.int8: 0, torch.bfloat16: 1}
 
@@ -36,13 +42,21 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("ivf_probe_scan")
     lib.ivf_probe_scan.restype = ctypes.c_int
     lib.ivf_probe_scan.argtypes = (
-        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 10
         + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int]
         + [ctypes.c_void_p]
     )
     lib.ivf_probe_scan_error_string.restype = ctypes.c_char_p
     lib.ivf_probe_scan_error_string.argtypes = [ctypes.c_int]
-    lib.ivf_probe_scan_max_dim.restype = ctypes.c_int
+    for name in ("entries_per_pass", "slots_per_item"):
+        fn = getattr(lib, f"ivf_probe_scan_{name}")
+        fn.restype, fn.argtypes = ctypes.c_int, []
+    lib.ivf_probe_scan_padded_dim.restype = ctypes.c_int
+    lib.ivf_probe_scan_padded_dim.argtypes = [ctypes.c_int]
+    lib.ivf_probe_scan_smem_bytes.restype = ctypes.c_longlong
+    lib.ivf_probe_scan_smem_bytes.argtypes = [ctypes.c_int]
+    lib.ivf_probe_scan_resident_blocks.restype = ctypes.c_int
+    lib.ivf_probe_scan_resident_blocks.argtypes = [ctypes.c_int]
     return lib
 
 
@@ -95,20 +109,25 @@ def _launch(vectors, ids, prec, scales, queries, q_prec, charge: float,
     global LAUNCHES
     l, cap, d = vectors.shape
     b, p = probe_ids.shape
-    lib = _library()
-    max_dim = lib.ivf_probe_scan_max_dim()  # the query row in shared memory
-    if d > max_dim:
-        raise ValueError(f"ivf_probe_scan: D = {d} > {max_dim}, the "
-                         "kernel's shared-memory limit")
     if b * p >= 1 << 31:
         raise ValueError("ivf_probe_scan: B * P must be < 2^31")
-    probe32 = probe_ids.to(torch.int32).contiguous()
+    lib = _library()
+    entries, starts, counts = list_probe_entries(probe_ids, l)
+    # Work items: passes of up to `per_pass` entries a list, times the
+    # slot tiles of a list; list L holds the entries of invalid ids.
+    per_pass = lib.ivf_probe_scan_entries_per_pass()
+    n_tiles = -(-cap // lib.ivf_probe_scan_slots_per_item())
+    ends = torch.cumsum((counts + per_pass - 1) // per_pass * n_tiles, 0,
+                        dtype=torch.int32)
+    q_bf16 = torch.empty((b, lib.ivf_probe_scan_padded_dim(d)),
+                         dtype=torch.bfloat16, device=vectors.device)
     out = torch.empty((b, p * cap), dtype=torch.float32, device=vectors.device)
     stream = torch.cuda.current_stream(vectors.device).cuda_stream
     err = lib.ivf_probe_scan(
         vectors.data_ptr(), _STORAGE_CODE[vectors.dtype], ids.data_ptr(),
         prec.data_ptr(), scales.data_ptr(), queries.data_ptr(),
-        q_prec.data_ptr(), probe32.data_ptr(), out.data_ptr(),
+        q_prec.data_ptr(), entries.data_ptr(), starts.data_ptr(),
+        ends.data_ptr(), q_bf16.data_ptr(), out.data_ptr(),
         l, cap, d, b, p, float(charge), float(tol_val),
         int(tol_mode == "ppm"), stream,
     )
@@ -125,7 +144,8 @@ def ivf_probe_scan(
 ):
     """(B, P * cap) float32 masked scores of every probed slot, the
     `ivf_probe_pallas.py::ivf_probe_scan` contract (see
-    `ivf_probe_scan_plain`).  Probe ids must lie in [0, L)."""
+    `ivf_probe_scan_plain`); every slot of a probe id outside [0, L) is
+    -inf."""
     _check(padded_vectors, padded_ids, padded_prec, padded_scales, queries,
            q_prec, probe_ids, tol_mode)
     if padded_vectors.device.type == "cpu":

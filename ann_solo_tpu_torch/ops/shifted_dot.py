@@ -13,7 +13,9 @@ Port of `ann_solo_tpu/ops/shifted_dot.py` (semantics of the reference
     flattened matrix, ties to the lowest flat index, zeroing the chosen
     row and column, until no positive entry is left.
 
-This is what the CUDA kernel (`csrc/shifted_dot.cu`) must compute: the
+The CUDA kernel (`csrc/shifted_dot.cu`) runs step 2 over each pair's
+positive entries alone (`greedy_over_positives`, the same function).
+This is what the kernel must compute: the
 term order ``(mult * q_int) * c_int`` and the sequential ``total += best``
 in selection order are kept, so the kernel's totals equal these bit for
 bit.  Every float division here divides by a tensor, never by a Python
@@ -101,6 +103,48 @@ def greedy_assignment(scores: torch.Tensor):
         blocked = (row_of == i[:, None]) | (col_of == j[:, None])
         flat = torch.where(blocked & take[:, None], 0.0, flat)
     return total, match_q, match_c
+
+
+def greedy_over_positives(scores: torch.Tensor):
+    """`greedy_assignment` computed the way the CUDA kernel does it: over
+    each pair's positive entries alone.
+
+    Walking them in (value desc, flat index asc) order and taking each
+    entry whose row and column are still free picks the same entries in
+    the same order as the iterated argmax: at each of its steps the live
+    entries are the positive ones with a free row and column, and an entry
+    skipped once never comes alive again.  Same outputs as
+    `greedy_assignment`, bit for bit (``total += value`` in selection
+    order).  For tests and `chip_smoke.py`; the search never calls it."""
+    p, kq, kc = scores.shape
+    dev = scores.device
+    flat = scores.reshape(p, kq * kc)
+    n_max = int((flat > 0).sum(1).max()) if p else 0
+    # A stable sort of the negated values: ties keep the lower flat index.
+    order = torch.sort(-flat, dim=1, stable=True).indices[:, :n_max]
+    values = flat.gather(1, order)
+    pairs = torch.arange(p, device=dev)
+    row_free = torch.ones((p, kq), dtype=torch.bool, device=dev)
+    col_free = torch.ones((p, kc), dtype=torch.bool, device=dev)
+    total = torch.zeros(p, dtype=torch.float32, device=dev)
+    n_iter = min(kq, kc)
+    match_q = torch.full((p, n_iter + 1), -1, dtype=torch.int64, device=dev)
+    match_c = torch.full((p, n_iter + 1), -1, dtype=torch.int64, device=dev)
+    taken = torch.zeros(p, dtype=torch.int64, device=dev)
+    for t in range(n_max):
+        v = values[:, t]
+        i = order[:, t] // kc
+        j = order[:, t] - i * kc
+        take = (v > 0.0) & row_free[pairs, i] & col_free[pairs, j]
+        total = total + torch.where(take, v, torch.zeros_like(v))
+        # Pairs that take nothing write -1 into the spare column n_iter.
+        slot = torch.where(take, taken, n_iter)
+        match_q[pairs, slot] = torch.where(take, i, -1)
+        match_c[pairs, slot] = torch.where(take, j, -1)
+        row_free[pairs, i] &= ~take
+        col_free[pairs, j] &= ~take
+        taken += take
+    return total, match_q[:, :n_iter], match_c[:, :n_iter]
 
 
 def match_table(match_q: torch.Tensor, match_c: torch.Tensor, k: int):

@@ -6,10 +6,12 @@ Replaces the TPU kernel `ann_solo_tpu/ops/shifted_dot_pallas.py::_kernel`
 counterparts of the JAX ones in the same file.  The kernel source is
 `ann_solo_tpu_torch/csrc/shifted_dot.cu`.
 
-On the H100 the kernel is bound by its per-pair K^2 compare/select work
-and by the shared memory that holds each pair's K x K matrix (which sets
-the pairs in flight per SM), not by HBM: one warp scores one pair from
-shared memory, so the matrix never touches device memory.
+On the H100 the function is bound by the float operations that build
+each pair's K x K match matrix, not by HBM.  One warp scores one pair and
+never stores the matrix: it compacts the positive entries (a few dozen a
+pair) into a list in shared memory and runs the greedy over that list
+(`ops/shifted_dot.py::greedy_over_positives` is the same walk in plain
+PyTorch, for the tests).
 
 Routing is decided by the tensors, never by a fallback: CPU tensors take
 the plain PyTorch version (`ops/shifted_dot.py`), CUDA tensors launch the

@@ -11,14 +11,18 @@ Phases, each raising on failure (non-zero exit, no final line):
 3. kernel B1 vs plain: the greedy shifted-dot kernel against its plain
    PyTorch version on the card, at the stage-2 (32,768 pairs) and
    match-extraction (4,096 pairs) shapes of the bench workload plus
-   ragged, unequal-width, tie-heavy and K = 20 / 128 cases.  Totals must be
-   equal bit for bit (rtol 0: both sum the same float32 terms in the same
-   order) and the match tables identical;
+   ragged, unequal-width, tie-heavy, K = 20 / 128 and dense (every entry
+   positive) cases.  Totals must be equal bit for bit (rtol 0: both sum
+   the same float32 terms in the same order) and the match tables
+   identical;
 3b. kernel B2 vs plain: the probe-gather scan against its plain version at
    the 2.1M-spectrum tile shape (B = 1,024, P = 64, cap = 768, D = 800,
    int8, +-500 Da), bf16 storage with a ppm window, a ragged shape
-   (B = 7, cap = 200, D = 100) and exact tie-heavy data.  The -inf masks
-   must be identical; scores bit-identical on exact data, elsewhere within
+   (B = 7, cap = 200, D = 100), exact tie-heavy data, exact ragged bf16,
+   the tile with every query probing the same 64 lists, and phase 8's
+   hot-list shape (P = 8); the two ragged cases carry probe ids -1 and L,
+   whose slots must be -inf.  The -inf masks must be identical; scores
+   bit-identical on exact data, elsewhere within
    2 * D * 2^-24 * max|bf16(q)| * max|v * scale| (two float32 summation
    orders of unit-norm operands; norms measured);
 3c. kernel B3 vs plain: the fused chunked scan's (B, n_chunks, 128) rows
@@ -39,7 +43,8 @@ Phases, each raising on failure (non-zero exit, no final line):
    beside its bound: the larger of its bytes (each input read once, each
    output written once; for B2 and B3 only the lists and chunks this
    run's probes touch) over 3.35 TB/s and its operations over the peak
-   rate of their type (bf16 tensor cores for B2 and B3, f32 for B1);
+   rate of their type (bf16 tensor cores for B2 and B3, f32 for B1: the
+   matrix build alone, since the greedy walks only positive entries);
 4. the open-search slice at the bench scale: a 131,072-spectrum library
    (K = 50 peaks, hash_len 800), auto num_list, num_probe 512, x2 SOAR
    redundancy, int8 storage; 4 batches of 4,096 charge-2 queries, +-500 Da,
@@ -60,7 +65,9 @@ Phases, each raising on failure (non-zero exit, no final line):
    per-query oracle run on the card (>= 99.9% of (id, score) lanes equal,
    every 16-bit key within one step, no duplicate ids); best-match hit
    rate >= 0.95 per batch, or, for a batch below it, no lower than the
-   oracle's on the same queries by more than one query;
+   oracle's on the same queries by more than one query.  Then one batch
+   runs under torch.profiler, which logs wall and kernel seconds, the
+   idle share and the ten costliest kernels;
 8. the B3 path at full width: phase 7's index and query batches, with the
    probe path's lane bound (`ops.ivf_probe.MAX_PROBE_LANES`) set below
    P * cap so that `search_device` takes kernel B3 (restored afterwards);
@@ -71,8 +78,7 @@ Phases, each raising on failure (non-zero exit, no final line):
    99.9% of (id, score) lanes equal to the probe path, every 16-bit key
    within one step, no duplicate ids; each batch's best-match hit rate
    equal to phase 7's within one query.  Then one batch of the B3 path
-   and one of the probe path run under torch.profiler, which logs wall
-   and kernel seconds, the idle share and the ten costliest kernels.
+   runs under torch.profiler.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -99,24 +105,39 @@ NUM_CANDIDATES = 512
 NUM_PROBE = 512
 HIT_RATE_GATE = 0.95
 
-# (name, pairs, query peaks, library peaks, charge, allow_shift, ties)
+# (name, pairs, query peaks, library peaks, charge, allow_shift, ties,
+# fragment tolerance).  "dense": a tolerance wider than the m/z range, so
+# every one of the K x K entries is positive.
 KERNEL_CASES = (
-    ("stage2", 32768, 50, 50, 2, True, False),
-    ("matches", 4096, 50, 50, 2, True, True),
-    ("noshift_c3", 4096, 50, 50, 3, False, False),
-    ("ragged_unequal", 5003, 50, 32, 3, True, True),
-    ("k128", 1000, 128, 128, 2, True, False),
-    ("k20", 777, 20, 20, 2, True, True),
+    ("stage2", 32768, 50, 50, 2, True, False, FRAG_TOL),
+    ("matches", 4096, 50, 50, 2, True, True, FRAG_TOL),
+    ("noshift_c3", 4096, 50, 50, 3, False, False, FRAG_TOL),
+    ("ragged_unequal", 5003, 50, 32, 3, True, True, FRAG_TOL),
+    ("k128", 1000, 128, 128, 2, True, False, FRAG_TOL),
+    ("k20", 777, 20, 20, 2, True, True, FRAG_TOL),
+    ("dense", 1024, 50, 50, 2, True, False, 5000.0),
 )
 
 # Kernel B2 cases: (name, B, L, P, cap, D, storage, tol_val, tol_mode,
-# exact data).
+# exact data, probe table).  Probe tables: "random" (each query its own
+# lists), "clustered" (every query probes query 0's lists: 1,024 entries a
+# probed list), "invalid" (random, with ids -1 and L in a few rows, whose
+# slots must all be -inf).  "hot" is phase 8's hot-list scan (8 lists a
+# query, about 2 entries a list).
 PROBE_CASES = (
-    ("tile_2m", 1024, 4096, 64, 768, 800, "int8", OPEN_TOL_DA, "Da", False),
-    ("bf16_ppm", 512, 1024, 64, 256, 800, "bf16", 1e5, "ppm", False),
-    ("ragged", 7, 64, 16, 200, 100, "int8", 0.0, "Da", False),
-    ("exact_ties", 256, 256, 32, 256, 128, "int8", 50.0, "Da", True),
-    ("exact_ragged_bf16", 33, 64, 8, 200, 100, "bf16", 50.0, "Da", True),
+    ("tile_2m", 1024, 4096, 64, 768, 800, "int8", OPEN_TOL_DA, "Da", False,
+     "random"),
+    ("bf16_ppm", 512, 1024, 64, 256, 800, "bf16", 1e5, "ppm", False,
+     "random"),
+    ("ragged", 7, 64, 16, 200, 100, "int8", 0.0, "Da", False, "invalid"),
+    ("exact_ties", 256, 256, 32, 256, 128, "int8", 50.0, "Da", True,
+     "random"),
+    ("exact_ragged_bf16", 33, 64, 8, 200, 100, "bf16", 50.0, "Da", True,
+     "invalid"),
+    ("clustered", 1024, 4096, 64, 768, 800, "int8", OPEN_TOL_DA, "Da", False,
+     "clustered"),
+    ("hot", 1024, 4096, 8, 768, 800, "int8", OPEN_TOL_DA, "Da", False,
+     "random"),
 )
 
 # Kernel B3 cases: (name, B, L, cold probes, hot probes, cap, D, storage,
@@ -308,7 +329,10 @@ def phase_kernel(dev, cases=KERNEL_CASES, kernel_reps=20, plain_reps=3):
     the stage-2 shape (times) and the largest total difference."""
     import torch
 
-    from ann_solo_tpu_torch.ops.shifted_dot import shifted_dot_full_plain
+    from ann_solo_tpu_torch.ops.shifted_dot import (
+        pair_score_matrix as shifted_dot_scores_matrix,
+        shifted_dot_full_plain,
+    )
     from ann_solo_tpu_torch.ops.shifted_dot_cuda import (
         pad_peaks,
         shifted_dot_full,
@@ -316,13 +340,13 @@ def phase_kernel(dev, cases=KERNEL_CASES, kernel_reps=20, plain_reps=3):
 
     rng = np.random.default_rng(2024)
     record = {"max_abs_err": 0.0}
-    for name, p, kq, kc, charge, shift, ties in cases:
+    for name, p, kq, kc, charge, shift, ties, tol in cases:
         arrays = [
             torch.from_numpy(a).to(dev)
             for a in synth_pairs(rng, p, kq, kc, charge, ties)
         ]
         qm, qi, cm, ci, ca = pad_peaks(*arrays[:5])
-        args = (qm, qi, cm, ci, ca, *arrays[5:], FRAG_TOL, charge + 1, shift)
+        args = (qm, qi, cm, ci, ca, *arrays[5:], tol, charge + 1, shift)
         total, match = shifted_dot_full(*args)
         p_total, p_match = shifted_dot_full_plain(*args)
         if dev.type == "cuda":
@@ -339,21 +363,29 @@ def phase_kernel(dev, cases=KERNEL_CASES, kernel_reps=20, plain_reps=3):
         plain_ms = time_ms(
             lambda: shifted_dot_full_plain(*args), dev, plain_reps
         )
+        # The function's least work, at the unpadded widths: per shift a
+        # difference, a second difference, |.|, a compare and a max for
+        # each of the Kq x Kc entries, then the intensity product (2).
+        # The greedy needs no pass over the matrix (the kernel walks the
+        # positive entries).  The count logged beside it also charges a
+        # dense greedy: a compare and a select per entry, once per match
+        # and once to stop.
+        n_shifts = charge + 1 if shift else 1
+        ops = p * kq * kc * (5 * n_shifts + 2)
+        dense_greedy = (n_match + p) * kq * kc * 2
+        n_bytes = tensor_bytes(*args[:8], total, match)
+        fields = bound("B1", name, ms, n_bytes, ops, F32_FLOPS)
         if name == cases[0][0]:  # the stage-2 shape goes in the record
-            # Operations at the unpadded widths: per shift a difference,
-            # a second difference, |.|, a compare and a max for each of
-            # the Kq x Kc entries, then the intensity product (2); the
-            # greedy scans the Kq x Kc matrix once per match and once to
-            # stop, a compare and a select per entry.
-            n_shifts = charge + 1 if shift else 1
-            ops = (p * kq * kc * (5 * n_shifts + 2)
-                   + (n_match + p) * kq * kc * 2)
-            n_bytes = tensor_bytes(*args[:8], total, match)
-            record.update(ms=ms, plain_ms=plain_ms,
-                          **bound("B1", name, ms, n_bytes, ops, F32_FLOPS))
+            log(f"bound B1 {name}, the old count with the dense greedy: "
+                f"{ops + dense_greedy:.4g} ops -> "
+                f"{(ops + dense_greedy) / F32_FLOPS * 1e3:.4f} ms")
+            record.update(ms=ms, plain_ms=plain_ms, **fields)
+        # Positive entries a pair: the list the kernel walks.
+        n_pos = int((shifted_dot_scores_matrix(*args) > 0).sum()) / p
         log(f"kernel {name}: P={p} K={qm.shape[1]} charge={charge} "
-            f"shift={shift} ties={ties}: identical ({n_match} matches); "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            f"shift={shift} ties={ties} tol={tol}: identical ({n_match} "
+            f"matches, {n_pos:.1f} positive entries a pair); kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
     return record
 
 
@@ -428,16 +460,23 @@ def phase_probe_kernel(dev, cases=PROBE_CASES, kernel_reps=20,
     record of the first (2.1M tile) shape and the largest difference."""
     import torch
 
+    from ann_solo_tpu_torch.ops import ivf_probe_cuda
     from ann_solo_tpu_torch.ops.ivf_probe import ivf_probe_scan_plain
     from ann_solo_tpu_torch.ops.ivf_probe_cuda import ivf_probe_scan
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2025)
     record = {"max_abs_err": 0.0}
-    for (name, b, l, p, cap, d, storage, tol_val, tol_mode,
-         exact) in cases:
+    for (name, b, l, p, cap, d, storage, tol_val, tol_mode, exact,
+         table) in cases:
         arrays = synth_probe_case(gen, dev, b, l, p, cap, d, storage, exact)
         vectors, ids, prec, scales, queries, q_prec, probe_ids = arrays
+        if table == "clustered":
+            probe_ids = probe_ids[:1].expand(b, -1).contiguous()
+        elif table == "invalid":
+            probe_ids = probe_ids.clone()
+            probe_ids[0, 0] = -1
+            probe_ids[-1, -1] = l
         args = (vectors, ids, prec, scales, queries, q_prec, float(CHARGE),
                 probe_ids, tol_val, tol_mode)
         got = ivf_probe_scan(*args)
@@ -447,6 +486,9 @@ def phase_probe_kernel(dev, cases=PROBE_CASES, kernel_reps=20,
         masked = torch.isneginf(want)
         if not torch.equal(torch.isneginf(got), masked):
             raise AssertionError(f"B2 masks differ at {name}")
+        if table == "invalid" and not bool(
+                masked[0, :cap].all() and masked[-1, -cap:].all()):
+            raise AssertionError(f"B2 at {name}: an invalid id scored")
         err = float(torch.where(masked, 0.0, got - want).abs().max())
         tol = 0.0 if exact else probe_tolerance(vectors, scales, queries)
         if exact and not torch.equal(got, want):
@@ -459,22 +501,30 @@ def phase_probe_kernel(dev, cases=PROBE_CASES, kernel_reps=20,
         ms = time_ms(lambda: ivf_probe_scan(*args), dev, kernel_reps)
         plain_ms = time_ms(lambda: ivf_probe_scan_plain(*args), dev,
                            plain_reps)
+        # Each probed list once (rows, ids, prec, scales), queries, their
+        # precursors and probe ids, and the (B, P * cap) output; a bf16
+        # multiply-add for each probed slot and dimension.
+        listed = probe_ids[(probe_ids >= 0) & (probe_ids < l)]
+        n_lists = int(torch.unique(listed).numel())
+        n_bytes = (n_lists * cap * (d * vectors.element_size() + 12)
+                   + tensor_bytes(queries, q_prec, probe_ids, got))
+        ops = 2.0 * b * p * cap * d
+        fields = bound("B2", name, ms, n_bytes, ops, BF16_FLOPS)
         if name == cases[0][0]:
-            # Each probed list once (rows, ids, prec, scales), queries,
-            # their precursors and probe ids, and the (B, P * cap) output.
-            n_lists = int(torch.unique(probe_ids).numel())
-            n_bytes = (n_lists * cap * (d * vectors.element_size() + 12)
-                       + tensor_bytes(queries, q_prec, probe_ids, got))
-            ops = 2.0 * b * p * cap * d
-            record.update(ms=ms, plain_ms=plain_ms,
-                          **bound("B2", name, ms, n_bytes, ops, BF16_FLOPS))
-        gbytes = b * p * cap * d * vectors.element_size() / 1e9
+            record.update(ms=ms, plain_ms=plain_ms, **fields)
         log(f"B2 {name}: B={b} L={l} P={p} cap={cap} D={d} {storage} "
-            f"window={tol_mode if tol_val > 0 else 'none'}: masks identical "
+            f"window={tol_mode if tol_val > 0 else 'none'} probes={table}: "
+            f"{n_lists} lists probed; masks identical "
             f"({float(masked.float().mean()):.3f} masked), max |d| {err:.3g} "
-            f"(tolerance {tol:.3g}); kernel {ms:.3f} ms "
-            f"({gbytes / ms:.3g} TB/s of list rows), plain {plain_ms:.3f} ms")
+            f"(tolerance {tol:.3g}); kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms")
         del arrays, vectors, args, got, want
+    if dev.type == "cuda":
+        lib = ivf_probe_cuda._library()
+        for code, storage in ((0, "int8"), (1, "bf16")):
+            log(f"B2 {storage}: {lib.ivf_probe_scan_smem_bytes(code)} bytes "
+                "of shared memory a block, "
+                f"{lib.ivf_probe_scan_resident_blocks(code)} blocks an SM")
     return record
 
 
@@ -883,7 +933,8 @@ def synth_queries_torch(gen, lib, n_q):
 def phase_big_slice(dev, n_lib=N_BIG, n_q=BIG_QUERIES, n_batches=N_BATCHES,
                     config=ScaleConfig):
     """The big-library slice through the port's entry points, the probe
-    path against the per-query oracle on one batch."""
+    path against the per-query oracle on one batch, then one batch under
+    torch.profiler."""
     import torch
 
     from ann_solo_tpu_torch.device import synchronize
@@ -1067,6 +1118,7 @@ def phase_big_slice(dev, n_lib=N_BIG, n_q=BIG_QUERIES, n_batches=N_BATCHES,
             raise AssertionError(
                 f"batch {i}: best-match hit rate {rate} below the gate and "
                 f"below the oracle's {oracle_rates[i]}")
+    profile_batch(dev, "probe path, last batch", lambda: run(batches[-1]))
     return {"launches": launches, "index": index, "lib": lib,
             "batches": batches, "run": run, "embed": embed, "select": select,
             "best_match_rate": best_match_rate, "hit_rates": hit_rates,
@@ -1121,8 +1173,7 @@ def profile_batch(dev, name, fn):
 
 def phase_b3_slice(dev, big):
     """The B3 path at full width on phase 7's index and query batches,
-    then one batch of it and one of the probe path under
-    torch.profiler."""
+    then one batch of it under torch.profiler."""
     import torch
 
     from ann_solo_tpu_torch.device import synchronize
@@ -1173,7 +1224,6 @@ def phase_b3_slice(dev, big):
         profile_batch(dev, "b3 path, last batch", lambda: run(batches[-1]))
     finally:
         ivf_probe.MAX_PROBE_LANES = bound
-    profile_batch(dev, "probe path, last batch", lambda: run(batches[-1]))
 
     # The plain chunked scan called directly on batch 0.
     vectors, qp = big["embed"](batches[0])

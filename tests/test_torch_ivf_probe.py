@@ -522,3 +522,134 @@ def test_open_search_probe_regime_matches_jax(monkeypatch):
     assert np.mean(got_idx == rows) >= 0.95
     assert np.all(np.abs(got_n - exp_n) <= 0.01 * n_cand)
     assert len(matches) == int((got_idx >= 0).sum())
+
+
+# --------------------------------------------------------------------- #
+# (7) Kernel B2's list-major decomposition, on the CPU
+
+
+def _probe_table(kind, rng, b=64, l=48, p=12):
+    """(B, P) probe ids of one shape the kernel meets: each query its own
+    ascending lists, every query on the same lists, phase 8's hot shape
+    (P = 8), one query, a row repeating a list, ids -1 and L."""
+    def own(b, p):
+        return np.sort(np.stack([rng.choice(l, p, replace=False)
+                                 for _ in range(b)]), 1)
+    if kind == "random":
+        table = own(b, p)
+    elif kind == "clustered":
+        table = np.repeat(own(1, p), b, 0)
+    elif kind == "hot":
+        table = own(b, 8)
+    elif kind == "single_query":
+        table = own(1, p)
+    elif kind == "repeated_list":
+        table = own(b, p)
+        table[3, 1] = table[3, 0]
+        table[5] = table[5, 0]
+    else:  # "invalid"
+        table = own(b, p)
+        table[0, 0] = -1
+        table[-1, -1] = l
+        table[7, 2] = l + 5
+    return torch.from_numpy(table.astype(np.int64)), l
+
+
+@pytest.mark.parametrize("kind", ["random", "clustered", "hot",
+                                  "single_query", "repeated_list",
+                                  "invalid"])
+def test_list_probe_entries(kind):
+    """Every (b, rank) entry once, under its list (list L for ids outside
+    [0, L)), ascending within a list, counts matching the table."""
+    probe_ids, l = _probe_table(kind, np.random.default_rng(13))
+    b, p = probe_ids.shape
+    entries, starts, counts = ivf_probe.list_probe_entries(probe_ids, l)
+    assert entries.dtype == starts.dtype == counts.dtype == torch.int32
+    assert starts.shape == (l + 2,) and counts.shape == (l + 1,)
+    assert torch.equal(torch.sort(entries).values,
+                       torch.arange(b * p, dtype=torch.int32))
+    assert int(starts[0]) == 0 and int(starts[-1]) == b * p
+    assert torch.equal(starts.diff(), counts)
+    flat = probe_ids.reshape(-1)
+    key = torch.where((flat >= 0) & (flat < l), flat, l)
+    assert torch.equal(counts.long(), torch.bincount(key, minlength=l + 1))
+    for j in range(l + 1):
+        group = entries[starts[j]:starts[j + 1]].long()
+        assert bool((key[group] == j).all())
+        assert bool((group.diff() > 0).all())
+    if kind == "clustered":
+        assert int(counts.max()) == b
+    if kind == "repeated_list":  # one entry per (b, rank), not per list
+        assert int(counts[int(probe_ids[5, 0])]) >= p
+
+
+def _list_major_scan(vectors, ids, prec, scales, queries, q_prec, charge,
+                     probe_ids, tol_val, tol_mode, per_pass=32, tile=256):
+    """Kernel B2's addressing in plain PyTorch: work items of up to
+    `per_pass` entries of one list times `tile` slots, each scored against
+    the list's rows once and scattered to its entries' row segments."""
+    l, cap, _ = vectors.shape
+    b, p = probe_ids.shape
+    entries, starts, _ = ivf_probe.list_probe_entries(probe_ids, l)
+    q = queries.to(torch.bfloat16).to(torch.float32)
+    out = torch.full((b * p, cap), float("nan"))
+    for j in range(l + 1):
+        group = entries[starts[j]:starts[j + 1]].long()
+        for e0 in range(0, len(group), per_pass):
+            ent = group[e0:e0 + per_pass]
+            for s0 in range(0, cap, tile):
+                s = slice(s0, min(cap, s0 + tile))
+                if j == l:  # not a list: nothing is valid
+                    out[ent, s] = float("-inf")
+                    continue
+                rows = vectors[j, s].to(torch.float32)
+                scores = (q[ent // p] @ rows.T) * scales[j, s]
+                ok = (ids[j, s] >= 0)[None, :].expand_as(scores)
+                if tol_val > 0:
+                    ok = ok & ivf_probe.window_mask(
+                        q_prec[ent // p, None], prec[j, s][None, :], charge,
+                        tol_val, tol_mode)
+                out[ent, s] = torch.where(ok, scores, float("-inf"))
+    return out.view(b, p * cap)
+
+
+@pytest.mark.parametrize("storage,cap,d,tol_val,tol_mode,kind", [
+    ("int8", 256, 128, 100.0, "Da", "random"),
+    ("int8", 300, 100, 0.0, "Da", "clustered"),
+    ("bf16", 200, 100, 1e5, "ppm", "invalid"),
+    ("bf16", 520, 64, 100.0, "Da", "repeated_list"),
+])
+def test_list_major_addressing_matches_plain(storage, cap, d, tol_val,
+                                             tol_mode, kind):
+    """On exact data the list-major emulation equals the plain version bit
+    for bit, ragged D (100) and cap (200, 300, 520 over 256-slot tiles)
+    included; clustered tables run several passes of 32 a list."""
+    rng = np.random.default_rng(17)
+    probe_ids, l = _probe_table(kind, rng)
+    arrays = _scan_inputs(rng, storage, True, l=l, cap=cap, d=d,
+                          b=probe_ids.shape[0])
+    args = [_to_torch(a) for a in arrays[:6]]
+    want = ivf_probe_scan(*args, 2.0, probe_ids, tol_val, tol_mode)
+    got = _list_major_scan(*args, 2.0, probe_ids, tol_val, tol_mode)
+    assert not bool(torch.isnan(got).any())
+    assert 0 < float(torch.isneginf(want).float().mean()) < 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bad", ["minus_one", "l"])
+def test_probe_scan_plain_invalid_id_is_neg_inf(bad):
+    """A probe id of -1 or L scores no slot: its row segment is all -inf,
+    the kernel's contract, and the other segments are unchanged."""
+    rng = np.random.default_rng(19)
+    arrays = [_to_torch(a) for a in _scan_inputs(rng, "int8", True)]
+    l, cap = arrays[0].shape[:2]
+    args = lambda probes: (*arrays[:6], 2.0, probes, 0.0, "Da")  # noqa: E731
+    good = ivf_probe_scan(*args(arrays[6]))
+    probes = arrays[6].clone()
+    probes[2, 1] = -1 if bad == "minus_one" else l
+    got = ivf_probe_scan(*args(probes))
+    segment = slice(cap, 2 * cap)
+    assert bool(torch.isneginf(got[2, segment]).all())
+    assert not bool(torch.isneginf(good[2, segment]).all())
+    got[2, segment] = good[2, segment]
+    assert torch.equal(got, good)

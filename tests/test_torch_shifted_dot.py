@@ -205,3 +205,69 @@ def test_wide_peaks_take_plain_path():
     assert match.shape == (4, 136)
     np.testing.assert_allclose(total.numpy(), expected, rtol=RTOL,
                                atol=ATOL)
+
+
+# --------------------------------------------------------------------- #
+# The kernel's decomposition: the greedy over compacted positive entries
+
+
+def _chip_smoke():
+    """`chip_smoke.py` (repo root) as a module, for its pair generator."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# (pairs, query peaks, library peaks, charge, ties, tolerance, zero
+# intensities): chip_smoke's shapes, all-zero pairs, and dense pairs (a
+# tolerance wider than the m/z range: every entry positive).
+@pytest.mark.parametrize("p,kq,kc,charge,ties,tol,zero", [
+    (200, 20, 20, 2, False, 0.04, False),
+    (200, 20, 20, 2, True, 0.04, False),
+    (200, 50, 50, 2, False, 0.04, False),
+    (200, 50, 50, 2, True, 0.04, False),
+    (64, 128, 128, 2, False, 0.04, False),
+    (64, 128, 128, 3, True, 0.04, False),
+    (200, 50, 32, 3, True, 0.04, False),
+    (32, 50, 50, 2, False, 0.04, True),
+    (16, 50, 50, 2, False, 5000.0, False),
+    (16, 20, 20, 2, True, 5000.0, False),
+], ids=["k20", "k20_ties", "k50", "k50_ties", "k128", "k128_ties_c3",
+        "unequal_ties", "all_zero", "dense_k50", "dense_k20_ties"])
+def test_greedy_over_positives_is_the_greedy(p, kq, kc, charge, ties, tol,
+                                             zero):
+    """Walking the positive entries in (value desc, flat index asc) order
+    gives `greedy_assignment`'s picks in its order, and its totals and
+    match tables bit for bit."""
+    cs = _chip_smoke()
+    from ann_solo_tpu_torch.ops.shifted_dot_cuda import pad_peaks
+
+    rng = np.random.default_rng(p * 1000 + kq + kc + charge)
+    arrays = _t(cs.synth_pairs(rng, p, kq, kc, charge, ties))
+    if zero:
+        arrays[1].zero_()
+        arrays[3].zero_()
+    qm, qi, cm, ci, ca = pad_peaks(*arrays[:5])
+    args = (qm, qi, cm, ci, ca, *arrays[5:], tol, charge + 1, True)
+    scores = pt.pair_score_matrix(*args)
+    n_pos = (scores > 0).reshape(p, -1).sum(1)
+    if zero:
+        assert int(n_pos.max()) == 0
+    elif tol > 100:
+        assert bool((n_pos == scores.shape[1] * scores.shape[2]).all())
+    else:
+        assert 0 < float(n_pos.float().mean()) < 64
+    want = pt.greedy_assignment(scores)
+    got = pt.greedy_over_positives(scores)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    total, table = pt.shifted_dot_full_plain(*args)
+    assert torch.equal(got[0], total)
+    assert torch.equal(pt.match_table(got[1], got[2], qm.shape[1]), table)
+    if ties:  # equal scores compete, so the tie rule is exercised
+        assert int(n_pos.sum()) > len(torch.unique(scores[scores > 0]))
