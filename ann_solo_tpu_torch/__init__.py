@@ -2,14 +2,18 @@
 
 The PyTorch counterpart of `ann_solo_tpu` (the JAX package, which stays the
 reference this package is tested against).  Modules mirror the JAX layout:
-`ops/` (shifted-dot rescoring, its CUDA kernel, k-means), `models/`
-(preprocessing and hashed vectorization), `index/` (the IVF index) and
-`search.py` (the ANN open-search batch path).
+`cli.py` and `config.py` (the command line), `search.py` (the engine: the
+std -> open cascade, window rescoring, the ANN open-search batch), `io/`
+(readers and writers, the in-memory library store, mzTab), `fdr.py`,
+`decoy.py`, `ops/` (shifted-dot rescoring, the CUDA kernels, k-means),
+`models/` (the spectrum model, preprocessing, hashed vectorization, SSM
+features) and `index/` (the IVF index).
 
-This package imports torch and numpy, and nothing of `ann_solo_tpu`:
-what it needs from there (the MurmurHash3 bin table, the proton and
-neutron masses) it keeps as its own copy (`ops/murmur.py`,
-`io/masses.py`).  Never jax, ml_dtypes, sklearn, pandas or h5py.
+This package imports torch, numpy and scipy, and nothing of
+`ann_solo_tpu`: what it needs from the JAX-free modules there (the
+MurmurHash3 bin table, masses, the readers, config, decoys, synthetic
+data) it keeps as its own copy.  Never jax, ml_dtypes, sklearn, pandas or
+h5py.
 """
 
 import torch

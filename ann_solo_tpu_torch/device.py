@@ -14,8 +14,8 @@ def require_cuda() -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError(
             "ann_solo_tpu_torch needs a CUDA GPU (torch.cuda.is_available() "
-            "is False); pass device='cpu' explicitly to run the plain "
-            "PyTorch versions on the CPU"
+            "is False); pass device='cpu' (the CLI's --no_gpu) to run the "
+            "plain PyTorch versions on the CPU"
         )
     return torch.device("cuda", torch.cuda.current_device())
 

@@ -876,12 +876,11 @@ class IvfIndex:
             tol_val = 0.0
         q_prec = torch.as_tensor(q_prec).to(
             device=dev, dtype=torch.float32).contiguous()
-        l, cap, _ = self.padded_vectors.shape
         dtype = self.padded_vectors.dtype
         args = (float(charge), num_probe, k, self.redundancy * k,
                 float(tol_val), tol_mode, self.redundancy > 1)
-        union_covers = l <= num_probe * _TILE_Q
-        if union_covers and l * cap * 4 * _TILE_Q <= _FULLSCAN_TRANSIENT:
+        regime = self.regime(k, num_probe)
+        if regime == "fullscan":
             b_pad = -(-b // _TILE_Q) * _TILE_Q
             if b_pad != b:
                 queries = F.pad(queries, (0, 0, 0, b_pad - b))
@@ -892,13 +891,31 @@ class IvfIndex:
                 dtype != torch.float32,
             )
             return ids[:b].to(torch.int32), scores[:b]
-        if (union_covers or probe_scan_supported(l, cap, num_probe, dtype)
-                or l <= num_probe * _CHUNK_TQ):
-            scores, ids = self._search_chunked(queries, q_prec, *args)
-        else:
+        if regime == "perquery":
             scores, ids = _ivf_search_perquery(*self._blocks(), queries,
                                                q_prec, *args)
+        else:
+            scores, ids = self._search_chunked(queries, q_prec, *args)
         return ids.to(torch.int32), scores
+
+    def regime(self, k: int, num_probe: Optional[int] = None) -> str:
+        """The regime `search_device` takes for top-`k` at `num_probe`:
+        "fullscan", "probe" (kernel B2), "fused" (kernel B3), "chunked"
+        (the plain chunked scan) or "perquery" (the oracle)."""
+        num_probe = int(num_probe or self.num_probe)
+        l, cap, d = self.padded_vectors.shape
+        dtype = self.padded_vectors.dtype
+        union_covers = l <= num_probe * _TILE_Q
+        if union_covers and l * cap * 4 * _TILE_Q <= _FULLSCAN_TRANSIENT:
+            return "fullscan"
+        if probe_scan_supported(l, cap, num_probe, dtype):
+            return "probe"
+        if not (union_covers or l <= num_probe * _CHUNK_TQ):
+            return "perquery"
+        if chunked_pallas_supported(l, cap, d, num_probe,
+                                    self.redundancy * k, dtype):
+            return "fused"
+        return "chunked"
 
     def _blocks(self):
         return (self.padded_vectors, self.padded_ids, self.padded_prec,

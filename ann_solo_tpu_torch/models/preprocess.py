@@ -40,6 +40,27 @@ class PreprocessParams(NamedTuple):
     scaling: Optional[str] = "rank"
     max_removal_charge: int = 16
 
+    @classmethod
+    def from_config(cls, config, is_library: bool) -> "PreprocessParams":
+        return cls(
+            min_peaks=config.min_peaks,
+            min_mz_range=float(config.min_mz_range),
+            min_mz=float(config.min_mz),
+            max_mz=float(config.max_mz),
+            resolution=config.resolution,
+            remove_precursor=bool(config.remove_precursor),
+            remove_precursor_tolerance=float(
+                config.remove_precursor_tolerance
+            ),
+            min_intensity=float(config.min_intensity),
+            max_peaks_used=(
+                config.max_peaks_used_library
+                if is_library
+                else config.max_peaks_used
+            ),
+            scaling=config.scaling,
+        )
+
 
 @dataclasses.dataclass
 class ProcessedBatch:

@@ -52,6 +52,15 @@ class VectorizeParams(NamedTuple):
     bin_size: float = 0.04
     hash_len: int = 800
 
+    @classmethod
+    def from_config(cls, config) -> "VectorizeParams":
+        return cls(
+            min_mz=float(config.min_mz),
+            max_mz=float(config.max_mz),
+            bin_size=float(config.bin_size),
+            hash_len=int(config.hash_len),
+        )
+
     @property
     def n_bins(self) -> int:
         return get_dim(self.min_mz, self.max_mz, self.bin_size)[0]

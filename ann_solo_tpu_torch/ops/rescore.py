@@ -38,35 +38,33 @@ def _stage1_bounds(
     c_chunk: int,
 ):
     """Per-pair upper bound ub = sum_i max_j score(i, j) for the (B, C)
-    matrix.  The row max factorizes (score = mult * q_int[i] * c_int[j],
-    q_int >= 0), so no (P, K, K) product is formed: per shift one compare
-    against the m/z differences and a row max of the multiplier-weighted
-    candidate intensities."""
+    matrix (-inf for invalid candidates).  The row max factorizes (score =
+    mult * q_int[i] * c_int[j], q_int >= 0), so no (P, K, K) product is
+    formed: per shift one compare against the m/z differences and a row
+    max of the multiplier-weighted candidate intensities.  Only the valid
+    pairs are computed, B * `c_chunk` at a time: window rows are mostly
+    padding past their window's end."""
     b, c = cand_ids.shape
     dev = q_mz.device
     f32 = torch.float32
-    n_lib = lib_mz.shape[0]
-    n_chunks = -(-c // c_chunk)
-    c_pad = n_chunks * c_chunk
-    if c_pad != c:
-        cand_ids = F.pad(cand_ids, (0, c_pad - c), value=-1)
+    flat_ids = cand_ids.reshape(-1)
+    pairs = torch.nonzero(flat_ids >= 0).flatten()
     tol = torch.tensor(fragment_mz_tolerance, dtype=f32, device=dev)
     chg = float(num_shifts - 1 if allow_shift else 1)
     zero = torch.zeros((), dtype=f32, device=dev)
-    rows = torch.arange(b, device=dev).repeat_interleave(c_chunk)
-    out = torch.empty((b, c_pad), dtype=f32, device=dev)
-    for n in range(n_chunks):
-        ids_chunk = cand_ids[:, n * c_chunk:(n + 1) * c_chunk]
-        flat = ids_chunk.reshape(-1)
-        valid = flat >= 0
-        safe = flat.clamp(0, n_lib - 1)
+    out = torch.full((b * c,), float("-inf"), dtype=f32, device=dev)
+    step = max(1, b * c_chunk)
+    for start in range(0, pairs.shape[0], step):
+        flat = pairs[start:start + step]
+        rows = flat // c
+        ids = flat_ids.index_select(0, flat)
         qm, qi, cm, ci, ca = pad_peaks(
             q_mz.index_select(0, rows), q_int.index_select(0, rows),
-            lib_mz.index_select(0, safe), lib_int.index_select(0, safe),
-            lib_ann.index_select(0, safe),
+            lib_mz.index_select(0, ids), lib_int.index_select(0, ids),
+            lib_ann.index_select(0, ids),
         )
         prec_diff = (
-            q_prec.index_select(0, rows) - lib_prec.index_select(0, safe)
+            q_prec.index_select(0, rows) - lib_prec.index_select(0, ids)
         ) * chg
         diff0 = qm[:, :, None] - cm[:, None, :]  # (P, K, K)
         vmax = torch.where(diff0.abs() <= tol, ci[:, None, :], zero).amax(2)
@@ -83,10 +81,8 @@ def _stage1_bounds(
                 vmax = torch.maximum(
                     vmax, torch.where(within, cterm, zero).amax(2)
                 )
-        ub = (qi * vmax).sum(1) * BOUND_INFLATION
-        ub = torch.where(valid, ub, float("-inf"))
-        out[:, n * c_chunk:(n + 1) * c_chunk] = ub.view(b, c_chunk)
-    return out[:, :c]
+        out[flat] = (qi * vmax).sum(1) * BOUND_INFLATION
+    return out.view(b, c)
 
 
 @torch.no_grad()

@@ -78,7 +78,23 @@ Phases, each raising on failure (non-zero exit, no final line):
    99.9% of (id, score) lanes equal to the probe path, every 16-bit key
    within one step, no duplicate ids; each batch's best-match hit rate
    equal to phase 7's within one query.  Then one batch of the B3 path
-   runs under torch.profiler.
+   runs under torch.profiler;
+9. the engine (`python -m ann_solo_tpu_torch.cli`, called in the process):
+   QUALITY r05's corpus (`synthdata.make_corpus`, seed 42: 100,000
+   library spectra, 200,000 store rows with decoys, 10,000 queries, 35%
+   modified, 5% foreign) written as .splib and .mgf under build/engine/,
+   searched with QUALITY r05's ann settings (std 20 ppm, open 300 Da,
+   num_probe 256, 1,024 candidates, int8 x2 SOAR lists, --model none,
+   1% FDR).  Logs every stage's seconds (device synchronized at each
+   boundary), queries/s of the search, peak device memory, B1's launches
+   and the identification counts from the mzTab beside the JAX package's
+   (QUALITY_r05.json).  Gates: the CLI returns 0; B1 launched; each
+   charge's open level went through `IvfIndex.search_device` and its std
+   level through window rescoring; accuracy among confident PSMs >= 0.95;
+   confident PSMs >= 0.9 x the 9,500 non-foreign queries.  Then the CLI
+   on a 4,000-peptide corpus (seed 7, 1,000 queries) on the card and with
+   --no_gpu, in --mode ann and bf: the same PSM_IDs, the same library
+   spectrum for >= 99.9% of them, identical PSM lines wherever it is.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -171,6 +187,32 @@ F32_FLOPS = 67e12
 N_BIG = 2_097_152
 BIG_QUERIES = 1024
 BIG_CANDIDATES = 1024
+
+# The engine (phase 9): QUALITY r05's ann leg (QUALITY_r05.json "corpus"
+# and "config", ann_solo_tpu/quality.py:41-64), the repo's 200k canonical
+# scale: 100,000 library spectra (charges 2 and 3), 200,000 store rows with
+# decoys, 10,000 queries (35% modified, 5% foreign).
+ENGINE_PEPTIDES = 100_000
+ENGINE_QUERIES = 10_000
+ENGINE_SEED = 42
+ENGINE_ARGS = [
+    "--precursor_tolerance_mass", "20", "--precursor_tolerance_mode", "ppm",
+    "--precursor_tolerance_mass_open", "300",
+    "--precursor_tolerance_mode_open", "Da",
+    "--fragment_mz_tolerance", "0.02", "--allow_peak_shifts",
+    "--min_mz_range", "200", "--min_peaks", "5", "--model", "none",
+    "--mode", "ann", "--num_list", "0", "--num_probe", "256",
+    "--num_candidates", "1024", "--index_dtype", "int8",
+    "--ivf_redundancy", "2", "--soar_lambda", "1.0", "--fdr", "0.01",
+    "--add_decoys",
+]
+ENGINE_FDR = 0.01
+# The JAX package's identification counts on the same corpus
+# (QUALITY_r05.json "ann"): counts, not a speed.
+QUALITY_R05_ANN = {"n_confident": 9356, "accuracy": 0.973492945703292,
+                   "foreign_leak_rate": 0.07, "empirical_fdp": 0.02651}
+ENGINE_ACCURACY_GATE = 0.95
+ENGINE_CONFIDENT_GATE = 0.9  # of the non-foreign queries
 
 
 class ScaleConfig:
@@ -1285,6 +1327,168 @@ def phase_b3_slice(dev, big):
     return b3_launches
 
 
+def engine_corpus(workdir, n_peptides, n_queries, seed):
+    """`synthdata.make_corpus` written as a .splib library and an .mgf
+    query file under `workdir`; returns their paths and the truth."""
+    import os
+
+    from ann_solo_tpu_torch.io.mgf import write_mgf
+    from ann_solo_tpu_torch.io.splib import write_splib
+    from ann_solo_tpu_torch.synthdata import make_corpus
+
+    os.makedirs(workdir, exist_ok=True)
+    library, queries, truth = make_corpus(np.random.default_rng(seed),
+                                          n_peptides, n_queries)
+    lib_path = os.path.join(workdir, "library.splib")
+    query_path = os.path.join(workdir, "queries.mgf")
+    write_splib(library, lib_path)
+    write_mgf(queries, query_path)
+    return lib_path, query_path, truth
+
+
+def mztab_psms(path):
+    """PSM rows of an mzTab file as field lists (plain text)."""
+    with open(path) as f:
+        return [line.rstrip("\n").split("\t") for line in f
+                if line.startswith("PSM\t")]
+
+
+def mztab_stats(path, truth, fdr=ENGINE_FDR):
+    """QUALITY's statistics from the mzTab: confident target PSMs at
+    q < fdr, their accuracy against the truth, the foreign leak and the
+    empirical FDP (ann_solo_tpu/quality.py:_mztab_stats)."""
+    psms = mztab_psms(path)
+    # Columns: 1 sequence, 2 PSM_ID, 9 q-value, 21 decoy flag.
+    targets = [row for row in psms if row[21] == "0"]
+    confident = [row for row in targets if float(row[9]) < fdr]
+    correct = sum(truth.get(row[2]) == row[1] for row in confident)
+    n_foreign = sum(1 for v in truth.values() if v is None)
+    foreign = sum(row[2].startswith("q_foreign") for row in confident)
+    n = len(confident)
+    return {
+        "n_ssms": len(psms), "n_targets": len(targets), "n_confident": n,
+        "n_correct": correct, "accuracy": correct / n if n else 0.0,
+        "foreign_leak_rate": foreign / n_foreign if n_foreign else 0.0,
+        "empirical_fdp": 1.0 - correct / n if n else 0.0,
+    }
+
+
+def run_engine_cli(dev, lib_path, query_path, out_path, extra=()):
+    """`ann_solo_tpu_torch.cli.main` in this process on `dev`; returns
+    (the stage profile, the B1 launches of the run)."""
+    from ann_solo_tpu_torch import cli
+    from ann_solo_tpu_torch.ops import shifted_dot_cuda
+    from ann_solo_tpu_torch.utils.profiling import profiler
+
+    args = [lib_path, query_path, out_path] + ENGINE_ARGS + list(extra)
+    if dev.type == "cpu":
+        args.append("--no_gpu")
+    shifted_dot_cuda.LAUNCHES = 0
+    rc = cli.main(args)
+    if rc != 0:
+        raise AssertionError(f"the CLI returned {rc}")
+    return ({"totals": dict(profiler.totals), "counts": dict(profiler.counts),
+             "notes": dict(profiler.notes)}, shifted_dot_cuda.LAUNCHES)
+
+
+def phase_engine(dev, n_peptides=ENGINE_PEPTIDES, n_queries=ENGINE_QUERIES,
+                 workdir=None):
+    """The engine on the card: QUALITY r05's corpus through the port's
+    CLI (std level by window rescoring, open level through the IVF
+    index), with its stage seconds and identification counts."""
+    import os
+
+    import torch
+
+    workdir = workdir or os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "build", "engine")
+    t0 = time.perf_counter()
+    lib_path, query_path, truth = engine_corpus(workdir, n_peptides,
+                                                n_queries, ENGINE_SEED)
+    t_corpus = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    out_path = os.path.join(workdir, "out.mztab")
+    t0 = time.perf_counter()
+    profile, launches = run_engine_cli(dev, lib_path, query_path, out_path)
+    t_cli = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    stats = mztab_stats(out_path, truth)
+    totals, counts, notes = (profile["totals"], profile["counts"],
+                             profile["notes"])
+    summary = {
+        "corpus": {"n_peptides": n_peptides, "n_queries": n_queries,
+                   "seed": ENGINE_SEED},
+        "corpus_sec": t_corpus,
+        "cli_sec": t_cli,
+        "stages_sec": totals,
+        "search_sec": totals["search"],
+        "queries_per_sec": n_queries / totals["search"],
+        "indexes": notes,
+        "paths": {k: v for k, v in counts.items() if "level charge" in k},
+        "max_memory_allocated_bytes": peak,
+        "b1_launches": launches,
+        "identifications": stats,
+        "jax_quality_r05_ann": QUALITY_R05_ANN,
+    }
+    log("engine: " + json.dumps(summary))
+    if launches <= 0 and dev.type == "cuda":
+        raise AssertionError("the engine launched no greedy kernel")
+    for charge in (2, 3):
+        if counts.get(f"open level charge {charge}: ivf select", 0) <= 0:
+            raise AssertionError(f"charge {charge}: no open-level batch "
+                                 "went through IvfIndex.search_device")
+        if counts.get(f"std level charge {charge}: window rescoring",
+                      0) <= 0:
+            raise AssertionError(f"charge {charge}: no std-level batch "
+                                 "went through window rescoring")
+    if stats["accuracy"] < ENGINE_ACCURACY_GATE:
+        raise AssertionError(f"accuracy {stats['accuracy']} < gate")
+    n_real = sum(1 for v in truth.values() if v is not None)
+    if stats["n_confident"] < ENGINE_CONFIDENT_GATE * n_real:
+        raise AssertionError(
+            f"{stats['n_confident']} confident PSMs < "
+            f"{ENGINE_CONFIDENT_GATE} x {n_real}")
+    return launches
+
+
+def phase_engine_cuda_vs_cpu(dev, n_peptides=4000, n_queries=1000,
+                             workdir=None):
+    """The CLI on the card and with --no_gpu, in --mode ann and bf, on one
+    small corpus: the same PSM_IDs, the same library spectrum for >= 99.9%
+    of them, identical PSM lines wherever it is the same."""
+    import os
+
+    import torch
+
+    workdir = workdir or os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "build", "engine_small")
+    lib_path, query_path, _ = engine_corpus(workdir, n_peptides, n_queries,
+                                            7)
+    for mode in ("ann", "bf"):
+        rows = {}
+        for d in (dev, torch.device("cpu")):
+            out = os.path.join(workdir, f"{mode}_{d.type}.mztab")
+            t0 = time.perf_counter()
+            run_engine_cli(d, lib_path, query_path, out, ["--mode", mode])
+            log(f"engine cuda-vs-cpu: {mode} on {d.type} "
+                f"{time.perf_counter() - t0:.1f}s")
+            rows[d.type] = {row[2]: row for row in mztab_psms(out)}
+        got, want = rows[dev.type], rows["cpu"]
+        if got.keys() != want.keys():
+            raise AssertionError(f"{mode}: the PSM_IDs differ, CUDA vs CPU")
+        same = [q for q in want if got[q][20] == want[q][20]]
+        frac = len(same) / max(len(want), 1)
+        differ = [q for q in same if got[q] != want[q]]
+        log(f"engine cuda-vs-cpu: {mode}: {len(want)} PSMs, same library "
+            f"spectrum for {frac:.4f}, {len(differ)} of those lines differ")
+        if frac < 0.999:
+            raise AssertionError(f"{mode}: same library spectrum for {frac}")
+        if differ:
+            raise AssertionError(f"{mode}: PSM lines differ: {differ[:5]}")
+
+
 def main():
     import torch
 
@@ -1304,6 +1508,11 @@ def main():
     phase_cuda_vs_cpu(dev)
     big = phase_big_slice(dev)
     b3_launches = phase_b3_slice(dev, big)
+    big_launches = big["launches"]
+    del big  # phases 7 and 8's index and batches
+    torch.cuda.empty_cache()
+    phase_engine(dev)
+    phase_engine_cuda_vs_cpu(dev)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [
         {
@@ -1324,7 +1533,7 @@ def main():
             "route": "cuda",
             "source": "ann_solo_tpu_torch/csrc/ivf_probe_scan.cu",
             "replaces": "ann_solo_tpu/ops/ivf_probe_pallas.py:105",
-            "launches": big["launches"],
+            "launches": big_launches,
             "max_abs_err": probe_record["max_abs_err"],
             "ms": probe_record["ms"],
             "plain_ms": probe_record["plain_ms"],

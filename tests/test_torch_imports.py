@@ -5,7 +5,7 @@ Every module of `ann_solo_tpu_torch/` and `chip_smoke.py` is parsed with
 `ast`: no `import` or `from ... import` anywhere in it (at top level or
 inside a function) may name `ann_solo_tpu` or a submodule of it.  The
 port's MurmurHash3 bin table and mass constants are held equal to the JAX
-package's, which only this test imports.
+package's here; the other copies in `test_torch_engine_*.py`.
 """
 
 import ast
@@ -70,3 +70,11 @@ def test_hash_bin_table_default_seed_is_42():
 def test_mass_constants_equal_jax():
     assert masses.PROTON == jax_masses.PROTON
     assert masses.NEUTRON == jax_masses.NEUTRON
+    # The port's copy has every public name of the original (their values
+    # are held equal in test_torch_engine_io.py).
+    public = {n for n in dir(jax_masses) if not n.startswith("_")}
+    assert public <= set(dir(masses))
+    for name in public:
+        value = getattr(jax_masses, name)
+        if isinstance(value, (int, float, str, dict, tuple)):
+            assert getattr(masses, name) == value, name

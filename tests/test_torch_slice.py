@@ -216,3 +216,53 @@ def test_import_guard_slice_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "guard ok" in proc.stdout
+
+
+GUARD_CLI = textwrap.dedent("""
+    import sys
+    for name in ("jax", "jaxlib", "ml_dtypes", "sklearn", "pandas", "h5py"):
+        sys.modules[name] = None  # any import of these now fails
+    import os
+    import tempfile
+    import numpy as np
+    from ann_solo_tpu_torch.cli import main
+    from ann_solo_tpu_torch.io.mgf import write_mgf
+    from ann_solo_tpu_torch.io.splib import write_splib
+    from ann_solo_tpu_torch.synthdata import make_corpus
+
+    tmp = tempfile.mkdtemp()
+    library, queries, truth = make_corpus(np.random.default_rng(3), 40, 30)
+    write_splib(library, os.path.join(tmp, "lib.splib"))
+    write_mgf(queries, os.path.join(tmp, "q.mgf"))
+    out = os.path.join(tmp, "out.mztab")
+    assert main([
+        os.path.join(tmp, "lib.splib"), os.path.join(tmp, "q.mgf"), out,
+        "--precursor_tolerance_mass", "20",
+        "--precursor_tolerance_mode", "ppm",
+        "--precursor_tolerance_mass_open", "300",
+        "--precursor_tolerance_mode_open", "Da",
+        "--fragment_mz_tolerance", "0.02", "--allow_peak_shifts",
+        "--min_mz_range", "200", "--min_peaks", "5", "--model", "none",
+        "--mode", "ann", "--num_list", "8", "--num_probe", "4",
+        "--num_candidates", "16", "--fdr", "0.05", "--add_decoys",
+        "--no_gpu",
+    ]) == 0
+    psm = [line.split("\\t") for line in open(out) if line.startswith("PSM")]
+    correct = sum(truth[row[2]] == row[1] for row in psm)
+    assert len(psm) >= 25 and correct >= 20, (len(psm), correct)
+    for name in ("jax", "sklearn", "pandas", "h5py"):
+        assert sys.modules[name] is None
+    print("cli guard ok", len(psm), correct)
+""")
+
+
+def test_import_guard_cli_search_runs_without_jax():
+    """The CLI imports and searches to a written mzTab with jax, jaxlib,
+    ml_dtypes, sklearn, pandas and h5py unimportable."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", GUARD_CLI], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "cli guard ok" in proc.stdout
