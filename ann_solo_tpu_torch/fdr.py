@@ -1,30 +1,46 @@
 """Rescoring and FDR control (reference: ann_solo/utils.py).
 
-The port's copy of `ann_solo_tpu/fdr.py` for ``--model none``:
+The port's copy of `ann_solo_tpu/fdr.py`:
 
 * target-decoy competition q-values with the mokapot convention
   ``q = (#decoys + 1) / #targets`` at each score threshold, monotonized from
   the low-score end (validated against the reference's golden test,
   src/tests/utils_test.py:60-80),
 * mass-difference group FDR for open searches (utils.py:204-273),
-* the SSM feature table, whose cosine column ranks the SSMs.
+* the SSM feature table, whose cosine column ranks the SSMs of
+  ``--model none``,
+* a Percolator-style semi-supervised cross-validated rescoring loop
+  (mokapot.brew equivalent) with linear-SVM or random-forest models and the
+  reference's preprocessing pipeline (standardize -> drop zero variance ->
+  CorrelationThreshold(0.95), utils.py:147-151).
 
-The semi-supervised models (``--model rf`` and ``--model svm``) need
-scikit-learn in the JAX package and are not ported yet: `check_model`
-refuses them before any work is done.  `tests/test_torch_engine_fdr.py`
-holds the rest equal to the JAX package.
+The JAX package takes its models from scikit-learn; this one from
+`models/rescoring.py` (NumPy for the scaler chain and the SVM, torch ops
+on the engine's device for the random forest and its grid search).
+`tests/test_torch_engine_fdr.py` holds FDR and features equal to the JAX
+package, `tests/test_torch_fdr_models.py` the models to scikit-learn piece
+by piece and `brew` to the JAX package's planted-truth criteria.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import scipy.signal
 
+from ann_solo_tpu_torch.device import DeviceLike
 from ann_solo_tpu_torch.io.masses import mass_diff
 from ann_solo_tpu_torch.models import similarity
+from ann_solo_tpu_torch.models.rescoring import (
+    RF_PARAM_GRID as _RF_PARAM_GRID,
+    LinearSVM,
+    RandomForest,
+    ScalerChain,
+    grid_search_forest,
+)
 from ann_solo_tpu_torch.models.spectrum import SpectrumSpectrumMatch
 
 logger = logging.getLogger(__name__)
@@ -35,6 +51,9 @@ _INF_COLS = [
     "mse_mz", "mse_int", "mse_mz_top5", "mse_int_top5",
     "manhattan", "euclidean", "chebyshev", "canberra",
 ]
+
+# Non-feature metadata columns.
+_META_COLS = ("index", "sequence", "is_target", "group")
 
 
 def tdc_qvalues(scores: np.ndarray, is_target: np.ndarray) -> np.ndarray:
@@ -192,14 +211,125 @@ def compute_ssm_features(
     return features
 
 
+def _make_scaler():
+    return ScalerChain(0.95)
+
+
+def _fit_fold_model(
+    X: np.ndarray,
+    is_target: np.ndarray,
+    init_scores: np.ndarray,
+    train_fdr: float,
+    model: str,
+    max_iter: int = 10,
+    device: DeviceLike = None,
+    report: Optional[Dict[str, object]] = None,
+):
+    """Percolator-style semi-supervised iteration on one training split.
+
+    Returns a fitted (scaler, classifier) pair, or None if no confident
+    positives could be found (mokapot falls back to the initial direction).
+    The forest's grid search runs once, at the first iteration; its winner
+    is appended to ``report["grid"]`` when a report is given.
+    """
+    scores = init_scores
+    fitted = None
+    best_params = None
+    for iteration in range(max_iter):
+        q = tdc_qvalues(scores, is_target)
+        positives = is_target & (q <= train_fdr)
+        n_pos = int(positives.sum())
+        if n_pos == 0 or (~is_target).sum() == 0:
+            break
+        train_mask = positives | ~is_target
+        y = is_target[train_mask].astype(int)
+        scaler = _make_scaler()
+        Xt = scaler.fit_transform(X[train_mask])
+        if model == "svm":
+            clf = LinearSVM()
+        elif model == "rf":
+            if best_params is None:
+                best_params, _ = grid_search_forest(
+                    Xt, y, device=device, grid=_RF_PARAM_GRID
+                )
+                if report is not None:
+                    report.setdefault("grid", []).append(best_params)
+            clf = RandomForest(device=device, **best_params)
+        else:
+            raise ValueError(
+                "Unknown semi-supervised machine learning model given"
+            )
+        clf.fit(Xt, y)
+        fitted = (scaler, clf)
+        scores = _decision_scores(fitted, X)
+    return fitted
+
+
+def _decision_scores(fitted, X: np.ndarray) -> np.ndarray:
+    scaler, clf = fitted
+    Xt = scaler.transform(X)
+    if hasattr(clf, "decision_function"):
+        return clf.decision_function(Xt)
+    return clf.predict_proba1(Xt)
+
+
+def brew(
+    X: np.ndarray,
+    is_target: np.ndarray,
+    init_scores: np.ndarray,
+    train_fdr: float,
+    model: str,
+    folds: int = 3,
+    seed: int = 42,
+    device: DeviceLike = None,
+    report: Optional[Dict[str, object]] = None,
+) -> np.ndarray:
+    """Cross-validated semi-supervised rescoring (mokapot.brew convention).
+
+    Each fold is scored by a model trained on the other folds; per-fold test
+    scores are standardized against the fold's decoy distribution so they
+    pool comparably.  The structure, the fold assignment and the fallback
+    are the JAX package's `brew`; it claims convention-level parity with
+    mokapot only, validated on planted ground truth, and so does this one
+    (`tests/test_torch_fdr_models.py`).  `device` is where the random
+    forest grows its trees (None: the CUDA GPU, resolved only when the
+    model is "rf"); the SVM and the scaler run on the host.
+    """
+    n = len(is_target)
+    rng = np.random.RandomState(seed)
+    fold_of = rng.permutation(n) % folds
+    final = np.array(init_scores, np.float64)
+    for fold in range(folds):
+        test = fold_of == fold
+        train = ~test
+        fitted = _fit_fold_model(
+            X[train], is_target[train], init_scores[train], train_fdr, model,
+            device=device, report=report,
+        )
+        if fitted is None:
+            logger.warning(
+                "Fold %d: no confident positives; keeping the initial "
+                "score direction", fold,
+            )
+            test_scores = np.array(init_scores[test], np.float64)
+        else:
+            test_scores = _decision_scores(fitted, X[test])
+        decoy_scores = test_scores[~is_target[test]]
+        if len(decoy_scores) > 1 and decoy_scores.std() > 0:
+            test_scores = (
+                test_scores - decoy_scores.mean()
+            ) / decoy_scores.std()
+        final[test] = test_scores
+    return final
+
+
 def check_model(model: Optional[str]) -> None:
-    """Refuse a rescoring model this package does not have (only None,
-    the cosine ranking of ``--model none``, is ported)."""
-    if model is not None:
+    """Refuse a rescoring model this package does not know: None (the
+    cosine ranking of ``--model none``), "svm" and "rf" are the models."""
+    if model not in (None, "svm", "rf"):
         raise ValueError(
-            f"--model {model} is not supported by ann_solo_tpu_torch yet "
-            "(its semi-supervised rescoring needs scikit-learn); use "
-            "--model none"
+            "Unknown semi-supervised machine learning model given: "
+            f"{model!r} (the models are rf, svm and none)"
         )
 
 
@@ -210,13 +340,18 @@ def score_ssms(
     grouped: bool = False,
     min_group_size: int = 100,
     config=None,
+    device: DeviceLike = None,
+    report: Optional[Dict[str, object]] = None,
 ) -> List[SpectrumSpectrumMatch]:
     """Score SSMs and assign q-values (reference utils.py:69-201).
 
-    `model` must be None (rank by cosine similarity only): see
-    `check_model`.
+    `model` is "rf", "svm", or None (rank by cosine similarity only).
     Target SSMs receive q-values; decoy SSMs keep q = NaN (the reference's
-    mokapot confidence output also only covers targets).
+    mokapot confidence output also only covers targets).  `device` is
+    where a random forest grows (None: the CUDA GPU, resolved only when
+    the model is "rf").  With a `report` dict given, the seconds of the
+    feature table ("features_sec") and of the model ("model_sec") and the
+    forest's grid winners per fold ("grid") are written to it.
     """
     check_model(model)
     if config is None:
@@ -227,7 +362,10 @@ def score_ssms(
         "Compute features for semi-supervised scoring from %d SSMs",
         len(ssms),
     )
+    t0 = time.perf_counter()
     features = compute_ssm_features(ssms, config)
+    if report is not None:
+        report["features_sec"] = time.perf_counter() - t0
     idx = features["index"]
     if len(idx) == 0:
         return ssms
@@ -243,8 +381,24 @@ def score_ssms(
     else:
         groups = np.zeros(len(idx), np.int32)
 
-    logger.debug("Calculate q-values based on the cosine similarity")
-    scores = features["cosine"]
+    if model is None:
+        logger.debug("Calculate q-values based on the cosine similarity")
+        scores = features["cosine"]
+    else:
+        logger.debug(
+            "Train semi-supervised %s model and score SSMs", model.upper()
+        )
+        feature_cols = sorted(
+            k for k in features if k not in _META_COLS
+        )
+        X = np.column_stack([features[k] for k in feature_cols])
+        t0 = time.perf_counter()
+        scores = brew(
+            X, is_target, features["cosine"], fdr, model,
+            device=device, report=report,
+        )
+        if report is not None:
+            report["model_sec"] = time.perf_counter() - t0
 
     # q-values per group; residual group (-1) included as its own group.
     q = np.full(len(idx), np.nan)

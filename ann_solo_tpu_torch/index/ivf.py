@@ -32,6 +32,12 @@ the voting budget:
   The JAX package's voting-budget regime is not ported: its
   degenerate-tile rule picks between the chunked regimes and the oracle.
 
+* **Files** (`IvfIndex.save`, `load`, `load_or_build`,
+  `ivf_index_filename`): one ``.ivf.npz`` per charge beside the library
+  (NumPy's own format, no pickle; the JAX package's stem, never its
+  ``.ivf.h5`` name), stamped with the fingerprint of the store content it
+  was built from and rebuilt when that differs.
+
 Placement and selection are bit-for-bit those of the JAX package given the
 same inputs: stable sorts wherever the JAX code relies on `lax.top_k` or a
 stable argsort, and no float atomics.
@@ -41,13 +47,22 @@ from __future__ import annotations
 
 import logging
 import math
-from typing import Optional
+import os
+import time
+import zipfile
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ann_solo_tpu_torch.device import resolve_device
+from ann_solo_tpu_torch.device import resolve_device, synchronize
+from ann_solo_tpu_torch.io.files import write_npz_atomically
+from ann_solo_tpu_torch.models.vectorize import (
+    VectorizeParams,
+    device_tables,
+    vectorize_batch,
+)
 from ann_solo_tpu_torch.ops.ivf_probe import probe_scan_supported
 from ann_solo_tpu_torch.ops.ivf_probe import window_mask as _window_mask
 from ann_solo_tpu_torch.ops.ivf_probe_cuda import ivf_probe_scan
@@ -84,6 +99,28 @@ _TRAIN_POINTS_PER_CENTROID = 256  # FAISS subsampling rule
 
 # --------------------------------------------------------------------- #
 # Build
+
+
+_STORAGE_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32,
+                   "int8": torch.int8}
+
+
+def ivf_index_filename(
+    library_filename: str, config_hash: str, charge: int,
+    index_dtype: str = "bf16", redundancy: int = 2,
+    soar_lambda: float = 0.0,
+) -> str:
+    """Per-charge index path: the JAX package's stem (index-only settings
+    -- storage dtype, redundant assignment, SOAR weight -- key the file
+    name rather than the shared store hash, so switching them rebuilds
+    just the index) with this package's own extension."""
+    base = os.path.splitext(library_filename)[0]
+    suffix = "" if index_dtype == "bf16" else f"_{index_dtype}"
+    if redundancy != 1:
+        suffix += f"_x{redundancy}"
+    if soar_lambda > 0.0 and redundancy > 1:
+        suffix += f"_soar{soar_lambda:g}"
+    return f"{base}_{config_hash[:7]}_{charge}{suffix}.ivf.npz"
 
 
 def _fill_lists(choices: torch.Tensor, used: torch.Tensor, num_list: int,
@@ -744,7 +781,10 @@ class IvfIndex:
         padded_prec: torch.Tensor,  # (L, cap) float32, 0 = no window
         padded_scales: torch.Tensor,  # (L, cap) float32, 1 unless int8
         redundancy: int = 1,
+        store_fp: Optional[str] = None,
     ):
+        # Fingerprint of the store content the lists' ids point into.
+        self.store_fp = store_fp
         self.centroids = centroids.to(torch.float32)
         self.padded_vectors = padded_vectors
         self.padded_ids = padded_ids.to(torch.int32)
@@ -838,6 +878,128 @@ class IvfIndex:
             int(config.num_probe), padded_prec, padded_scales,
             redundancy=r_eff,
         )
+
+    @classmethod
+    @torch.no_grad()
+    def load_or_build(
+        cls, filename: str, lib, config, store_fp: Optional[str] = None,
+        device=None, stage_seconds: Optional[Dict[str, float]] = None,
+    ) -> "IvfIndex":
+        """Load a persisted index, or vectorize the charge block and build
+        one in memory, and save it (the JAX `IvfIndex.load_or_build`).
+
+        `lib` holds the charge block's processed peaks (`mz`, `intensity`,
+        `n_peaks`, `precursor_mz`, `n_spectra`; or the same on the device
+        as `lib.block`).  `store_fp` identifies the store content the
+        index was built from; a persisted index with a different
+        fingerprint rebuilds, and so does one without any when the caller
+        has one: the file name only encodes the settings hash, and ids of
+        an index built from other store content point at the wrong
+        spectra.  With `stage_seconds` given, "index load" seconds, or
+        "index build" and "index write" seconds, are added to it.
+
+        Not ported: the JAX package's host-streaming build for sources
+        beyond its device budget, and its one-resident-index eviction
+        (one card holds every charge's index).
+        """
+        device = resolve_device(device)
+        seconds = stage_seconds if stage_seconds is not None else {}
+
+        def add(name, t0):
+            synchronize(device)
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+
+        if os.path.isfile(filename):
+            try:
+                t0 = time.perf_counter()
+                index = cls.load(filename, int(config.num_probe), device)
+                if store_fp is None or index.store_fp == store_fp:
+                    add("index load", t0)
+                    return index
+                logger.warning(
+                    "ANN index %s was built from different store "
+                    "content (%s != %s); rebuilding",
+                    os.path.basename(filename), index.store_fp, store_fp,
+                )
+                del index
+            except (OSError, ValueError, KeyError, EOFError,
+                    zipfile.BadZipFile) as e:
+                logger.warning("Failed to load ANN index %s: %s", filename, e)
+        logger.warning(
+            "Missing ANN index for %s; building", os.path.basename(filename)
+        )
+        t0 = time.perf_counter()
+        vparams = VectorizeParams.from_config(config)
+        tables = device_tables(vparams, device)
+        try:
+            dtype_name = str(config.index_dtype)
+        except (KeyError, AttributeError):
+            dtype_name = "bf16"
+        block = getattr(lib, "block", lib)
+        mz, intensity, n_peaks = (
+            torch.as_tensor(a).to(device)
+            for a in (block.mz, block.intensity, lib.n_peaks))
+        step = 8192
+        vectors = torch.cat([
+            vectorize_batch(vparams, tables, mz[s:s + step],
+                            intensity[s:s + step], n_peaks[s:s + step])
+            for s in range(0, int(lib.n_spectra), step)
+        ])
+        index = cls.build(
+            vectors, config,
+            precursor_mz=np.asarray(lib.precursor_mz, np.float32),
+            storage_dtype=_STORAGE_DTYPES[dtype_name], device=device,
+        )
+        del vectors
+        index.store_fp = store_fp
+        add("index build", t0)
+        t0 = time.perf_counter()
+        index.save(filename)
+        add("index write", t0)
+        return index
+
+    def save(self, filename: str) -> None:
+        """Write the index: the five arrays, each downloaded once, the
+        redundancy and, when set, the store fingerprint.  bf16 vectors
+        travel as their 16-bit patterns under `padded_vectors_bf16`.  The
+        file appears under its name only when complete."""
+        vectors = self.padded_vectors.cpu()
+        if vectors.dtype == torch.bfloat16:
+            arrays = {"padded_vectors_bf16":
+                      vectors.view(torch.int16).numpy().view(np.uint16)}
+        else:
+            arrays = {"padded_vectors": vectors.numpy()}
+        arrays["centroids"] = self.centroids.cpu().numpy()
+        arrays["padded_ids"] = self.padded_ids.cpu().numpy()
+        arrays["padded_prec"] = self.padded_prec.cpu().numpy()
+        arrays["padded_scales"] = self.padded_scales.cpu().numpy()
+        arrays["redundancy"] = np.asarray(self.redundancy, np.int64)
+        if self.store_fp is not None:
+            arrays["store_fp"] = np.asarray(str(self.store_fp))
+        write_npz_atomically(filename, arrays)
+
+    @classmethod
+    def load(cls, filename: str, num_probe: int, device=None) -> "IvfIndex":
+        """Read an index written by `save` straight onto `device`."""
+        device = resolve_device(device)
+        with np.load(filename, allow_pickle=False) as f:
+            if "padded_vectors_bf16" in f:
+                vectors = torch.from_numpy(
+                    f["padded_vectors_bf16"].view(np.int16)
+                ).view(torch.bfloat16)
+            else:
+                vectors = torch.from_numpy(f["padded_vectors"])
+            return cls(
+                torch.from_numpy(f["centroids"]).to(device),
+                vectors.to(device),
+                torch.from_numpy(f["padded_ids"]).to(device),
+                num_probe,
+                torch.from_numpy(f["padded_prec"]).to(device),
+                torch.from_numpy(f["padded_scales"]).to(device),
+                redundancy=int(f["redundancy"]),
+                store_fp=(str(f["store_fp"][()]) if "store_fp" in f
+                          else None),
+            )
 
     @torch.no_grad()
     def search_device(

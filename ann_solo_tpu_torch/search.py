@@ -1,8 +1,10 @@
 """Spectral library search engine (the port of `ann_solo_tpu/search.py`).
 
-`SpectralLibrary` builds the library store with its decoys, an IVF index
-for each charge with enough spectra (``--mode ann``), and runs the
-standard -> open cascade with FDR control, on one device:
+`SpectralLibrary` opens the library store (or builds it, with its decoys,
+and writes it: `io/store.py::open_or_build_store`), loads or builds an IVF
+index for each charge with enough spectra (``--mode ann``,
+`IvfIndex.load_or_build`), and runs the standard -> open cascade with FDR
+control, on one device:
 
 * the standard level, and every charge without an index, rescore each
   query's whole precursor window (`_rescore_window_ranges`): contiguous
@@ -24,8 +26,7 @@ query's result never depends on the other queries of its batch.
 
 Not ported: the JAX engine's pipeline warm-up (compilation), its device
 mesh (``--num_shards`` is accepted and ignored) and its one-resident-index
-eviction (one card holds every charge's index), and index files (each run
-builds its indexes in memory).
+eviction (one card holds every charge's index).
 """
 
 from __future__ import annotations
@@ -42,13 +43,17 @@ import torch
 from ann_solo_tpu_torch import fdr
 from ann_solo_tpu_torch.config import config
 from ann_solo_tpu_torch.device import DeviceLike, resolve_device, synchronize
-from ann_solo_tpu_torch.index.ivf import IvfIndex
+from ann_solo_tpu_torch.index.ivf import (
+    IvfIndex,
+    ivf_index_filename,
+    resolve_soar_lambda,
+)
 from ann_solo_tpu_torch.io import reader
 from ann_solo_tpu_torch.io.store import (
     ChargeBlock,
     SpectralLibraryStore,
-    build_store,
     hyperparameter_hash,
+    open_or_build_store,
 )
 from ann_solo_tpu_torch.models.preprocess import (
     PreprocessParams,
@@ -77,8 +82,6 @@ logger = logging.getLogger(__name__)
 _MATCH_CHUNK = 4096  # pairs per match-extraction call
 # Queries per open-level ANN call (vectorize, select, rescore, matches).
 _ANN_CHUNK = 4096
-_INDEX_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32,
-                 "int8": torch.int8}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -348,17 +351,18 @@ class SpectralLibrary:
         self._params = _open_search_params(config)
         profiler.device = self.device
         stages: Dict[str, float] = {}
-        self._store: SpectralLibraryStore = build_store(
-            reader.read_library_file(filename),
-            hyperparameter_hash(config),
-            os.path.basename(filename),
-            self._lib_params,
-            self.device,
-            add_decoys=bool(config.add_decoys),
+        self._store: SpectralLibraryStore = open_or_build_store(
+            filename, config, self._lib_params, self.device,
             stage_seconds=stages,
         )
         for name, seconds in stages.items():
             profiler.add(name, seconds)
+        profiler.notes["store"] = {
+            "source": "loaded" if "store load" in stages else "built",
+            "file": os.path.basename(self._store.filename),
+            "bytes": os.path.getsize(self._store.filename),
+            "rows": self._store.n_spectra,
+        }
         self._charge_libs: Dict[int, Optional[_ChargeLibrary]] = {}
         self._ann_indexes: Dict[int, IvfIndex] = {}
         if config.mode == "ann":
@@ -378,48 +382,49 @@ class SpectralLibrary:
 
     @torch.no_grad()
     def _prepare_ann_indexes(self) -> None:
-        """Build an IVF index for each charge with enough spectra
+        """Load or build an IVF index for each charge with enough spectra
         (reference spectral_library.py:91-116); every other charge is
         searched by window rescoring."""
+        config_hash = hyperparameter_hash(config)
         # num_list <= 0 is the size-aware auto rule; below its floor of
         # 256 spectra (or below a set num_list) no index is built.
         min_spectra = (
             int(config.num_list) if int(config.num_list) > 0 else 256
         )
-        vparams = self._params.vectorize
-        tables = device_tables(vparams, self.device)
         for charge in self._store.charges():
             lib = self._get_charge_lib(charge)
             if lib is None or lib.n_spectra < min_spectra:
                 continue
-            with profiler.stage(f"index build charge {charge}"):
-                blk = lib.block
-                n_peaks = torch.from_numpy(lib.n_peaks).to(self.device)
-                vectors = torch.cat([
-                    vectorize_batch(
-                        vparams, tables, blk.mz[s:s + 8192],
-                        blk.intensity[s:s + 8192], n_peaks[s:s + 8192],
-                    )
-                    for s in range(0, lib.n_spectra, 8192)
-                ])
-                index = IvfIndex.build(
-                    vectors, config,
-                    precursor_mz=lib.precursor_mz.astype(np.float32),
-                    storage_dtype=_INDEX_DTYPES[str(config.index_dtype)],
-                    device=self.device,
-                )
-                del vectors
+            filename = ivf_index_filename(
+                self._filename, config_hash, charge,
+                str(config.index_dtype), int(config.ivf_redundancy),
+                resolve_soar_lambda(config),
+            )
+            # Tie the persisted index to the store CONTENT it was built
+            # from (the file name only encodes the config hash).
+            stages: Dict[str, float] = {}
+            index = IvfIndex.load_or_build(
+                filename, lib, config,
+                store_fp=self._store.source_fingerprint,
+                device=self.device, stage_seconds=stages,
+            )
+            for name, seconds in stages.items():
+                profiler.add(f"{name} charge {charge}", seconds)
             l, cap, d = index.padded_vectors.shape
             regime = index.regime(self._params.num_candidates)
             profiler.notes[f"index charge {charge}"] = {
                 "n_spectra": lib.n_spectra, "num_list": l, "cap": cap,
                 "dim": d, "redundancy": index.redundancy,
                 "num_probe": index.num_probe, "regime": regime,
+                "source": "loaded" if "index load" in stages else "built",
+                "file": os.path.basename(filename),
+                "bytes": os.path.getsize(filename),
             }
             logger.info(
-                "Charge %d IVF index: %d spectra, %d lists x cap %d, "
-                "num_probe %d, %s regime", charge, lib.n_spectra, l, cap,
-                index.num_probe, regime,
+                "Charge %d IVF index (%s): %d spectra, %d lists x cap %d, "
+                "num_probe %d, %s regime", charge,
+                profiler.notes[f"index charge {charge}"]["source"],
+                lib.n_spectra, l, cap, index.num_probe, regime,
             )
             self._ann_indexes[charge] = index
 
@@ -557,15 +562,24 @@ class SpectralLibrary:
             "Filter the spectrum-spectrum matches on FDR (threshold = %s)",
             config.fdr,
         )
+        report: Dict[str, object] = {}
         with profiler.stage(f"{mode} FDR"):
-            return fdr.score_ssms(
+            scored = fdr.score_ssms(
                 list(ssms.values()),
                 config.fdr,
                 config.model if config.model != "none" else None,
                 mode == "open",
                 int(config.fdr_min_group_size),
                 config,
+                device=self.device,
+                report=report,
             )
+        profiler.add(f"{mode} FDR features", report.get("features_sec", 0.0))
+        if "model_sec" in report:
+            profiler.add(f"{mode} FDR model", report["model_sec"])
+        if "grid" in report:
+            profiler.notes[f"{mode} rf grid"] = report["grid"]
+        return scored
 
     @torch.no_grad()
     def _search_batch(

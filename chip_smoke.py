@@ -65,9 +65,13 @@ Phases, each raising on failure (non-zero exit, no final line):
    per-query oracle run on the card (>= 99.9% of (id, score) lanes equal,
    every 16-bit key within one step, no duplicate ids); best-match hit
    rate >= 0.95 per batch, or, for a batch below it, no lower than the
-   oracle's on the same queries by more than one query.  Then one batch
-   runs under torch.profiler, which logs wall and kernel seconds, the
-   idle share and the ten costliest kernels;
+   oracle's on the same queries by more than one query.  Then the index
+   is saved under build/ (`IvfIndex.save`, about 2.5 GB of int8 lists),
+   loaded onto the card and batch 0 selected through the loaded index:
+   (ids, scores) identical to the built index's; save and load seconds
+   and the file's bytes are logged and the file is deleted.  Then one
+   batch runs under torch.profiler, which logs wall and kernel seconds,
+   the idle share and the ten costliest kernels;
 8. the B3 path at full width: phase 7's index and query batches, with the
    probe path's lane bound (`ops.ivf_probe.MAX_PROBE_LANES`) set below
    P * cap so that `search_device` takes kernel B3 (restored afterwards);
@@ -84,17 +88,31 @@ Phases, each raising on failure (non-zero exit, no final line):
    library spectra, 200,000 store rows with decoys, 10,000 queries, 35%
    modified, 5% foreign) written as .splib and .mgf under build/engine/,
    searched with QUALITY r05's ann settings (std 20 ppm, open 300 Da,
-   num_probe 256, 1,024 candidates, int8 x2 SOAR lists, --model none,
-   1% FDR).  Logs every stage's seconds (device synchronized at each
-   boundary), queries/s of the search, peak device memory, B1's launches
-   and the identification counts from the mzTab beside the JAX package's
-   (QUALITY_r05.json).  Gates: the CLI returns 0; B1 launched; each
-   charge's open level went through `IvfIndex.search_device` and its std
-   level through window rescoring; accuracy among confident PSMs >= 0.95;
-   confident PSMs >= 0.9 x the 9,500 non-foreign queries.  Then the CLI
-   on a 4,000-peptide corpus (seed 7, 1,000 queries) on the card and with
-   --no_gpu, in --mode ann and bf: the same PSM_IDs, the same library
-   spectrum for >= 99.9% of them, identical PSM lines wherever it is.
+   num_probe 256, 1,024 candidates, int8 x2 SOAR lists, 1% FDR), three
+   times.  Run A: --model none with no store or index file present (any
+   left by an earlier run is removed), which also writes the store and
+   both index files.  Run B: the same command with the CLI's default
+   model (--model rf), files present.  Run C: the same with --model svm.
+   Each logs every stage's seconds (device synchronized at each
+   boundary; store and index load or write seconds, FDR feature and model
+   seconds apart for each level), each file's bytes, the forest's grid
+   winners per fold, queries/s of the search, peak device memory, B1's
+   launches and the identification counts from the mzTab beside the JAX
+   package's (QUALITY_r05.json).  Gates, every run: the CLI returns 0;
+   B1 launched; each charge's open level went through
+   `IvfIndex.search_device` and its std level through window rescoring;
+   accuracy among confident PSMs >= 0.95; confident PSMs >= 0.9 x the 9,500
+   non-foreign queries.  Runs B and C besides: the store and both
+   indexes were loaded, not built; no library read, decoy, preprocess or
+   index build seconds; confident PSMs at q < 0.01 no fewer than run A's
+   less 1%.  Then the CLI on a 4,000-peptide corpus (seed 7, 1,000
+   queries): --model none twice on the card, built then loaded, identical
+   PSM lines; --model svm and --model rf on the card and with --no_gpu
+   (files loaded): the same PSM_IDs and library spectra, q-values at rtol
+   1e-6, every differing line logged; and, each run building its own
+   files, on the card and with --no_gpu in --mode ann and bf: the same
+   PSM_IDs, the same library spectrum for >= 99.9% of them, identical PSM
+   lines wherever it is.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1160,11 +1178,57 @@ def phase_big_slice(dev, n_lib=N_BIG, n_q=BIG_QUERIES, n_batches=N_BATCHES,
             raise AssertionError(
                 f"batch {i}: best-match hit rate {rate} below the gate and "
                 f"below the oracle's {oracle_rates[i]}")
+
+    def select_batch0(idx):
+        vectors, qp = embed(batches[0])
+        return idx.search_device(
+            vectors, BIG_CANDIDATES, q_prec=qp, charge=float(CHARGE),
+            tol_val=OPEN_TOL_DA, tol_mode="Da")
+
+    index_file_round_trip(dev, index, select_batch0, (p_ids, p_s))
     profile_batch(dev, "probe path, last batch", lambda: run(batches[-1]))
     return {"launches": launches, "index": index, "lib": lib,
             "batches": batches, "run": run, "embed": embed, "select": select,
             "best_match_rate": best_match_rate, "hit_rates": hit_rates,
             "probe": (p_ids, p_s), "oracle": (o_ids, o_s)}
+
+
+def index_file_round_trip(dev, index, select, want, workdir=None):
+    """Save `index`, load it onto `dev`, and hold `select(loaded)` against
+    `want` = (ids, scores) of the built index: identical.  Logs save and
+    load seconds and the file's bytes, then deletes the file."""
+    import os
+
+    import torch
+
+    from ann_solo_tpu_torch.device import synchronize
+    from ann_solo_tpu_torch.index.ivf import IvfIndex
+
+    workdir = workdir or os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "build")
+    os.makedirs(workdir, exist_ok=True)
+    path = os.path.join(workdir, "big_slice.ivf.npz")
+    index.store_fp = "chip_smoke"
+    try:
+        t0 = time.perf_counter()
+        index.save(path)
+        t_save = time.perf_counter() - t0
+        n_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = IvfIndex.load(path, index.num_probe, dev)
+        synchronize(dev)
+        t_load = time.perf_counter() - t0
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    ids, scores = select(loaded)
+    same = bool(torch.equal(ids, want[0]) and torch.equal(scores, want[1]))
+    log("big slice index file: " + json.dumps({
+        "save_sec": t_save, "load_sec": t_load, "bytes": n_bytes,
+        "loaded_equals_built": same, "store_fp": loaded.store_fp}))
+    if not same or loaded.store_fp != "chip_smoke":
+        raise AssertionError("the loaded index does not select like the "
+                             "built one")
 
 
 def _lanes_vs(ids, scores, ref_ids, ref_scores, rows=None):
@@ -1391,41 +1455,52 @@ def run_engine_cli(dev, lib_path, query_path, out_path, extra=()):
              "notes": dict(profiler.notes)}, shifted_dot_cuda.LAUNCHES)
 
 
-def phase_engine(dev, n_peptides=ENGINE_PEPTIDES, n_queries=ENGINE_QUERIES,
-                 workdir=None):
-    """The engine on the card: QUALITY r05's corpus through the port's
-    CLI (std level by window rescoring, open level through the IVF
-    index), with its stage seconds and identification counts."""
+def remove_library_files(workdir):
+    """Delete the store and index files the engine wrote beside a
+    library."""
+    import os
+
+    for name in os.listdir(workdir):
+        if name.endswith((".store.npz", ".ivf.npz")):
+            os.remove(os.path.join(workdir, name))
+
+
+def engine_run(dev, name, lib_path, query_path, truth, n_queries, model,
+               loaded, reference=None):
+    """One CLI run of phase 9 on `dev` with `--model model`: logs its
+    summary and holds its gates (see the module docstring); `loaded` says
+    whether the store and index files must have been read, not built;
+    `reference` holds the --model none statistics a model run must keep.
+    Returns (the identification statistics, B1's launches)."""
     import os
 
     import torch
 
-    workdir = workdir or os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "build", "engine")
-    t0 = time.perf_counter()
-    lib_path, query_path, truth = engine_corpus(workdir, n_peptides,
-                                                n_queries, ENGINE_SEED)
-    t_corpus = time.perf_counter() - t0
+    workdir = os.path.dirname(lib_path)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-    out_path = os.path.join(workdir, "out.mztab")
+    out_path = os.path.join(workdir, f"out_{model}.mztab")
     t0 = time.perf_counter()
-    profile, launches = run_engine_cli(dev, lib_path, query_path, out_path)
+    profile, launches = run_engine_cli(dev, lib_path, query_path, out_path,
+                                       ["--model", model])
     t_cli = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     stats = mztab_stats(out_path, truth)
     totals, counts, notes = (profile["totals"], profile["counts"],
                              profile["notes"])
+    files = {key: {k: note[k] for k in ("source", "file", "bytes")}
+             for key, note in notes.items()
+             if isinstance(note, dict) and "source" in note}
     summary = {
-        "corpus": {"n_peptides": n_peptides, "n_queries": n_queries,
-                   "seed": ENGINE_SEED},
-        "corpus_sec": t_corpus,
+        "run": name, "model": model,
         "cli_sec": t_cli,
         "stages_sec": totals,
         "search_sec": totals["search"],
         "queries_per_sec": n_queries / totals["search"],
-        "indexes": notes,
+        "files": files,
+        "indexes": {k: v for k, v in notes.items() if k.startswith("index")},
+        "rf_grid": {k: v for k, v in notes.items() if k.endswith("rf grid")},
         "paths": {k: v for k, v in counts.items() if "level charge" in k},
         "max_memory_allocated_bytes": peak,
         "b1_launches": launches,
@@ -1434,30 +1509,80 @@ def phase_engine(dev, n_peptides=ENGINE_PEPTIDES, n_queries=ENGINE_QUERIES,
     }
     log("engine: " + json.dumps(summary))
     if launches <= 0 and dev.type == "cuda":
-        raise AssertionError("the engine launched no greedy kernel")
+        raise AssertionError(f"{name}: the engine launched no greedy kernel")
     for charge in (2, 3):
         if counts.get(f"open level charge {charge}: ivf select", 0) <= 0:
-            raise AssertionError(f"charge {charge}: no open-level batch "
-                                 "went through IvfIndex.search_device")
+            raise AssertionError(f"{name}, charge {charge}: no open-level "
+                                 "batch went through IvfIndex.search_device")
         if counts.get(f"std level charge {charge}: window rescoring",
                       0) <= 0:
-            raise AssertionError(f"charge {charge}: no std-level batch "
-                                 "went through window rescoring")
+            raise AssertionError(f"{name}, charge {charge}: no std-level "
+                                 "batch went through window rescoring")
+    want = "loaded" if loaded else "built"
+    for key in ("store", "index charge 2", "index charge 3"):
+        if files.get(key, {}).get("source") != want:
+            raise AssertionError(f"{name}: {key} was not {want}: {files}")
+    built_stages = [k for k in totals if k.startswith(
+        ("library read", "decoys", "library preprocess", "store write",
+         "index build", "index write"))]
+    if loaded and built_stages:
+        raise AssertionError(f"{name}: files present, yet {built_stages}")
+    if model != "none" and not (totals.get("std FDR model", 0) > 0
+                                and totals.get("open FDR model", 0) > 0):
+        raise AssertionError(f"{name}: no model seconds: {totals}")
     if stats["accuracy"] < ENGINE_ACCURACY_GATE:
-        raise AssertionError(f"accuracy {stats['accuracy']} < gate")
+        raise AssertionError(
+            f"{name}: accuracy {stats['accuracy']} < gate "
+            f"{ENGINE_ACCURACY_GATE}")
     n_real = sum(1 for v in truth.values() if v is not None)
     if stats["n_confident"] < ENGINE_CONFIDENT_GATE * n_real:
         raise AssertionError(
-            f"{stats['n_confident']} confident PSMs < "
+            f"{name}: {stats['n_confident']} confident PSMs < "
             f"{ENGINE_CONFIDENT_GATE} x {n_real}")
-    return launches
+    if reference is not None and (
+            stats["n_confident"] < 0.99 * reference["n_confident"]):
+        raise AssertionError(
+            f"{name}: {stats['n_confident']} confident PSMs, fewer than "
+            f"--model none's {reference['n_confident']} less 1%")
+    return stats, launches
+
+
+def phase_engine(dev, n_peptides=ENGINE_PEPTIDES, n_queries=ENGINE_QUERIES,
+                 workdir=None):
+    """The engine on the card: QUALITY r05's corpus through the port's
+    CLI (std level by window rescoring, open level through the IVF
+    index).  Run A builds and writes the store and index files with
+    --model none; runs B (--model rf, the CLI's default) and C (--model
+    svm) read them.  Returns B1's launches summed over the runs."""
+    import os
+
+    workdir = workdir or os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "build", "engine")
+    t0 = time.perf_counter()
+    lib_path, query_path, truth = engine_corpus(workdir, n_peptides,
+                                                n_queries, ENGINE_SEED)
+    log("engine corpus: " + json.dumps({
+        "n_peptides": n_peptides, "n_queries": n_queries,
+        "seed": ENGINE_SEED, "corpus_sec": time.perf_counter() - t0}))
+    remove_library_files(workdir)
+    args = (lib_path, query_path, truth, n_queries)
+    none, launches = engine_run(dev, "run A", *args, "none", False)
+    total = launches
+    for name, model in (("run B", "rf"), ("run C", "svm")):
+        _, launches = engine_run(dev, name, *args, model, True, none)
+        total += launches
+    return total
+
+
+def _psm_rows(path):
+    return {row[2]: row for row in mztab_psms(path)}
 
 
 def phase_engine_cuda_vs_cpu(dev, n_peptides=4000, n_queries=1000,
                              workdir=None):
-    """The CLI on the card and with --no_gpu, in --mode ann and bf, on one
-    small corpus: the same PSM_IDs, the same library spectrum for >= 99.9%
-    of them, identical PSM lines wherever it is the same."""
+    """The CLI on one small corpus, on the card and with --no_gpu: built
+    then loaded, both models across devices, and --mode ann and bf with
+    each run building its own files (see the module docstring)."""
     import os
 
     import torch
@@ -1466,15 +1591,59 @@ def phase_engine_cuda_vs_cpu(dev, n_peptides=4000, n_queries=1000,
         os.path.abspath(__file__)), "build", "engine_small")
     lib_path, query_path, _ = engine_corpus(workdir, n_peptides, n_queries,
                                             7)
+    cpu = torch.device("cpu")
+
+    def run(tag, d, extra):
+        out = os.path.join(workdir, f"{tag}_{d.type}.mztab")
+        t0 = time.perf_counter()
+        profile, _ = run_engine_cli(d, lib_path, query_path, out, extra)
+        source = profile["notes"]["store"]["source"]
+        log(f"engine cuda-vs-cpu: {tag} on {d.type} "
+            f"{time.perf_counter() - t0:.1f}s (store {source})")
+        return out, profile
+
+    # --model none twice on the card: built, then loaded.
+    remove_library_files(workdir)
+    built, profile = run("built", dev, [])
+    if profile["notes"]["store"]["source"] != "built":
+        raise AssertionError("first run: the store was not built")
+    loaded, profile = run("loaded", dev, [])
+    sources = {k: v["source"] for k, v in profile["notes"].items()
+               if isinstance(v, dict) and "source" in v}
+    if set(sources.values()) != {"loaded"} or len(sources) < 2:
+        raise AssertionError(f"second run: not loaded: {sources}")
+    if mztab_psms(built) != mztab_psms(loaded):
+        raise AssertionError("built vs loaded: the PSM lines differ")
+    log(f"engine built-vs-loaded: {len(mztab_psms(loaded))} identical PSM "
+        "lines")
+
+    # Both models on the card and on the CPU, files loaded.
+    for model in ("svm", "rf"):
+        rows = {d.type: _psm_rows(run(model, d, ["--model", model])[0])
+                for d in (dev, cpu)}
+        got, want = rows[dev.type], rows["cpu"]
+        if got.keys() != want.keys():
+            raise AssertionError(f"{model}: the PSM_IDs differ, CUDA vs CPU")
+        differ = [q for q in want if got[q] != want[q]]
+        for q in differ[:10]:
+            log(f"engine cuda-vs-cpu: {model}: {q}: card score "
+                f"{got[q][8]} q {got[q][9]} {got[q][20]}; cpu score "
+                f"{want[q][8]} q {want[q][9]} {want[q][20]}")
+        log(f"engine cuda-vs-cpu: {model}: {len(want)} PSMs, "
+            f"{len(differ)} lines differ")
+        if any(got[q][20] != want[q][20] for q in want):
+            raise AssertionError(f"{model}: library spectra differ")
+        q_got = np.asarray([float(got[q][9]) for q in want])
+        q_want = np.asarray([float(want[q][9]) for q in want])
+        if not np.allclose(q_got, q_want, rtol=1e-6, atol=0, equal_nan=True):
+            raise AssertionError(f"{model}: q-values differ, CUDA vs CPU")
+
+    # Each device building its own store and index, ann and bf.
     for mode in ("ann", "bf"):
         rows = {}
-        for d in (dev, torch.device("cpu")):
-            out = os.path.join(workdir, f"{mode}_{d.type}.mztab")
-            t0 = time.perf_counter()
-            run_engine_cli(d, lib_path, query_path, out, ["--mode", mode])
-            log(f"engine cuda-vs-cpu: {mode} on {d.type} "
-                f"{time.perf_counter() - t0:.1f}s")
-            rows[d.type] = {row[2]: row for row in mztab_psms(out)}
+        for d in (dev, cpu):
+            remove_library_files(workdir)
+            rows[d.type] = _psm_rows(run(mode, d, ["--mode", mode])[0])
         got, want = rows[dev.type], rows["cpu"]
         if got.keys() != want.keys():
             raise AssertionError(f"{mode}: the PSM_IDs differ, CUDA vs CPU")

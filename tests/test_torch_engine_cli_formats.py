@@ -5,8 +5,9 @@ it refuses.
 errors), `test_e2e_formats.py` (mzML queries) and `test_iprg_format.py`
 (a binary .splib library, every setting through a config.ini given with
 ``-c``): the port's CLI with ``--no_gpu`` writes the JAX CLI's PSM lines.
-``--model rf|svm`` and FASTA libraries are refused before the library is
-read, and without ``--no_gpu`` the CLI needs CUDA.
+``--model rf|svm`` (and the default, rf) run; an unknown model and FASTA
+libraries are refused before the store is opened, and without ``--no_gpu``
+the CLI needs CUDA.
 """
 
 import shutil
@@ -70,7 +71,7 @@ def test_query_glob_naming_errors(multifile, tmp_path, monkeypatch):
     """The naming errors of the JAX CLI, raised before the library is
     read."""
     tmp, lib_path = multifile
-    monkeypatch.setattr(torch_search, "build_store", None)  # never reached
+    monkeypatch.setattr(torch_search, "open_or_build_store", None)  # never reached
     with pytest.raises(ValueError, match="placeholder"):
         torch_main([lib_path, str(tmp / "run*.mgf"),
                     str(tmp / "single.mztab")] + BF_ARGS + ["--no_gpu"])
@@ -150,19 +151,54 @@ def test_iprg_style_splib_with_config_file_equals_jax(monkeypatch, tmp_path):
 @pytest.mark.parametrize("model", ["rf", "svm"])
 def test_unported_models_refused_before_the_store(multifile, model,
                                                   monkeypatch):
+    """`--model rf` and `--model svm` run through the CLI to an mzTab file
+    with q-values.  (The name dates from when the package refused both; a
+    model it does not have is still refused before the store is opened:
+    see the next test.)"""
     tmp, lib_path = multifile
-    monkeypatch.setattr(torch_search, "build_store", None)  # never reached
-    args = [lib_path, str(tmp / "run0.mgf"), str(tmp / "x.mztab")]
+    out = str(tmp / f"{model}.mztab")
+    args = [lib_path, str(tmp / "run0.mgf"), out]
     args += [a if a != "none" else model for a in BF_ARGS] + ["--no_gpu"]
-    with pytest.raises(ValueError, match=f"--model {model} is not supported"):
-        torch_main(args)
+    assert torch_main(args) == 0
+    psm = [line.split("\t") for line in open(out)
+           if line.startswith("PSM\t")]
+    assert len(psm) == 15
+    assert all(0.0 < float(row[9]) <= 1.0 for row in psm)
+    assert len({row[8] for row in psm}) > 1  # the model's scores
+
+
+def test_default_model_runs_and_unknown_model_is_refused(multifile,
+                                                         monkeypatch):
+    """With no ``--model`` argument the CLI takes its default, the random
+    forest; a model unknown to the engine is refused before the store is
+    opened."""
+    from ann_solo_tpu_torch.config import config as torch_config
+    from ann_solo_tpu_torch.utils.profiling import profiler
+
+    tmp, lib_path = multifile
+    out = str(tmp / "default.mztab")
+    args = [lib_path, str(tmp / "run0.mgf"), out]
+    args += [a for a in BF_ARGS if a not in ("--model", "none")]
+    assert torch_main(args + ["--no_gpu"]) == 0
+    assert torch_config.model == "rf"
+    assert profiler.totals["std FDR model"] > 0
+    assert len([1 for line in open(out) if line.startswith("PSM\t")]) == 15
+    # argparse refuses an unknown name at the command line ...
+    with pytest.raises(SystemExit):
+        torch_main(args + ["--model", "xgb", "--no_gpu"])
+    # ... and the engine one that reaches it another way.
+    monkeypatch.setattr(torch_search, "open_or_build_store", None)
+    torch_config.parse(args + ["--no_gpu"])
+    monkeypatch.setitem(torch_config._namespace, "model", "xgb")
+    with pytest.raises(ValueError, match="Unknown semi-supervised"):
+        torch_search.SpectralLibrary(lib_path, device="cpu")
 
 
 def test_fasta_library_refused_before_the_store(multifile, monkeypatch):
     tmp, _ = multifile
     fasta = tmp / "prot.fasta"
     fasta.write_text(">sp|TEST|TEST test protein\nACDEFGHIKLMNPQSTVWYK\n")
-    monkeypatch.setattr(torch_search, "build_store", None)  # never reached
+    monkeypatch.setattr(torch_search, "open_or_build_store", None)  # never reached
     with pytest.raises(ValueError, match="FASTA"):
         torch_main([str(fasta), str(tmp / "run0.mgf"),
                     str(tmp / "x.mztab")] + BF_ARGS + ["--no_gpu"])
@@ -172,7 +208,7 @@ def test_cli_needs_cuda_without_no_gpu(multifile, monkeypatch):
     """No silent CPU fallback: without --no_gpu the search needs CUDA."""
     tmp, lib_path = multifile
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    monkeypatch.setattr(torch_search, "build_store", None)  # never reached
+    monkeypatch.setattr(torch_search, "open_or_build_store", None)  # never reached
     with pytest.raises(RuntimeError, match="CUDA"):
         torch_main([lib_path, str(tmp / "run0.mgf"), str(tmp / "x.mztab")]
                    + BF_ARGS)

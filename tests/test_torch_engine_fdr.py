@@ -2,7 +2,8 @@
 JAX package, on the same inputs made from seeds.
 
 FDR and the features are NumPy/SciPy in both packages: they must agree at
-rtol 0.  The window helpers run the port's rescorer (plain PyTorch on the
+rtol 0 (the semi-supervised models are held in `test_torch_fdr_models.py`;
+here they only have to run).  The window helpers run the port's rescorer (plain PyTorch on the
 CPU) against the JAX engine's methods: the same (best index, best score)
 per query, with exact ties placed across sub-rows.
 """
@@ -159,10 +160,24 @@ def test_score_ssms_model_none_equal_jax(both_configs, grouped,
 
 
 @pytest.mark.parametrize("model", ["rf", "svm"])
-def test_score_ssms_refuses_unported_models(model):
-    ssms, _ = _pair(7, 5)
-    with pytest.raises(ValueError, match="not supported"):
-        fdr.score_ssms(ssms, 0.01, model)
+def test_score_ssms_refuses_unported_models(both_configs, model):
+    """`rf` and `svm` run through `score_ssms` (the name dates from when
+    the package refused both); a model it does not have is refused before
+    any feature is computed."""
+    ssms, _ = _pair(7, 300)
+    scored = fdr.score_ssms(ssms, 0.05, model, config=torch_config,
+                            device="cpu")
+    q = np.asarray([s.q for s in scored])
+    matched = np.asarray([len(s.peak_matches) > 0 for s in scored])
+    is_decoy = np.asarray([s.is_decoy for s in scored])
+    assert np.isfinite(q[matched & ~is_decoy]).all()
+    assert ((q[matched & ~is_decoy] > 0) & (q[matched & ~is_decoy] <= 1)).all()
+    assert np.isnan(q[is_decoy | ~matched]).all()
+    scores = np.asarray([s.search_engine_score for s in scored])
+    assert np.isfinite(scores).all() and len(np.unique(scores)) > 10
+    with pytest.raises(ValueError, match="Unknown semi-supervised"):
+        fdr.score_ssms(_pair(7, 5)[0], 0.01, model + "2",
+                       config=None)  # refused before the config is read
 
 
 # --------------------------------------------------------------------- #

@@ -250,6 +250,31 @@ GUARD_CLI = textwrap.dedent("""
     psm = [line.split("\\t") for line in open(out) if line.startswith("PSM")]
     correct = sum(truth[row[2]] == row[1] for row in psm)
     assert len(psm) >= 25 and correct >= 20, (len(psm), correct)
+    # The run wrote the store and index files; a second run, with the
+    # linear SVM, reads them back.
+    from ann_solo_tpu_torch.utils.profiling import profiler
+    assert profiler.notes["store"]["source"] == "built"
+    assert sum(n.endswith(".store.npz") for n in os.listdir(tmp)) == 1
+    assert sum(n.endswith(".ivf.npz") for n in os.listdir(tmp)) >= 1
+    out_svm = os.path.join(tmp, "svm.mztab")
+    assert main([
+        os.path.join(tmp, "lib.splib"), os.path.join(tmp, "q.mgf"), out_svm,
+        "--precursor_tolerance_mass", "20",
+        "--precursor_tolerance_mode", "ppm",
+        "--precursor_tolerance_mass_open", "300",
+        "--precursor_tolerance_mode_open", "Da",
+        "--fragment_mz_tolerance", "0.02", "--allow_peak_shifts",
+        "--min_mz_range", "200", "--min_peaks", "5", "--model", "svm",
+        "--mode", "ann", "--num_list", "8", "--num_probe", "4",
+        "--num_candidates", "16", "--fdr", "0.05", "--add_decoys",
+        "--no_gpu",
+    ]) == 0
+    assert profiler.notes["store"]["source"] == "loaded"
+    assert "library read" not in profiler.totals
+    assert profiler.totals["std FDR model"] > 0
+    svm = [line.split("\\t") for line in open(out_svm)
+           if line.startswith("PSM")]
+    assert {row[2] for row in svm} == {row[2] for row in psm}
     for name in ("jax", "sklearn", "pandas", "h5py"):
         assert sys.modules[name] is None
     print("cli guard ok", len(psm), correct)
@@ -258,7 +283,9 @@ GUARD_CLI = textwrap.dedent("""
 
 def test_import_guard_cli_search_runs_without_jax():
     """The CLI imports and searches to a written mzTab with jax, jaxlib,
-    ml_dtypes, sklearn, pandas and h5py unimportable."""
+    ml_dtypes, sklearn, pandas and h5py unimportable: a first run that
+    writes the store and index files, a second with ``--model svm`` that
+    reads them."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", GUARD_CLI], cwd=REPO, env=env,
