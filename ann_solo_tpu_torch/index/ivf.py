@@ -8,6 +8,10 @@ the voting budget:
   capped lists (`plan_assignments`, optional SOAR-ranked second copy),
   and the gather into one dense (L, cap, D) block; int8 storage is SQ8
   (per-row scale max|v| / 127, round half to even).
+  `IvfIndex.build_streaming` builds the same index from a row accessor
+  without the (N, D) source block (`fetch_rows_blocked`,
+  `plan_assignments_device`, `_pack_group`); `load_or_build` takes it
+  when that block would exceed `_STREAM_BUILD_SOURCE_BYTES`.
 * **Search** (`IvfIndex.search_device`), every regime ranking by the same
   canonical order (16-bit bf16 key desc, global position asc; exact f32
   scores for f32 storage) and deduplicating redundant copies:
@@ -95,6 +99,13 @@ _PERQUERY_GATHER_BYTES = 1 << 30  # bytes of an oracle group's gathered rows
 _FILL_SLACK = 1.5  # list capacity = slack * mean list size
 _N_CHOICES = 4  # spill candidates per vector (nearest centroids)
 _TRAIN_POINTS_PER_CENTROID = 256  # FAISS subsampling rule
+# `load_or_build` builds through `build_streaming` when the f32 source block
+# (n * hash_len * 4 bytes) would exceed this (the JAX package's value).
+_STREAM_BUILD_SOURCE_BYTES = 4 << 30
+# Rows per accessor call of `build_streaming`: a multiple of
+# `assign_topk_blocked`'s 16,384-row block, so the choices are computed in
+# the in-memory build's matrix-product shapes.
+_STREAM_BLOCK = 1 << 18
 
 
 # --------------------------------------------------------------------- #
@@ -157,6 +168,29 @@ def _fill_lists(choices: torch.Tensor, used: torch.Tensor, num_list: int,
     return placed_list, placed_pos, used
 
 
+def _place_anywhere(placed_list: np.ndarray, placed_pos: np.ndarray,
+                    used: np.ndarray, cap: int) -> np.ndarray:
+    """Host fallback for primary copies whose every choice was full: the
+    unplaced rows (list -1) take free slots of the emptiest lists, in row
+    order.  Writes `placed_list` / `placed_pos` in place; returns the
+    updated per-list fill counts."""
+    unplaced = np.nonzero(placed_list < 0)[0]
+    used = used.copy()
+    free_slots = []
+    for list_id in np.argsort(used):
+        free_slots.extend((list_id, pos) for pos in range(used[list_id], cap))
+        if len(free_slots) >= len(unplaced):
+            break
+    if len(free_slots) < len(unplaced):
+        raise RuntimeError("IVF capacity exhausted; raise _FILL_SLACK")
+    for row, (list_id, pos) in zip(unplaced, free_slots):
+        placed_list[row] = list_id
+        placed_pos[row] = pos
+        used[list_id] += 1
+    logger.debug("IVF spill fallback placed %d vectors", len(unplaced))
+    return used
+
+
 def plan_assignments(choices, num_list: int, cap: int, r_eff: int,
                      round_choices=None):
     """Balanced (optionally redundant) list placement for every vector.
@@ -197,23 +231,9 @@ def plan_assignments(choices, num_list: int, cap: int, r_eff: int,
         placed_pos = placed_pos.cpu().numpy().copy()
         unplaced = np.nonzero(placed_list < 0)[0]
         if len(unplaced) and r == 0:
-            used_np = used.cpu().numpy().copy()
-            order = np.argsort(used_np)
-            free_slots = []
-            for list_id in order:
-                free_slots.extend(
-                    (list_id, pos) for pos in range(used_np[list_id], cap)
-                )
-                if len(free_slots) >= len(unplaced):
-                    break
-            if len(free_slots) < len(unplaced):
-                raise RuntimeError("IVF capacity exhausted; raise _FILL_SLACK")
-            for row, (list_id, pos) in zip(unplaced, free_slots):
-                placed_list[row] = list_id
-                placed_pos[row] = pos
-                used_np[list_id] += 1
-            used = torch.as_tensor(used_np, device=dev)
-            logger.debug("IVF spill fallback placed %d vectors", len(unplaced))
+            used = torch.as_tensor(_place_anywhere(
+                placed_list, placed_pos, used.cpu().numpy(), cap
+            ), device=dev)
         elif len(unplaced):
             logger.debug(
                 "IVF redundancy round %d dropped %d copies", r, len(unplaced)
@@ -235,14 +255,116 @@ def plan_assignments(choices, num_list: int, cap: int, r_eff: int,
     return flat_slot, row_ids, spilled, round_lists
 
 
+def plan_assignments_device(choices, num_list: int, cap: int, r_eff: int,
+                            round_choices=None):
+    """`plan_assignments` without its (N,)-sized host round trips (the JAX
+    `plan_assignments_device`): the same rounds, masking and fallback, and
+    the same placement, returned as the device slot -> row table.
+
+    Only the unplaced and spilled counts cross to the host, and the (N,)
+    arrays of the all-choices-full fallback when that count is nonzero.
+    Returns (ids_flat (L * cap,) int32 on the choices' device, -1 = empty
+    slot; spilled).
+    """
+    ch = torch.as_tensor(choices).to(torch.int64)
+    dev = ch.device
+    n = ch.shape[0]
+    primary = ch[:, 0]
+    used = torch.zeros((num_list,), dtype=torch.int64, device=dev)
+    total = num_list * cap
+    # One slot past the table takes the rows a round left unplaced.
+    ids_flat = torch.full((total + 1,), -1, dtype=torch.int32, device=dev)
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    placed_rounds = []
+    spilled = 0
+    for r in range(r_eff):
+        if (
+            r >= 1
+            and round_choices is not None
+            and round_choices[r - 1] is not None
+        ):
+            override = torch.as_tensor(round_choices[r - 1]).to(
+                device=dev, dtype=torch.int64
+            )
+            for placed in placed_rounds:
+                override = torch.where(
+                    override == placed[:, None], num_list, override
+                )
+            ch = override
+        placed_list, placed_pos, used = _fill_lists(ch, used, num_list, cap)
+        if r == 0:
+            if int((placed_list < 0).sum()):
+                pl = placed_list.cpu().numpy().copy()
+                pp = placed_pos.cpu().numpy().copy()
+                used = torch.as_tensor(
+                    _place_anywhere(pl, pp, used.cpu().numpy(), cap),
+                    device=dev)
+                placed_list = torch.as_tensor(pl, device=dev)
+                placed_pos = torch.as_tensor(pp, device=dev)
+            spilled = int((placed_list != primary).sum())
+        flat = torch.where(placed_list >= 0, placed_list * cap + placed_pos,
+                           total)
+        ids_flat[flat] = iota
+        placed_rounds.append(placed_list)
+        if r + 1 < r_eff:
+            ch = torch.where(ch == placed_list[:, None], num_list, ch)
+    return ids_flat[:total], spilled
+
+
+def fetch_rows_blocked(get_rows, idx, block: int = 1 << 16) -> torch.Tensor:
+    """Rows `idx` through a streaming-build accessor, fetched in calls of
+    exactly `block` rows and copied into one preallocated output.
+
+    The tail block is padded by repeating the last index and the padding
+    rows are dropped as the block is copied (accessors are pure functions
+    of the row index, `IvfIndex.build_streaming`'s contract).  The parts
+    are never concatenated, which would hold the result twice."""
+    idx = torch.as_tensor(idx).to(torch.int64)
+    n_rows = idx.shape[0]
+    if n_rows <= block:
+        return get_rows(idx)
+    n_pad = -(-n_rows // block) * block
+    if n_pad != n_rows:
+        padded = idx[-1:].repeat(n_pad)
+        padded[:n_rows] = idx
+        idx = padded
+    out = None
+    for start in range(0, n_pad, block):
+        part = get_rows(idx[start:start + block])
+        if out is None:
+            out = torch.empty((n_rows,) + tuple(part.shape[1:]),
+                              dtype=part.dtype, device=part.device)
+        stop = min(start + block, n_rows)
+        out[start:stop] = part[:stop - start]
+        del part
+    return out
+
+
+def _store_rows(rows: torch.Tensor, storage_dtype: torch.dtype):
+    """(stored rows, scales or None) of (C, D) float32 `rows`: the SQ8
+    arithmetic that both packers share.  int8 storage quantizes per row,
+    scale = max|v| / 127, q = round(v / scale) (half to even); XLA compiles
+    the reference's ``/ 127.0`` to a multiply by the float32 reciprocal,
+    and the same multiply keeps the scales bit-identical.  Float storage
+    casts the rows (scale 1, returned as None)."""
+    if storage_dtype != torch.int8:
+        return rows.to(storage_dtype), None
+    inv127 = torch.tensor(
+        np.float32(1.0) / np.float32(127.0), dtype=torch.float32,
+        device=rows.device,
+    )
+    scale = rows.abs().amax(1) * inv127
+    q = torch.round(rows / scale.clamp_min(1e-30)[:, None])
+    return q.to(torch.int8), scale
+
+
 @torch.no_grad()
 def _pack_lists(vectors, flat_slot, row_ids, num_list: int, cap: int,
                 storage_dtype: torch.dtype):
     """Scatter row ids into slots, then gather rows into (L, cap, D).
 
     Returns (ids_flat (L*cap,) int32, packed (L, cap, D), scales (L, cap)
-    float32; all ones for float storage).  int8 storage quantizes per row:
-    scale = max|v| / 127, q = round(v / scale) (half to even)."""
+    float32; all ones for float storage); rows stored by `_store_rows`."""
     n, d = vectors.shape
     dev = vectors.device
     total = num_list * cap
@@ -253,11 +375,6 @@ def _pack_lists(vectors, flat_slot, row_ids, num_list: int, cap: int,
     ids_flat[flat_slot[keep]] = row_ids[keep]  # slots are distinct
     packed = torch.empty((total, d), dtype=storage_dtype, device=dev)
     scales = torch.ones((total,), dtype=torch.float32, device=dev)
-    # XLA compiles the reference's ``max|v| / 127.0`` to a multiply by the
-    # float32 reciprocal; the same multiply keeps the scales bit-identical.
-    inv127 = torch.tensor(
-        np.float32(1.0) / np.float32(127.0), dtype=torch.float32, device=dev
-    )
     chunk = min(total, 1 << 20)
     for start in range(0, total, chunk):
         ids_chunk = ids_flat[start:start + chunk].to(torch.int64)
@@ -265,13 +382,10 @@ def _pack_lists(vectors, flat_slot, row_ids, num_list: int, cap: int,
         gathered = torch.where(
             (ids_chunk >= 0)[:, None], vectors[safe].to(torch.float32), 0.0
         )
-        if storage_dtype == torch.int8:
-            scale = gathered.abs().amax(1) * inv127
-            q = torch.round(gathered / scale.clamp_min(1e-30)[:, None])
-            packed[start:start + chunk] = q.to(torch.int8)
+        stored, scale = _store_rows(gathered, storage_dtype)
+        packed[start:start + chunk] = stored
+        if scale is not None:
             scales[start:start + chunk] = scale
-        else:
-            packed[start:start + chunk] = gathered.to(storage_dtype)
     return (
         ids_flat,
         packed.view(num_list, cap, d),
@@ -279,7 +393,29 @@ def _pack_lists(vectors, flat_slot, row_ids, num_list: int, cap: int,
     )
 
 
-def _pack_prec(prec, ids_flat, num_list: int, cap: int):
+@torch.no_grad()
+def _pack_group(packed, scales, src, valid, g0: int) -> None:
+    """Store one list group in place (the JAX `_pack_group`): the
+    (G * cap, D) source rows `src` of lists g0 .. g0 + G - 1, `valid`
+    False on empty slots (whose rows may hold anything), go through
+    `_store_rows` into the preallocated (L, cap, D) block and its
+    scales."""
+    _, cap, d = packed.shape
+    rows = torch.where(valid[:, None], src.to(torch.float32), 0.0)
+    stored, scale = _store_rows(rows, packed.dtype)
+    g = rows.shape[0] // cap
+    packed[g0:g0 + g] = stored.view(g, cap, d)
+    if scale is not None:
+        scales[g0:g0 + g] = scale.view(g, cap)
+
+
+def _pack_prec(precursor_mz, ids_flat, num_list: int, cap: int):
+    """(L, cap) float32 precursor m/z of each slot (0 on empty slots, and
+    everywhere without `precursor_mz`)."""
+    if precursor_mz is None:
+        return torch.zeros((num_list, cap), device=ids_flat.device)
+    prec = torch.as_tensor(precursor_mz).to(device=ids_flat.device,
+                                            dtype=torch.float32)
     safe = ids_flat.to(torch.int64).clamp(0, prec.shape[0] - 1)
     return torch.where(ids_flat >= 0, prec[safe], 0.0).view(num_list, cap)
 
@@ -311,6 +447,21 @@ def ivf_build_params(n: int, num_list: int, redundancy: int,
     if soar_lambda > 0.0 and r_eff >= 2:
         n_choices = min(max(n_choices, 16), num_list)
     return r_eff, cap, n_choices
+
+
+def _build_settings(config, n: int, redundancy: Optional[int]):
+    """(num_list, soar_lambda, r_eff, cap, n_choices) of a build of `n`
+    rows: `config.num_list` resolved, `redundancy` (None: the config's
+    `ivf_redundancy`, else 2) and the SOAR weight."""
+    num_list = resolve_num_list(int(config.num_list), n)
+    if redundancy is None:
+        try:
+            redundancy = int(config.ivf_redundancy)
+        except (KeyError, AttributeError):
+            redundancy = 2
+    soar_lambda = resolve_soar_lambda(config)
+    return (num_list, soar_lambda) + ivf_build_params(
+        n, num_list, redundancy, soar_lambda)
 
 
 def resolve_soar_lambda(config) -> float:
@@ -836,16 +987,8 @@ class IvfIndex:
         vectors = torch.as_tensor(vectors).to(device=device,
                                               dtype=torch.float32)
         n = vectors.shape[0]
-        num_list = resolve_num_list(int(config.num_list), n)
-        if redundancy is None:
-            try:
-                redundancy = int(config.ivf_redundancy)
-            except (KeyError, AttributeError):
-                redundancy = 2
-        soar_lambda = resolve_soar_lambda(config)
-        r_eff, cap, n_choices = ivf_build_params(
-            n, num_list, redundancy, soar_lambda
-        )
+        num_list, soar_lambda, r_eff, cap, n_choices = _build_settings(
+            config, n, redundancy)
         logger.info(
             "Train IVF index: %d vectors, %d lists (cap %d, x%d)",
             n, num_list, cap, r_eff,
@@ -867,15 +1010,124 @@ class IvfIndex:
         ids_flat, padded_vectors, padded_scales = _pack_lists(
             vectors, flat_slot, row_ids, num_list, cap, storage_dtype
         )
-        if precursor_mz is not None:
-            prec = torch.as_tensor(precursor_mz).to(device=device,
-                                                    dtype=torch.float32)
-            padded_prec = _pack_prec(prec, ids_flat, num_list, cap)
-        else:
-            padded_prec = torch.zeros((num_list, cap), device=device)
         return cls(
             centroids, padded_vectors, ids_flat.view(num_list, cap),
-            int(config.num_probe), padded_prec, padded_scales,
+            int(config.num_probe),
+            _pack_prec(precursor_mz, ids_flat, num_list, cap),
+            padded_scales, redundancy=r_eff,
+        )
+
+    @classmethod
+    @torch.no_grad()
+    def build_streaming(
+        cls,
+        get_rows,  # (M,) int64 row ids on `device` -> (M, d) rows there
+        n: int,
+        d: int,
+        config,  # num_list, num_probe[, ivf_redundancy, soar_lambda]
+        precursor_mz=None,
+        seed: int = 42,
+        storage_dtype: torch.dtype = torch.int8,
+        redundancy: Optional[int] = None,
+        centroids=None,
+        group_bytes: int = 1 << 30,
+        train_rows_cap: int = 1 << 21,
+        device=None,
+    ) -> "IvfIndex":
+        """Build without ever holding the (n, d) source block (the JAX
+        `IvfIndex.build_streaming`).
+
+        Device memory holds the packed (L, cap, D) block, one list group's
+        source rows and the training subsample:
+
+        1. k-means on a subsample fetched through `fetch_rows_blocked` in
+           `_STREAM_BLOCK`-row calls: min(n, L * 256, `train_rows_cap`)
+           rows drawn by ``np.random.RandomState(seed + 1)``, the rows of
+           `build`'s FAISS-style subsample whenever `train_rows_cap` does
+           not bind;
+        2. top-A choices (and SOAR second-round choices) per
+           `_STREAM_BLOCK`-row block, in `build`'s matrix-product shapes;
+        3. the balanced capped placement on the device
+           (`plan_assignments_device`);
+        4. list groups of about `group_bytes` (source rows in f32 plus
+           stored rows): each group's rows are fetched again, stored by
+           `_store_rows` and written into the preallocated block
+           (`_pack_group`).
+
+        `get_rows` returns the rows of arbitrary indices; an index may be
+        -1 (an empty slot), whose row may hold anything: the packer masks
+        it.  It must be a pure function of the row index.  Placement and
+        storage are byte-identical to `build` with the same seed whenever
+        `train_rows_cap` does not bind.  The JAX package lane-pads D to a
+        multiple of 128 for indexes beyond its full-scan bound; that
+        padding serves TPU tiling and is not ported.
+        """
+        device = resolve_device(device)
+        num_list, soar_lambda, r_eff, cap, n_choices = _build_settings(
+            config, n, redundancy)
+        logger.info(
+            "Streaming IVF build: %d vectors, %d lists (cap %d, x%d)",
+            n, num_list, cap, r_eff,
+        )
+        if centroids is None:
+            sub_cap = min(n, num_list * _TRAIN_POINTS_PER_CENTROID,
+                          train_rows_cap)
+            if sub_cap < n:
+                sub_idx = np.sort(np.random.RandomState(seed + 1).choice(
+                    n, size=sub_cap, replace=False))
+            else:
+                sub_idx = np.arange(n)
+            sub = fetch_rows_blocked(
+                get_rows, torch.as_tensor(sub_idx, device=device),
+                block=_STREAM_BLOCK,
+            )
+            centroids, _ = spherical_kmeans(sub, num_list, seed=seed)
+            del sub
+        centroids = torch.as_tensor(centroids).to(device=device,
+                                                  dtype=torch.float32)
+
+        ch_parts, soar_parts = [], []
+        for start in range(0, n, _STREAM_BLOCK):
+            rows = get_rows(torch.arange(start, min(start + _STREAM_BLOCK, n),
+                                         device=device))
+            ch = assign_topk_blocked(rows, centroids, n_choices)
+            ch_parts.append(ch)
+            rc = soar_round_choices(rows, centroids, ch, r_eff, soar_lambda)
+            if rc is not None:
+                soar_parts.append(rc[0])
+            del rows
+        choices = torch.cat(ch_parts)
+        del ch_parts
+        round_choices = None
+        if soar_parts:
+            round_choices = [torch.cat(soar_parts)] + [None] * (r_eff - 2)
+            del soar_parts
+        ids_flat, spilled = plan_assignments_device(
+            choices, num_list, cap, r_eff, round_choices=round_choices
+        )
+        del choices, round_choices
+        logger.debug(
+            "IVF lists: cap=%d fill=%.2f spilled=%d (%.2f%%)",
+            cap, r_eff * n / (num_list * cap), spilled,
+            100.0 * spilled / max(n, 1),
+        )
+
+        itemsize = torch.empty((), dtype=storage_dtype).element_size()
+        group_lists = max(1, int(group_bytes // (cap * d * (4 + itemsize))))
+        while num_list % group_lists:
+            group_lists -= 1
+        packed = torch.zeros((num_list, cap, d), dtype=storage_dtype,
+                             device=device)
+        scales = torch.ones((num_list, cap), dtype=torch.float32,
+                            device=device)
+        for g0 in range(0, num_list, group_lists):
+            idx = ids_flat[g0 * cap:(g0 + group_lists) * cap]
+            _pack_group(packed, scales, get_rows(idx.to(torch.int64)),
+                        idx >= 0, g0)
+        return cls(
+            centroids, packed, ids_flat.view(num_list, cap),
+            int(config.num_probe),
+            _pack_prec(precursor_mz, ids_flat, num_list, cap), scales,
             redundancy=r_eff,
         )
 
@@ -884,9 +1136,10 @@ class IvfIndex:
     def load_or_build(
         cls, filename: str, lib, config, store_fp: Optional[str] = None,
         device=None, stage_seconds: Optional[Dict[str, float]] = None,
+        notes: Optional[Dict[str, object]] = None,
     ) -> "IvfIndex":
         """Load a persisted index, or vectorize the charge block and build
-        one in memory, and save it (the JAX `IvfIndex.load_or_build`).
+        one, and save it (the JAX `IvfIndex.load_or_build`).
 
         `lib` holds the charge block's processed peaks (`mz`, `intensity`,
         `n_peaks`, `precursor_mz`, `n_spectra`; or the same on the device
@@ -896,11 +1149,16 @@ class IvfIndex:
         has one: the file name only encodes the settings hash, and ids of
         an index built from other store content point at the wrong
         spectra.  With `stage_seconds` given, "index load" seconds, or
-        "index build" and "index write" seconds, are added to it.
+        "index build" and "index write" seconds, are added to it; with
+        `notes` given, a build sets ``notes["build"]``.
 
-        Not ported: the JAX package's host-streaming build for sources
-        beyond its device budget, and its one-resident-index eviction
-        (one card holds every charge's index).
+        The build is `build_streaming` ("streaming"), re-vectorizing the
+        requested rows on the device the peaks live on, when the f32
+        source block (n * hash_len * 4 bytes) would exceed
+        `_STREAM_BUILD_SOURCE_BYTES`; else `build` on the vectorized
+        block ("in memory").  Vectorization is deterministic per row, so
+        both give the same index.  Not ported: the JAX package's
+        one-resident-index eviction (one card holds every charge's index).
         """
         device = resolve_device(device)
         seconds = stage_seconds if stage_seconds is not None else {}
@@ -939,18 +1197,31 @@ class IvfIndex:
         mz, intensity, n_peaks = (
             torch.as_tensor(a).to(device)
             for a in (block.mz, block.intensity, lib.n_peaks))
-        step = 8192
-        vectors = torch.cat([
-            vectorize_batch(vparams, tables, mz[s:s + step],
-                            intensity[s:s + step], n_peaks[s:s + step])
-            for s in range(0, int(lib.n_spectra), step)
-        ])
-        index = cls.build(
-            vectors, config,
+        n, d = int(lib.n_spectra), int(vparams.hash_len)
+        build_kw = dict(
             precursor_mz=np.asarray(lib.precursor_mz, np.float32),
             storage_dtype=_STORAGE_DTYPES[dtype_name], device=device,
         )
-        del vectors
+        if n * d * 4 > _STREAM_BUILD_SOURCE_BYTES:
+            def get_rows(idx):
+                rows = idx.clamp(0, n - 1)
+                return vectorize_batch(vparams, tables, mz[rows],
+                                       intensity[rows], n_peaks[rows])
+
+            build = "streaming"
+            index = cls.build_streaming(get_rows, n, d, config, **build_kw)
+        else:
+            step = 8192
+            vectors = torch.cat([
+                vectorize_batch(vparams, tables, mz[s:s + step],
+                                intensity[s:s + step], n_peaks[s:s + step])
+                for s in range(0, n, step)
+            ])
+            build = "in memory"
+            index = cls.build(vectors, config, **build_kw)
+            del vectors
+        if notes is not None:
+            notes["build"] = build
         index.store_fp = store_fp
         add("index build", t0)
         t0 = time.perf_counter()

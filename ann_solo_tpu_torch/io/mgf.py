@@ -1,7 +1,7 @@
 """MGF (Mascot Generic Format) reader/writer.
 
-The port's copy of `ann_solo_tpu/io/mgf.py` without its native-parser
-dispatch; `tests/test_torch_engine_io.py` holds it equal.
+The port's copy of `ann_solo_tpu/io/mgf.py`; `tests/test_torch_engine_io.py`
+holds it equal.
 
 Self-contained replacement for the reference's pyteomics.mgf usage
 (ann_solo/reader.py:868-911 `read_mgf`), including MassIVE-KB-style
@@ -46,12 +46,22 @@ def mgf_seq_to_proforma(peptide: str) -> str:
 def read_mgf(filename: str) -> Iterator[Spectrum]:
     """Read all spectra from an MGF file.
 
-    The JAX package's pure-Python reader `read_mgf_python` (reference
-    `read_mgf`, reader.py:868-911): identifier from TITLE (or SCAN),
-    precursor from PEPMASS/CHARGE, optional RTINSECONDS, SEQ (library
-    MGFs), and a DECOY flag.  The JAX package's native C++ parser gives
-    the same spectra faster; it is not ported yet.
+    Mirrors the reference `read_mgf` (reader.py:868-911): identifier from
+    TITLE (or SCAN), precursor from PEPMASS/CHARGE, optional RTINSECONDS,
+    SEQ (library MGFs), and a DECOY flag.  Dispatches to the native C++
+    one-pass parser (`mgf_native`) when it builds; `read_mgf_python` is
+    the fallback and the parity oracle.
     """
+    from ann_solo_tpu_torch.io import mgf_native
+
+    if mgf_native.available():
+        yield from mgf_native.read_mgf_native(filename)
+        return
+    yield from read_mgf_python(filename)
+
+
+def read_mgf_python(filename: str) -> Iterator[Spectrum]:
+    """Pure-Python MGF reader (reference semantics; see `read_mgf`)."""
     with open(filename) as f_in:
         index = 0
         params = {}

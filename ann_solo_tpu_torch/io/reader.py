@@ -1,7 +1,11 @@
 """Format dispatch for library and query files.
 
-The port's copy of `ann_solo_tpu/io/reader.py`, dispatching to the
-Python readers only (the native parsers are not ported yet).
+The port's copy of `ann_solo_tpu/io/reader.py`: .splib, .sptxt and .mgf
+files go through the native C++ parsers when they build (`io/*_native.py`),
+else through the Python readers, after one WARNING.  Which one read the
+library and the query file is recorded in the profiler's notes
+(``notes["library reader"]``, ``notes["query reader"]``: "native" or
+"python").
 
 Counterpart to the reference's reader facade (ann_solo/reader.py:262-287,
 914-938).
@@ -14,6 +18,7 @@ import os
 from typing import Iterator, List
 
 from ann_solo_tpu_torch.models.spectrum import Spectrum
+from ann_solo_tpu_torch.utils.profiling import profiler
 
 logger = logging.getLogger(__name__)
 
@@ -39,25 +44,39 @@ def verify_extension(supported_extensions: List[str], filename: str) -> None:
         raise FileNotFoundError(f"File {filename} does not exist")
 
 
+def _read(filename: str, role: str, native, read_native,
+          read_python) -> Iterator[Spectrum]:
+    """`read_native` when the `native` parser module builds and loads,
+    else `read_python`; records which in ``notes[f"{role} reader"]``."""
+    use_native = native is not None and native.available()
+    profiler.notes[f"{role} reader"] = "native" if use_native else "python"
+    yield from (read_native if use_native else read_python)(filename)
+
+
 def read_library_file(filename: str) -> Iterator[Spectrum]:
-    """Read all spectra from a spectral library file (the Python readers).
+    """Read all spectra from a spectral library file.
 
     A FASTA library is refused: the JAX package predicts its spectra
     through a remote Prosit server, which this package does not port.
     """
+    from ann_solo_tpu_torch.io import (
+        mgf,
+        mgf_native,
+        splib,
+        splib_native,
+        sptxt_native,
+    )
+
     ext = os.path.splitext(os.path.basename(filename))[1].lower()
     if ext == ".splib":
-        from ann_solo_tpu_torch.io.splib import read_splib
-
-        yield from read_splib(filename)
+        yield from _read(filename, "library", splib_native,
+                         splib_native.read_splib_native, splib.read_splib)
     elif ext == ".sptxt":
-        from ann_solo_tpu_torch.io.splib import read_sptxt
-
-        yield from read_sptxt(filename)
+        yield from _read(filename, "library", sptxt_native,
+                         sptxt_native.read_sptxt_native, splib.read_sptxt)
     elif ext == ".mgf":
-        from ann_solo_tpu_torch.io.mgf import read_mgf
-
-        yield from read_mgf(filename)
+        yield from _read(filename, "library", mgf_native,
+                         mgf_native.read_mgf_native, mgf.read_mgf_python)
     elif ext == ".fasta":
         raise ValueError(FASTA_UNSUPPORTED)
     else:
@@ -66,17 +85,14 @@ def read_library_file(filename: str) -> Iterator[Spectrum]:
 
 def read_query_file(filename: str) -> Iterator[Spectrum]:
     """Read all query spectra from an mgf / mzML / mzXML file."""
+    from ann_solo_tpu_torch.io import mgf, mgf_native, mzml
+
     verify_extension([".mgf", ".mzml", ".mzxml"], filename)
     ext = os.path.splitext(os.path.basename(filename))[1].lower()
     if ext == ".mgf":
-        from ann_solo_tpu_torch.io.mgf import read_mgf
-
-        yield from read_mgf(filename)
+        yield from _read(filename, "query", mgf_native,
+                         mgf_native.read_mgf_native, mgf.read_mgf_python)
     elif ext == ".mzml":
-        from ann_solo_tpu_torch.io.mzml import read_mzml
-
-        yield from read_mzml(filename)
+        yield from _read(filename, "query", None, None, mzml.read_mzml)
     elif ext == ".mzxml":
-        from ann_solo_tpu_torch.io.mzml import read_mzxml
-
-        yield from read_mzxml(filename)
+        yield from _read(filename, "query", None, None, mzml.read_mzxml)

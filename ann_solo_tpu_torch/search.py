@@ -403,10 +403,11 @@ class SpectralLibrary:
             # Tie the persisted index to the store CONTENT it was built
             # from (the file name only encodes the config hash).
             stages: Dict[str, float] = {}
+            build_notes: Dict[str, object] = {}
             index = IvfIndex.load_or_build(
                 filename, lib, config,
                 store_fp=self._store.source_fingerprint,
-                device=self.device, stage_seconds=stages,
+                device=self.device, stage_seconds=stages, notes=build_notes,
             )
             for name, seconds in stages.items():
                 profiler.add(f"{name} charge {charge}", seconds)
@@ -419,6 +420,7 @@ class SpectralLibrary:
                 "source": "loaded" if "index load" in stages else "built",
                 "file": os.path.basename(filename),
                 "bytes": os.path.getsize(filename),
+                **build_notes,
             }
             logger.info(
                 "Charge %d IVF index (%s): %d spectra, %d lists x cap %d, "

@@ -6,8 +6,10 @@ Phases, each raising on failure (non-zero exit, no final line):
 
 1. device: needs CUDA; prints torch/CUDA versions and the card's name and
    power limit as nvidia-smi reports them;
-2. build: compiles the three CUDA kernels from `ann_solo_tpu_torch/csrc/`,
-   one nvcc per source, all started together;
+2. build: compiles the three CUDA kernels from `ann_solo_tpu_torch/csrc/`
+   and the three native C++ library parsers from `csrc/native/` (into
+   `build/native/`), one nvcc or g++ per source, all started together;
+   a parser that does not build or load fails the run;
 3. kernel B1 vs plain: the greedy shifted-dot kernel against its plain
    PyTorch version on the card, at the stage-2 (32,768 pairs) and
    match-extraction (4,096 pairs) shapes of the bench workload plus
@@ -91,28 +93,52 @@ Phases, each raising on failure (non-zero exit, no final line):
    num_probe 256, 1,024 candidates, int8 x2 SOAR lists, 1% FDR), three
    times.  Run A: --model none with no store or index file present (any
    left by an earlier run is removed), which also writes the store and
-   both index files.  Run B: the same command with the CLI's default
-   model (--model rf), files present.  Run C: the same with --model svm.
-   Each logs every stage's seconds (device synchronized at each
-   boundary; store and index load or write seconds, FDR feature and model
-   seconds apart for each level), each file's bytes, the forest's grid
-   winners per fold, queries/s of the search, peak device memory, B1's
-   launches and the identification counts from the mzTab beside the JAX
-   package's (QUALITY_r05.json).  Gates, every run: the CLI returns 0;
-   B1 launched; each charge's open level went through
+   both index files; the native parsers must read the library and the
+   queries, and the library read's seconds are logged.  Run B: the same
+   command with the CLI's default model (--model rf), files present.  Run
+   C: the same with --model svm.  Runs B and C read the queries natively
+   and no library.  Each logs every stage's seconds (device synchronized
+   at each boundary; store and index load or write seconds, FDR feature
+   and model seconds apart for each level), each file's bytes, the
+   forest's grid winners per fold, queries/s of the search, peak device
+   memory, B1's launches and the identification counts from the mzTab
+   beside the JAX package's (QUALITY_r05.json).  Gates, every run: the
+   CLI returns 0; B1 launched; each charge's open level went through
    `IvfIndex.search_device` and its std level through window rescoring;
-   accuracy among confident PSMs >= 0.95; confident PSMs >= 0.9 x the 9,500
-   non-foreign queries.  Runs B and C besides: the store and both
+   accuracy among confident PSMs >= 0.95; confident PSMs >= 0.9 x the
+   9,500 non-foreign queries.  Runs B and C besides: the store and both
    indexes were loaded, not built; no library read, decoy, preprocess or
    index build seconds; confident PSMs at q < 0.01 no fewer than run A's
-   less 1%.  Then the CLI on a 4,000-peptide corpus (seed 7, 1,000
-   queries): --model none twice on the card, built then loaded, identical
-   PSM lines; --model svm and --model rf on the card and with --no_gpu
-   (files loaded): the same PSM_IDs and library spectra, q-values at rtol
-   1e-6, every differing line logged; and, each run building its own
-   files, on the card and with --no_gpu in --mode ann and bf: the same
+   less 1%.  Then, on a 4,000-peptide corpus (seed 7, 1,000 queries), the
+   store built twice with run A's settings, through the native reader and
+   from the Python reader's spectra: every column identical; and the CLI
+   on that corpus: --model none twice on the card, built then loaded,
+   identical PSM lines; --model svm and --model rf on the card and with
+   --no_gpu (files loaded): the same PSM_IDs and library spectra, q-values
+   at rtol 1e-6, every differing line logged; and, each run building its
+   own files, on the card and with --no_gpu in --mode ann and bf: the same
    PSM_IDs, the same library spectrum for >= 99.9% of them, identical PSM
    lines wherever it is.
+10a. the streaming switch (run after phase 8, on phase 7's library,
+   settings and index): `IvfIndex.load_or_build` with no file present; the
+   source block, 2,097,152 x 800 x 4 bytes, exceeds the 4 GiB bound of the
+   in-memory build, so it must build through `build_streaming`, and its
+   centroids, ids, stored vectors (as bytes), scales and precursors must
+   equal phase 7's in-memory index.  Logs its build seconds and peak
+   device memory beside phase 7's, then deletes the file;
+10b. SCALE r04's single-chip streaming point (SCALE_r04.json
+   "single_chip_8m_streaming"; run after 10a, with phase 7's library
+   freed): 8,388,608 spectra made on the card as phase 7 makes its own (K =
+   50, D = 800), `IvfIndex.build_streaming` re-vectorizing rows from their
+   peaks on demand (16,384 lists x cap 768, num_probe 128, x1, int8), then
+   4 timed batches of 1,024 queries, 1,024 candidates, +-500 Da, through
+   the probe path (B2, then B1) with phase 7's gates: B2's launch count
+   grows, batch 0's select equals the on-card per-query oracle on >=
+   99.9% of (id, score) lanes with every 16-bit key within one step and no
+   duplicate ids, and each batch's best-match hit rate is >= 0.95 or no
+   lower than the oracle's by more than one query.  Logs build seconds,
+   queries/s, peak device memory for the build and the search and the
+   index's bytes.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -206,6 +232,11 @@ N_BIG = 2_097_152
 BIG_QUERIES = 1024
 BIG_CANDIDATES = 1024
 
+# SCALE r04's single-chip streaming point (SCALE_r04.json
+# "single_chip_8m_streaming", phase 10b).
+N_STREAM = 8_388_608
+STREAM_QUERIES = 1024
+
 # The engine (phase 9): QUALITY r05's ann leg (QUALITY_r05.json "corpus"
 # and "config", ann_solo_tpu/quality.py:41-64), the repo's 200k canonical
 # scale: 100,000 library spectra (charges 2 and 3), 200,000 store rows with
@@ -238,6 +269,22 @@ class ScaleConfig:
 
     num_list = 4096
     num_probe = 64
+    ivf_redundancy = 1
+
+
+class StreamSwitchConfig(ScaleConfig):
+    """Phase 7's settings as `IvfIndex.load_or_build` reads them
+    (phase 10a)."""
+
+    index_dtype = "int8"
+    min_mz, max_mz, bin_size, hash_len = 11.0, 2010.0, 0.04, HASH_LEN
+
+
+class Stream8mConfig:
+    """IVF settings of SCALE r04's 8.4M-row single-chip streaming point."""
+
+    num_list = 16384
+    num_probe = 128
     ivf_redundancy = 1
 
 
@@ -366,22 +413,54 @@ def phase_device():
     return dev
 
 
-def phase_build(names=("shifted_dot", "ivf_probe_scan", "ivf_chunked_scan")):
-    """Build every kernel source at once (one nvcc each), then load them."""
+PARSERS = ("splib_parser", "sptxt_parser", "mgf_parser")
+
+
+def phase_build(names=("shifted_dot", "ivf_probe_scan", "ivf_chunked_scan"),
+                parsers=PARSERS):
+    """Build every kernel source (one nvcc each) and every native parser
+    (one g++ each) at once, then load them; a build that fails raises."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from ann_solo_tpu_torch.io import (
+        _native_build,
+        mgf_native,
+        splib_native,
+        sptxt_native,
+    )
     from ann_solo_tpu_torch.ops import _build
 
     cached = {name: _build.library_path(name).exists() for name in names}
+    cached.update({name: _native_build.library_path(name).exists()
+                   for name in parsers})
+
+    def timed(build, name):
+        t0 = time.perf_counter()
+        path = build(name)
+        return path, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
-        paths = list(pool.map(_build.ensure_built, names))
-    for name, path in zip(names, paths):
+    with ThreadPoolExecutor(len(names) + len(parsers)) as pool:
+        kernels = [pool.submit(timed, _build.ensure_built, name)
+                   for name in names]
+        natives = [pool.submit(timed, _native_build.ensure_built, name)
+                   for name in parsers]
+        kernels = [f.result() for f in kernels]
+        natives = [f.result() for f in natives]
+    for name, (path, _) in zip(names, kernels):
         _build.load(name)
         log(f"build: {path.name}{' (already built)' if cached[name] else ''}")
         for line in _build.ptxas_report(name):
             log(f"ptxas {name}: {line}")
-    log(f"build: {len(names)} kernels in {time.perf_counter() - t0:.2f}s")
+    for name, (path, sec) in zip(parsers, natives):
+        log(f"build: {path.name} in {sec:.2f}s"
+            f"{' (already built)' if cached[name] else ''}")
+    for module in (splib_native, sptxt_native, mgf_native):
+        if not module.available():
+            raise AssertionError(f"{module.__name__}: the parser does not "
+                                 "load")
+    log(f"build: {len(names)} kernels and {len(parsers)} parsers in "
+        f"{time.perf_counter() - t0:.2f}s")
 
 
 def phase_kernel(dev, cases=KERNEL_CASES, kernel_reps=20, plain_reps=3):
@@ -990,33 +1069,12 @@ def synth_queries_torch(gen, lib, n_q):
             q_prec.cpu().numpy())
 
 
-def phase_big_slice(dev, n_lib=N_BIG, n_q=BIG_QUERIES, n_batches=N_BATCHES,
-                    config=ScaleConfig):
-    """The big-library slice through the port's entry points, the probe
-    path against the per-query oracle on one batch, then one batch under
-    torch.profiler."""
-    import torch
+def big_params():
+    """Open-search settings of the big-library phases (7, 8, 10b)."""
+    from ann_solo_tpu_torch.models.vectorize import VectorizeParams
+    from ann_solo_tpu_torch.search import OpenSearchParams
 
-    from ann_solo_tpu_torch.device import synchronize
-    from ann_solo_tpu_torch.index.ivf import (
-        IvfIndex,
-        _ivf_search_perquery,
-        _key16,
-    )
-    from ann_solo_tpu_torch.models.vectorize import (
-        VectorizeParams,
-        device_tables,
-        vectorize_batch,
-    )
-    from ann_solo_tpu_torch.ops import ivf_probe_cuda
-    from ann_solo_tpu_torch.ops.rescore import rescore_candidate_matrix
-    from ann_solo_tpu_torch.search import (
-        LibraryBlock,
-        OpenSearchParams,
-        ann_open_search_batch,
-    )
-
-    params = OpenSearchParams(
+    return OpenSearchParams(
         vectorize=VectorizeParams(11.0, 2010.0, 0.04, HASH_LEN),
         num_candidates=BIG_CANDIDATES,
         precursor_tolerance_mass_open=OPEN_TOL_DA,
@@ -1024,6 +1082,24 @@ def phase_big_slice(dev, n_lib=N_BIG, n_q=BIG_QUERIES, n_batches=N_BATCHES,
         fragment_mz_tolerance=FRAG_TOL,
         allow_peak_shifts=True,
     )
+
+
+def phase_big_slice(dev, n_lib=N_BIG, n_q=BIG_QUERIES, n_batches=N_BATCHES,
+                    config=ScaleConfig):
+    """The big-library slice through the port's entry points: the library
+    made and vectorized on the card, the in-memory build, the probe path
+    against the per-query oracle (`big_library_search`), the index file
+    round trip, then one batch under torch.profiler."""
+    import torch
+
+    from ann_solo_tpu_torch.device import synchronize
+    from ann_solo_tpu_torch.index.ivf import IvfIndex
+    from ann_solo_tpu_torch.models.vectorize import (
+        device_tables,
+        vectorize_batch,
+    )
+
+    params = big_params()
     gen = torch.Generator(device=dev)
     gen.manual_seed(4242)
     if dev.type == "cuda":
@@ -1031,7 +1107,7 @@ def phase_big_slice(dev, n_lib=N_BIG, n_q=BIG_QUERIES, n_batches=N_BATCHES,
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     lib_arrays = synth_library_torch(gen, n_lib, dev)
-    lib_mz, lib_int, lib_ann, lib_prec = lib_arrays
+    lib_mz, lib_int, _, lib_prec = lib_arrays
     tables = device_tables(params.vectorize, dev)
     n_peaks = torch.full((n_lib,), K_PEAKS, device=dev)
     chunk = 65536
@@ -1053,12 +1129,58 @@ def phase_big_slice(dev, n_lib=N_BIG, n_q=BIG_QUERIES, n_batches=N_BATCHES,
     build_peak = 0
     if dev.type == "cuda":
         build_peak = torch.cuda.max_memory_allocated(dev)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
     l, cap, d = index.padded_vectors.shape
     log(f"big library: {n_lib} spectra made and vectorized in {t_lib:.3f}s; "
         f"IVF build {t_build:.3f}s ({l} lists x cap {cap} x {d}, int8, "
         f"x{index.redundancy}, num_probe {index.num_probe})")
+    big = big_library_search(
+        dev, "big slice", index, lib_arrays, params, gen, n_q, n_batches,
+        {"library_make_vectorize_sec": t_lib, "ivf_build_sec": t_build,
+         "build_max_memory_allocated_bytes": build_peak})
+    big["build_sec"], big["build_peak"] = t_build, build_peak
+
+    def select_batch0(idx):
+        vectors, qp = big["embed"](big["batches"][0])
+        return idx.search_device(
+            vectors, BIG_CANDIDATES, q_prec=qp, charge=float(CHARGE),
+            tol_val=OPEN_TOL_DA, tol_mode="Da")
+
+    index_file_round_trip(dev, index, select_batch0, big["probe"])
+    profile_batch(dev, "probe path, last batch",
+                  lambda: big["run"](big["batches"][-1]))
+    return big
+
+
+def big_library_search(dev, name, index, lib_arrays, params, gen, n_q,
+                       n_batches, extra):
+    """Timed open-search batches on a big library's index and their gates.
+
+    `n_batches` batches of `n_q` noised library rows (plus a warm-up)
+    through `ann_open_search_batch`, counting B2's launches; batch 0's
+    select against the per-query oracle on the card.  Logs one summary
+    line (with `extra`) and raises unless B2 launched, >= 99.9% of batch
+    0's (id, score) lanes equal the oracle's with every 16-bit key within
+    one step and no duplicate ids, and each batch's best-match hit rate is
+    >= 0.95 or no lower than the oracle's by more than one query.  Returns
+    the index, library, batches and helpers for later phases."""
+    import torch
+
+    from ann_solo_tpu_torch.device import synchronize
+    from ann_solo_tpu_torch.index.ivf import _ivf_search_perquery, _key16
+    from ann_solo_tpu_torch.models.vectorize import (
+        device_tables,
+        vectorize_batch,
+    )
+    from ann_solo_tpu_torch.ops import ivf_probe_cuda
+    from ann_solo_tpu_torch.ops.rescore import rescore_candidate_matrix
+    from ann_solo_tpu_torch.search import LibraryBlock, ann_open_search_batch
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    lib_mz, lib_int, lib_ann, lib_prec = lib_arrays
+    n_lib = lib_mz.shape[0]
+    tables = device_tables(params.vectorize, dev)
     lib = LibraryBlock(lib_mz, lib_int, lib_ann, lib_prec.to(torch.float32))
     batches = [synth_queries_torch(gen, lib_arrays, n_q)
                for _ in range(n_batches)]
@@ -1085,7 +1207,7 @@ def phase_big_slice(dev, n_lib=N_BIG, n_q=BIG_QUERIES, n_batches=N_BATCHES,
                        BIG_CANDIDATES)
         hit_rates.append(float(np.mean(best == batch[0])))
     stages = {}
-    run(batches[1], stages)
+    run(batches[1 % n_batches], stages)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
 
     def embed(batch):
@@ -1141,22 +1263,24 @@ def phase_big_slice(dev, n_lib=N_BIG, n_q=BIG_QUERIES, n_batches=N_BATCHES,
             raise AssertionError("a query holds a duplicate id")
     rows0 = torch.as_tensor(batches[0][0], device=dev)
     in_cands = {
-        name: float((ids == rows0[:, None]).any(1).float().mean())
-        for name, ids in (("probe", p_ids), ("oracle", o_ids))
+        label: float((ids == rows0[:, None]).any(1).float().mean())
+        for label, ids in (("probe", p_ids), ("oracle", o_ids))
     }
     oracle_rates = {0: best_match_rate(batches[0], o_ids)}
     for i, rate in enumerate(hit_rates):
         if rate < HIT_RATE_GATE and i not in oracle_rates:
             oracle_rates[i] = best_match_rate(
                 batches[i], select(batches[i], oracle=True)[0])
-    summary = {
+    summary = dict(extra)
+    summary.update({
+        "n_library": n_lib,
+        "index_shape": list(index.padded_vectors.shape),
+        "num_probe": index.num_probe,
+        "queries_per_batch": n_q,
         "queries_per_sec": n_batches * n_q / elapsed,
         "batch_sec": elapsed / n_batches,
         "stages_sec_per_batch": stages,
-        "library_make_vectorize_sec": t_lib,
-        "ivf_build_sec": t_build,
-        "max_memory_allocated_bytes": {"build": build_peak,
-                                       "search": peak},
+        "search_max_memory_allocated_bytes": peak,
         "best_match_hit_rates": hit_rates,
         "oracle_best_match_hit_rates": oracle_rates,
         "source_in_candidates_batch0": in_cands,
@@ -1165,28 +1289,19 @@ def phase_big_slice(dev, n_lib=N_BIG, n_q=BIG_QUERIES, n_batches=N_BATCHES,
         "select_sec_probe_vs_oracle": [t_probe, t_oracle],
         "mean_candidates": float(np.mean(outs[-1][2])),
         "b2_launches": launches,
-    }
-    log("big slice: " + json.dumps(summary))
+    })
+    log(f"{name}: " + json.dumps(summary))
     if launches <= 0 and dev.type == "cuda":
-        raise AssertionError("kernel B2 was not launched")
+        raise AssertionError(f"{name}: kernel B2 was not launched")
     if same_lane < 0.999 or key_step > 1:
         raise AssertionError(
-            f"probe path vs oracle: {same_lane} lanes equal, key16 step "
-            f"{key_step}")
+            f"{name}: probe path vs oracle: {same_lane} lanes equal, key16 "
+            f"step {key_step}")
     for i, rate in enumerate(hit_rates):
         if rate < HIT_RATE_GATE and rate < oracle_rates[i] - 1.0 / n_q:
             raise AssertionError(
-                f"batch {i}: best-match hit rate {rate} below the gate and "
-                f"below the oracle's {oracle_rates[i]}")
-
-    def select_batch0(idx):
-        vectors, qp = embed(batches[0])
-        return idx.search_device(
-            vectors, BIG_CANDIDATES, q_prec=qp, charge=float(CHARGE),
-            tol_val=OPEN_TOL_DA, tol_mode="Da")
-
-    index_file_round_trip(dev, index, select_batch0, (p_ids, p_s))
-    profile_batch(dev, "probe path, last batch", lambda: run(batches[-1]))
+                f"{name}, batch {i}: best-match hit rate {rate} below the "
+                f"gate and below the oracle's {oracle_rates[i]}")
     return {"launches": launches, "index": index, "lib": lib,
             "batches": batches, "run": run, "embed": embed, "select": select,
             "best_match_rate": best_match_rate, "hit_rates": hit_rates,
@@ -1391,6 +1506,146 @@ def phase_b3_slice(dev, big):
     return b3_launches
 
 
+def phase_streaming_switch(dev, big, workdir=None,
+                           config=StreamSwitchConfig):
+    """Phase 10a: `IvfIndex.load_or_build` on phase 7's library and
+    settings with no file present must take the streaming build (the f32
+    source block exceeds `_STREAM_BUILD_SOURCE_BYTES`) and give phase 7's
+    in-memory index, every array identical.  Logs its seconds and peak
+    device memory beside phase 7's, then deletes the file."""
+    import os
+    import types
+
+    import torch
+
+    from ann_solo_tpu_torch.device import synchronize
+    from ann_solo_tpu_torch.index import ivf
+
+    index, lib = big["index"], big["lib"]
+    n = lib.mz.shape[0]
+    workdir = workdir or os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "build")
+    os.makedirs(workdir, exist_ok=True)
+    path = os.path.join(workdir, "streaming_switch.ivf.npz")
+    if os.path.exists(path):
+        os.remove(path)
+    charge_block = types.SimpleNamespace(
+        mz=lib.mz, intensity=lib.intensity,
+        n_peaks=torch.full((n,), K_PEAKS, device=dev),
+        precursor_mz=lib.precursor_mz.cpu().numpy(), n_spectra=n)
+    resident = peak = 0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    stages, notes = {}, {}
+    t0 = time.perf_counter()
+    try:
+        streamed = ivf.IvfIndex.load_or_build(
+            path, charge_block, config(), store_fp="chip_smoke",
+            device=dev, stage_seconds=stages, notes=notes)
+        synchronize(dev)
+        t_total = time.perf_counter() - t0
+        if dev.type == "cuda":
+            peak = torch.cuda.max_memory_allocated(dev)
+        n_bytes = os.path.getsize(path)
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    same = {
+        name: bool(torch.equal(
+            getattr(streamed, name).view(torch.uint8)
+            if name == "padded_vectors" else getattr(streamed, name),
+            getattr(index, name).view(torch.uint8)
+            if name == "padded_vectors" else getattr(index, name)))
+        for name in ("centroids", "padded_ids", "padded_vectors",
+                     "padded_scales", "padded_prec")
+    }
+    source_bytes = n * HASH_LEN * 4
+    log("streaming switch: " + json.dumps({
+        "n_library": n, "source_block_bytes": source_bytes,
+        "threshold_bytes": ivf._STREAM_BUILD_SOURCE_BYTES,
+        "build": notes.get("build"), "stages_sec": stages,
+        "load_or_build_sec": t_total,
+        "resident_bytes_before": resident,
+        "max_memory_allocated_bytes": peak,
+        "build_own_peak_bytes": peak - resident,
+        "phase7_in_memory_build_sec": big["build_sec"],
+        "phase7_in_memory_build_peak_bytes": big["build_peak"],
+        "file_bytes": n_bytes, "identical_to_phase7": same}))
+    if source_bytes <= ivf._STREAM_BUILD_SOURCE_BYTES:
+        raise AssertionError("the source block is within the in-memory "
+                             "build's bound")
+    if notes.get("build") != "streaming":
+        raise AssertionError(f"load_or_build built {notes.get('build')!r}")
+    if not all(same.values()):
+        raise AssertionError(f"streamed index differs from phase 7's: {same}")
+
+
+def phase_streaming_8m(dev, n_lib=N_STREAM, n_q=STREAM_QUERIES,
+                       n_batches=N_BATCHES, config=Stream8mConfig):
+    """Phase 10b: SCALE r04's single-chip streaming point.  The library
+    made on the card as phase 7 makes its own, `IvfIndex.build_streaming`
+    with rows re-vectorized from its peaks on demand, then the timed
+    batches and gates of `big_library_search`.  Returns B2's launches."""
+    import torch
+
+    from ann_solo_tpu_torch.device import synchronize
+    from ann_solo_tpu_torch.index.ivf import IvfIndex
+    from ann_solo_tpu_torch.models.vectorize import (
+        device_tables,
+        vectorize_batch,
+    )
+
+    params = big_params()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8388)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lib_arrays = synth_library_torch(gen, n_lib, dev)
+    synchronize(dev)
+    t_lib = time.perf_counter() - t0
+    lib_mz, lib_int, lib_ann, lib_prec = lib_arrays
+    tables = device_tables(params.vectorize, dev)
+    n_peaks = torch.full((n_lib,), K_PEAKS, device=dev)
+
+    def get_rows(idx):
+        rows = idx.clamp(0, n_lib - 1)
+        return vectorize_batch(params.vectorize, tables, lib_mz[rows],
+                               lib_int[rows], n_peaks[rows])
+
+    resident = build_peak = 0
+    if dev.type == "cuda":
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    index = IvfIndex.build_streaming(
+        get_rows, n_lib, HASH_LEN, config(),
+        precursor_mz=lib_prec.to(torch.float32), storage_dtype=torch.int8,
+        device=dev)
+    synchronize(dev)
+    t_build = time.perf_counter() - t0
+    if dev.type == "cuda":
+        build_peak = torch.cuda.max_memory_allocated(dev)
+    index_bytes = tensor_bytes(index.padded_vectors, index.padded_ids,
+                               index.padded_prec, index.padded_scales,
+                               index.centroids)
+    l, cap, d = index.padded_vectors.shape
+    log(f"streaming 8m: {n_lib} spectra made in {t_lib:.3f}s "
+        f"({tensor_bytes(*lib_arrays)} bytes of peaks); streaming build "
+        f"{t_build:.3f}s ({l} lists x cap {cap} x {d}, int8, "
+        f"x{index.redundancy}, num_probe {index.num_probe}, {index_bytes} "
+        "bytes)")
+    out = big_library_search(
+        dev, "streaming 8m", index, lib_arrays, params, gen, n_q, n_batches,
+        {"library_make_sec": t_lib, "library_bytes": tensor_bytes(*lib_arrays),
+         "streaming_build_sec": t_build, "index_bytes": index_bytes,
+         "resident_bytes_before_build": resident,
+         "build_max_memory_allocated_bytes": build_peak})
+    return out["launches"]
+
+
 def engine_corpus(workdir, n_peptides, n_queries, seed):
     """`synthdata.make_corpus` written as a .splib library and an .mgf
     query file under `workdir`; returns their paths and the truth."""
@@ -1502,6 +1757,10 @@ def engine_run(dev, name, lib_path, query_path, truth, n_queries, model,
         "indexes": {k: v for k, v in notes.items() if k.startswith("index")},
         "rf_grid": {k: v for k, v in notes.items() if k.endswith("rf grid")},
         "paths": {k: v for k, v in counts.items() if "level charge" in k},
+        "readers": {k: notes.get(k) for k in ("library reader",
+                                              "query reader")},
+        "library_read_sec": totals.get("library read"),
+        "pr7_library_read_sec_python_reader": [25.91, 32.91],
         "max_memory_allocated_bytes": peak,
         "b1_launches": launches,
         "identifications": stats,
@@ -1518,6 +1777,12 @@ def engine_run(dev, name, lib_path, query_path, truth, n_queries, model,
                       0) <= 0:
             raise AssertionError(f"{name}, charge {charge}: no std-level "
                                  "batch went through window rescoring")
+    if notes.get("query reader") != "native":
+        raise AssertionError(
+            f"{name}: queries read by {notes.get('query reader')}")
+    if notes.get("library reader") != (None if loaded else "native"):
+        raise AssertionError(
+            f"{name}: library read by {notes.get('library reader')}")
     want = "loaded" if loaded else "built"
     for key in ("store", "index charge 2", "index charge 3"):
         if files.get(key, {}).get("source") != want:
@@ -1578,6 +1843,51 @@ def _psm_rows(path):
     return {row[2]: row for row in mztab_psms(path)}
 
 
+def store_native_vs_python(dev, lib_path, query_path):
+    """The engine's store of one library built twice on `dev`, with phase
+    9's settings: through `read_library_file` (which must take the native
+    reader) and from the Python reader's iterator; every column must be
+    identical."""
+    import os
+
+    from ann_solo_tpu_torch.config import config
+    from ann_solo_tpu_torch.io import reader, splib
+    from ann_solo_tpu_torch.io.store import (
+        COLUMN_DTYPES,
+        STRING_COLUMNS,
+        build_store,
+        hyperparameter_hash,
+    )
+    from ann_solo_tpu_torch.models.preprocess import PreprocessParams
+    from ann_solo_tpu_torch.utils.profiling import profiler
+
+    config.parse([lib_path, query_path, "out.mztab"] + ENGINE_ARGS)
+    config_hash = hyperparameter_hash(config)
+    params = PreprocessParams.from_config(config, is_library=True)
+    stores, stages, used = {}, {}, {}
+    for name, spectra in (
+            ("native", lambda: reader.read_library_file(lib_path)),
+            ("python", lambda: splib.read_splib(lib_path))):
+        profiler.notes.pop("library reader", None)
+        stages[name] = {}
+        stores[name] = build_store(
+            spectra(), config_hash, os.path.basename(lib_path), params, dev,
+            add_decoys=True, stage_seconds=stages[name])
+        used[name] = profiler.notes.get("library reader")
+    a, b = stores["native"], stores["python"]
+    differ = [c for c in (*STRING_COLUMNS, *COLUMN_DTYPES)
+              if not np.array_equal(getattr(a, c), getattr(b, c))]
+    log("engine store native vs python: " + json.dumps({
+        "rows": a.n_spectra, "reader_notes": used, "stages_sec": stages,
+        "columns_differ": differ}))
+    if used["native"] != "native":
+        raise AssertionError("read_library_file did not take the native "
+                             "reader")
+    if differ or a.n_spectra != b.n_spectra:
+        raise AssertionError(f"native vs Python store columns differ: "
+                             f"{differ}")
+
+
 def phase_engine_cuda_vs_cpu(dev, n_peptides=4000, n_queries=1000,
                              workdir=None):
     """The CLI on one small corpus, on the card and with --no_gpu: built
@@ -1592,6 +1902,7 @@ def phase_engine_cuda_vs_cpu(dev, n_peptides=4000, n_queries=1000,
     lib_path, query_path, _ = engine_corpus(workdir, n_peptides, n_queries,
                                             7)
     cpu = torch.device("cpu")
+    store_native_vs_python(dev, lib_path, query_path)
 
     def run(tag, d, extra):
         out = os.path.join(workdir, f"{tag}_{d.type}.mztab")
@@ -1677,8 +1988,11 @@ def main():
     phase_cuda_vs_cpu(dev)
     big = phase_big_slice(dev)
     b3_launches = phase_b3_slice(dev, big)
+    phase_streaming_switch(dev, big)
     big_launches = big["launches"]
-    del big  # phases 7 and 8's index and batches
+    del big  # phases 7 and 8's library, index and batches
+    torch.cuda.empty_cache()
+    phase_streaming_8m(dev)
     torch.cuda.empty_cache()
     phase_engine(dev)
     phase_engine_cuda_vs_cpu(dev)

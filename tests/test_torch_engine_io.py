@@ -212,7 +212,7 @@ def test_library_readers_and_writers_equal_jax(library, tmp_path):
         (".sptxt", jax_splib.write_sptxt, splib.write_sptxt,
          jax_splib.read_sptxt, splib.read_sptxt),
         (".mgf", jax_mgf.write_mgf, mgf.write_mgf,
-         jax_mgf.read_mgf_python, mgf.read_mgf),
+         jax_mgf.read_mgf_python, mgf.read_mgf_python),
     ):
         jax_path, path = str(tmp_path / f"j{ext}"), str(tmp_path / f"t{ext}")
         jax_write(spectra, jax_path)
@@ -234,7 +234,7 @@ def test_query_readers_equal_jax(library, tmp_path):
     queries[1].precursor_charge = None
     for ext, jax_write, write, jax_read, read in (
         (".mgf", jax_mgf.write_mgf, mgf.write_mgf,
-         jax_mgf.read_mgf_python, mgf.read_mgf),
+         jax_mgf.read_mgf_python, mgf.read_mgf_python),
         (".mzML", jax_mzml.write_mzml, mzml.write_mzml,
          jax_mzml.read_mzml, mzml.read_mzml),
         (".mzXML", jax_mzml.write_mzxml, mzml.write_mzxml,

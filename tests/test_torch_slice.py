@@ -5,8 +5,9 @@ Same NumPy-made library and queries (the bench's synthetic generator at a
 auto num_list and num_probe 512, charge 2, +-500 Da, fragment tolerance
 0.04).  Each package builds its own index from its own vectors; best ids
 must agree on >= 99% of queries, and the peak matches of agreeing best
-pairs must be the same sets.  An import guard runs the slice in a process
-where jax, ml_dtypes, sklearn, pandas and h5py cannot be imported.
+pairs must be the same sets.  An import guard runs the slice, the streaming
+build and the native readers in a process where jax, ml_dtypes, sklearn,
+pandas and h5py cannot be imported.
 """
 
 import os
@@ -203,6 +204,28 @@ GUARD = textwrap.dedent("""
     ivf_probe.MAX_PROBE_LANES = 0
     ids, _ = index.search_device(vec[:8], 4)
     assert ids.shape == (8, 4) and (ids >= 0).all()
+    # The streaming build gives the in-memory build's index.
+    streamed = IvfIndex.build_streaming(
+        lambda idx: vec[idx.clamp(0, n - 1)], n, 64, Cfg(),
+        precursor_mz=prec, storage_dtype=torch.int8, device="cpu")
+    for name in ("centroids", "padded_ids", "padded_vectors",
+                 "padded_scales", "padded_prec"):
+        assert torch.equal(getattr(streamed, name), getattr(index, name))
+    # The native readers build and read each library format.
+    import os
+    import tempfile
+    from ann_solo_tpu_torch.io import mgf, reader, splib
+    from ann_solo_tpu_torch.synthdata import make_corpus
+    from ann_solo_tpu_torch.utils.profiling import profiler
+    corpus, _, _ = make_corpus(rng, 30, 10)
+    with tempfile.TemporaryDirectory() as tmp:
+        for ext, write in ((".splib", splib.write_splib),
+                           (".sptxt", splib.write_sptxt),
+                           (".mgf", mgf.write_mgf)):
+            path = os.path.join(tmp, "lib" + ext)
+            write(corpus, path)
+            assert len(list(reader.read_library_file(path))) == 30
+            assert profiler.notes["library reader"] == "native", ext
     assert sys.modules["jax"] is None
     print("guard ok", float((best == np.arange(64)).mean()))
 """)
