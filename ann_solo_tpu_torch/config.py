@@ -138,8 +138,10 @@ def _add_arguments(parser: argparse.ArgumentParser) -> None:
         "--num_shards",
         default=0,
         type=int,
-        help="accepted for compatibility with the JAX package and "
-        "ignored: this package searches on one device",
+        help="shard each charge's IVF lists over this many CUDA devices "
+        "(0 = every device); devices left over become data-parallel query "
+        "replicas.  With one device, or with --no_gpu, the search stays "
+        "unsharded",
     )
     parser.add_argument(
         "--ivf_redundancy",

@@ -340,6 +340,24 @@ def fetch_rows_blocked(get_rows, idx, block: int = 1 << 16) -> torch.Tensor:
     return out
 
 
+def train_subsample(get_rows, n: int, num_list: int, seed: int,
+                    train_rows_cap: int, device) -> torch.Tensor:
+    """The streaming builds' k-means rows: min(n, L * 256,
+    `train_rows_cap`) rows drawn by ``np.random.RandomState(seed + 1)``,
+    sorted (`build`'s FAISS-style subsample whenever the cap does not
+    bind), fetched through `get_rows` in `_STREAM_BLOCK`-row calls."""
+    sub_cap = min(n, num_list * _TRAIN_POINTS_PER_CENTROID, train_rows_cap)
+    if sub_cap < n:
+        sub_idx = np.sort(np.random.RandomState(seed + 1).choice(
+            n, size=sub_cap, replace=False))
+    else:
+        sub_idx = np.arange(n)
+    return fetch_rows_blocked(
+        get_rows, torch.as_tensor(sub_idx, device=device),
+        block=_STREAM_BLOCK,
+    )
+
+
 def _store_rows(rows: torch.Tensor, storage_dtype: torch.dtype):
     """(stored rows, scales or None) of (C, D) float32 `rows`: the SQ8
     arithmetic that both packers share.  int8 storage quantizes per row,
@@ -1070,17 +1088,8 @@ class IvfIndex:
             n, num_list, cap, r_eff,
         )
         if centroids is None:
-            sub_cap = min(n, num_list * _TRAIN_POINTS_PER_CENTROID,
-                          train_rows_cap)
-            if sub_cap < n:
-                sub_idx = np.sort(np.random.RandomState(seed + 1).choice(
-                    n, size=sub_cap, replace=False))
-            else:
-                sub_idx = np.arange(n)
-            sub = fetch_rows_blocked(
-                get_rows, torch.as_tensor(sub_idx, device=device),
-                block=_STREAM_BLOCK,
-            )
+            sub = train_subsample(get_rows, n, num_list, seed,
+                                  train_rows_cap, device)
             centroids, _ = spherical_kmeans(sub, num_list, seed=seed)
             del sub
         centroids = torch.as_tensor(centroids).to(device=device,

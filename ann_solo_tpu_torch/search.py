@@ -24,9 +24,15 @@ and extract matches with `best_pair_matches`, which run the greedy
 shifted-dot kernel (B1) on the card.  Batches are cut for memory only: a
 query's result never depends on the other queries of its batch.
 
-Not ported: the JAX engine's pipeline warm-up (compilation), its device
-mesh (``--num_shards`` is accepted and ignored) and its one-resident-index
-eviction (one card holds every charge's index).
+With ``--num_shards`` and more than one CUDA device the engine builds the
+JAX engine's (dp, lib) mesh (`_make_library_mesh`): each charge's index is
+placed as a `parallel.sharded_ivf.ShardedIvfIndex`, and with dp > 1 each
+open-level batch splits over the dp replicas, each running vectorize ->
+select -> rescore on its own devices.  On one device, and under
+``--no_gpu``, the engine stays unsharded.
+
+Not ported: the JAX engine's pipeline warm-up (compilation) and its
+one-resident-index eviction (one card holds every charge's index).
 """
 
 from __future__ import annotations
@@ -75,6 +81,9 @@ from ann_solo_tpu_torch.ops.shifted_dot_cuda import (
     pad_peaks,
     shifted_dot_best_match_auto,
 )
+from ann_solo_tpu_torch.parallel.collectives import on_device
+from ann_solo_tpu_torch.parallel.mesh import make_mesh, n_list_shards
+from ann_solo_tpu_torch.parallel.sharded_ivf import ShardedIvfIndex
 from ann_solo_tpu_torch.utils.profiling import profiler
 
 logger = logging.getLogger(__name__)
@@ -256,10 +265,19 @@ class _ChargeLibrary:
             torch.from_numpy(self.ann_charge).to(device),
             torch.from_numpy(self.precursor_mz.astype(np.float32)).to(device),
         )
+        self._blocks = {self.block.device: self.block}
 
     @property
     def n_spectra(self) -> int:
         return len(self.rows)
+
+    def block_on(self, device: torch.device) -> LibraryBlock:
+        """The peak blocks on `device` (copied there once, for a dp
+        replica's rescoring)."""
+        if device not in self._blocks:
+            self._blocks[device] = LibraryBlock(
+                *(t.to(device) for t in dataclasses.astuple(self.block)))
+        return self._blocks[device]
 
 
 def precursor_window_bounds(
@@ -364,9 +382,43 @@ class SpectralLibrary:
             "rows": self._store.n_spectra,
         }
         self._charge_libs: Dict[int, Optional[_ChargeLibrary]] = {}
-        self._ann_indexes: Dict[int, IvfIndex] = {}
+        self._ann_indexes: Dict[int, object] = {}
+        self._mesh = None
         if config.mode == "ann":
+            self._mesh = self._make_library_mesh(self.device)
             self._prepare_ann_indexes()
+
+    @staticmethod
+    def _make_library_mesh(device: torch.device):
+        """A (dp, lib) mesh of CUDA devices when sharding applies (the JAX
+        engine's rules).
+
+        --num_shards > 1 shards each charge's IVF lists over that many
+        devices; 0 (the default) uses every device with dp = 1.  When
+        --num_shards leaves devices over (4 shards on 8 cards), the
+        remainder becomes the 'dp' axis: open-level batches split over
+        the replicas.  With one device, and on the CPU (--no_gpu), the
+        engine stays unsharded (None).  Tests patch this to a mesh of
+        repeated devices.
+        """
+        if device.type != "cuda":
+            return None
+        n = int(config.num_shards)
+        n_avail = torch.cuda.device_count()
+        if n == 0:
+            n = n_avail
+        if n_avail <= 1:
+            return None
+        if n > n_avail:
+            logger.warning(
+                "--num_shards %d > %d available devices; not sharding",
+                n, n_avail,
+            )
+            return None
+        dp = n_avail // n if n_avail % n == 0 else 1
+        logger.info("Sharding library over %d devices (dp=%d replicas)",
+                    n, dp)
+        return make_mesh(n * dp, dp_size=dp)
 
     # ------------------------------------------------------------------ #
     # Library access
@@ -428,6 +480,20 @@ class SpectralLibrary:
                 profiler.notes[f"index charge {charge}"]["source"],
                 lib.n_spectra, l, cap, index.num_probe, regime,
             )
+            if self._mesh is not None:
+                if l % n_list_shards(self._mesh) == 0:
+                    index = ShardedIvfIndex(self._mesh, index)
+                    profiler.notes[f"index charge {charge}"]["sharded"] = {
+                        "mesh": self._mesh.shape,
+                        "lists_per_shard": index.lists_per_shard,
+                        "regime": index.regime(self._params.num_candidates),
+                    }
+                else:
+                    logger.warning(
+                        "num_list=%d not divisible by %d library shards; "
+                        "charge %d index stays unsharded",
+                        l, n_list_shards(self._mesh), charge,
+                    )
             self._ann_indexes[charge] = index
 
     def shutdown(self) -> None:
@@ -630,20 +696,25 @@ class SpectralLibrary:
             best_score = np.full(b, -np.inf, np.float64)
             num_candidates_per_query = np.zeros(b, np.int64)
             matches_by_row: Dict[int, np.ndarray] = {}
+            index = self._ann_indexes[charge]
             for start in range(0, b, _ANN_CHUNK):
-                sl = slice(start, start + _ANN_CHUNK)
-                stages: Dict[str, float] = {}
-                bi, bs, nc, mb = ann_open_search_batch(
-                    self._ann_indexes[charge], lib.block, q_mz_d[sl],
-                    q_int_d[sl], torch.from_numpy(q_n[sl]).to(dev),
-                    q_prec[sl], charge, self._params, stage_seconds=stages,
-                )
-                best_idx[sl], best_score[sl] = bi, bs
-                num_candidates_per_query[sl] = nc
-                matches_by_row.update(
-                    {row + start: m for row, m in mb.items()})
-                for name, seconds in stages.items():
-                    profiler.add(f"{mode} {name}", seconds)
+                stop = min(start + _ANN_CHUNK, b)
+                for part, block, lo, hi in self._replica_parts(
+                        index, lib, start, stop):
+                    sl = slice(lo, hi)
+                    stages: Dict[str, float] = {}
+                    with on_device(block.device):
+                        bi, bs, nc, mb = ann_open_search_batch(
+                            part, block, q_mz_d[sl], q_int_d[sl],
+                            torch.from_numpy(q_n[sl]), q_prec[sl], charge,
+                            self._params, stage_seconds=stages,
+                        )
+                    best_idx[sl], best_score[sl] = bi, bs
+                    num_candidates_per_query[sl] = nc
+                    matches_by_row.update(
+                        {row + lo: m for row, m in mb.items()})
+                    for name, seconds in stages.items():
+                        profiler.add(f"{mode} {name}", seconds)
         else:
             # First filter only: the precursor window's sorted rows.
             profiler.count(f"{mode} level charge {charge}: window rescoring")
@@ -677,6 +748,23 @@ class SpectralLibrary:
                 search_engine_score=float(best_score[i]),
                 num_candidates=int(num_candidates_per_query[i]),
             )
+
+    @staticmethod
+    def _replica_parts(index, lib: _ChargeLibrary, start: int, stop: int):
+        """(index, library blocks, lo, hi) for each part of query rows
+        [start, stop): one part on the engine's device, or, for a sharded
+        index with dp > 1 replicas, contiguous parts of ceil(n / dp) rows,
+        each searched by its replica's shards and rescored on that
+        replica's first device."""
+        dp = index.dp if isinstance(index, ShardedIvfIndex) else 1
+        if dp == 1:
+            return [(index, lib.block, start, stop)]
+        step = -(-(stop - start) // dp)
+        return [
+            (index.replica(d), lib.block_on(index.replica_device(d)),
+             lo, min(lo + step, stop))
+            for d, lo in enumerate(range(start, stop, step))
+        ]
 
     @torch.no_grad()
     def _rescore_window_ranges(

@@ -139,9 +139,52 @@ Phases, each raising on failure (non-zero exit, no final line):
    lower than the oracle's by more than one query.  Logs build seconds,
    queries/s, peak device memory for the build and the search and the
    index's bytes.
+11a. phase 10b's library and index list-sharded (`parallel/`): a (dp=1,
+   lib=4) mesh of the one card (`make_mesh` with the card repeated; each
+   shard holds 4,096 lists, the block one chip of a 4-chip deployment
+   holds), `ShardedIvfIndex.build_sharded_streaming` given 10b's
+   centroids.  Gates: every shard's ids, stored vectors (as bytes),
+   scales and precursors equal 10b's index's list range, and the
+   centroids 10b's.  Then 10b's 4 query batches (and a warm-up) through
+   `ann_open_search_batch` on the sharded index: each shard's probed lists
+   through kernel B2 at width 64 (a query probing more than 64 of its 128
+   lists in one shard is repaired through the exact chunked scan), merged,
+   then B1.  Gates: B2's launch count grows; batch 0's select equals 10b's
+   on >= 99.9% of (id, score) lanes with every 16-bit key within one step
+   and no duplicate ids; each batch's best-match hit rate equals 10b's
+   within one query.  Then 10b's index placed on a (dp=2, lib=2) mesh of
+   the card (width 128: no overflow): the placement allocates under 1% of
+   the index's bytes (views, no copies), and batch 0's select passes the
+   same lane gates.  Logs queries/s beside 10b's, overflowed queries per
+   batch, build seconds by stage, peak device memory and B1's launches,
+   and profiles one batch (torch.profiler); B2's launches of the timed
+   batches count in the kernels record;
+11b. SCALE r04's born-sharded point (SCALE_r04.json "born_sharded_build",
+   `scale_demo.py` `sharded_main`) on the first 2,097,152 rows of 10b's
+   library (10b's and 11a's indexes freed): 512 lists, num_probe 64, x2
+   SOAR, int8, k-means of 8 iterations trained sharded, over a (dcn=2,
+   dp=1, lib=4) mesh of the card (`make_multislice_mesh`; 8 list shards of
+   64 lists, the fullscan regime).  Gates: every shard's vector block is
+   629,145,600 bytes and their sum the global block; an in-memory
+   `IvfIndex.build` of the same rows given the sharded build's centroids
+   equals every shard's arrays over its list range; one batch of 1,024
+   queries (1,024 candidates, +-500 Da) selects as that index does (its
+   probe path, B2) on >= 99.9% of (id, score) lanes, every 16-bit key
+   within one step, no duplicate ids.  Logs build seconds by stage (train,
+   assign, plan, pack, place), the build's and the selects' peaks;
+11c. (after phase 9's three runs) the CLI with --model none on run A's
+   files, `SpectralLibrary._make_library_mesh` patched to a (dp=2, lib=4)
+   mesh of the card: each charge's index loaded and placed as a
+   `ShardedIvfIndex` (1,024 lists a shard, x2 SOAR, the fullscan regime),
+   the open level's batches split over the two replicas.  Gates: the CLI
+   returns 0; both indexes loaded and sharded on that mesh; the open level
+   went through them; against run A's mzTab the same PSM_IDs, the same
+   library spectrum for >= 99.9% of them, identical lines wherever it is
+   the same.  Logs search seconds and queries/s.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernels' JSON record (B2's launches: phase
+7's and phase 11a's timed batches); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -237,6 +280,16 @@ BIG_CANDIDATES = 1024
 N_STREAM = 8_388_608
 STREAM_QUERIES = 1024
 
+# Phase 11a: list shards of 10b's library on the one card (a 4-chip
+# deployment's split); phase 11b: SCALE r04's "born_sharded_build"
+# (scale_demo.py `sharded_main`): the first 2,097,152 rows, 512 lists,
+# num_probe 64, x2, int8, k-means of 8 iterations, over a ('dcn', 'dp',
+# 'lib') = (2, 1, 4) mesh; each shard block 629,145,600 bytes.
+N_SHARDS_8M = 4
+N_BORN = 2_097_152
+BORN_SHARD_BYTES = 629_145_600
+BORN_KMEANS_ITERS = 8
+
 # The engine (phase 9): QUALITY r05's ann leg (QUALITY_r05.json "corpus"
 # and "config", ann_solo_tpu/quality.py:41-64), the repo's 200k canonical
 # scale: 100,000 library spectra (charges 2 and 3), 200,000 store rows with
@@ -286,6 +339,15 @@ class Stream8mConfig:
     num_list = 16384
     num_probe = 128
     ivf_redundancy = 1
+
+
+class BornShardedConfig:
+    """IVF settings of SCALE r04's born-sharded point (SOAR on, as the
+    config names no soar_lambda)."""
+
+    num_list = 512
+    num_probe = 64
+    ivf_redundancy = 2
 
 
 def log(*args):
@@ -1151,6 +1213,12 @@ def phase_big_slice(dev, n_lib=N_BIG, n_q=BIG_QUERIES, n_batches=N_BATCHES,
     return big
 
 
+def _has_duplicates(ids):
+    """Whether a row of (B, k) ids holds one id (not -1) twice."""
+    srt = ids.sort(dim=1).values
+    return bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any())
+
+
 def big_library_search(dev, name, index, lib_arrays, params, gen, n_q,
                        n_batches, extra):
     """Timed open-search batches on a big library's index and their gates.
@@ -1257,10 +1325,8 @@ def big_library_search(dev, name, index, lib_arrays, params, gen, n_q,
     t_oracle = time.perf_counter() - t0
     same_lane = float(((p_ids == o_ids) & (p_s == o_s)).float().mean())
     key_step = int((_key16(p_s) - _key16(o_s)).abs().max())
-    for ids in (p_ids, o_ids):
-        srt = torch.sort(ids, dim=1).values
-        if bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()):
-            raise AssertionError("a query holds a duplicate id")
+    if _has_duplicates(p_ids) or _has_duplicates(o_ids):
+        raise AssertionError("a query holds a duplicate id")
     rows0 = torch.as_tensor(batches[0][0], device=dev)
     in_cands = {
         label: float((ids == rows0[:, None]).any(1).float().mean())
@@ -1305,6 +1371,7 @@ def big_library_search(dev, name, index, lib_arrays, params, gen, n_q,
     return {"launches": launches, "index": index, "lib": lib,
             "batches": batches, "run": run, "embed": embed, "select": select,
             "best_match_rate": best_match_rate, "hit_rates": hit_rates,
+            "queries_per_sec": summary["queries_per_sec"],
             "probe": (p_ids, p_s), "oracle": (o_ids, o_s)}
 
 
@@ -1463,8 +1530,7 @@ def phase_b3_slice(dev, big):
 
     p_ids, p_s = big["probe"]
     o_ids, o_s = big["oracle"]
-    srt = torch.sort(f_ids, dim=1).values
-    if bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()):
+    if _has_duplicates(f_ids):
         raise AssertionError("a B3 query holds a duplicate id")
     same_probe, step_probe = _lanes_vs(f_ids, f_s, p_ids, p_s)
     same_oracle, step_oracle = _lanes_vs(f_ids, f_s, o_ids, o_s)
@@ -1587,7 +1653,8 @@ def phase_streaming_8m(dev, n_lib=N_STREAM, n_q=STREAM_QUERIES,
     """Phase 10b: SCALE r04's single-chip streaming point.  The library
     made on the card as phase 7 makes its own, `IvfIndex.build_streaming`
     with rows re-vectorized from its peaks on demand, then the timed
-    batches and gates of `big_library_search`.  Returns B2's launches."""
+    batches and gates of `big_library_search`.  Returns its result (with
+    the library's arrays and row accessor) for phases 11a and 11b."""
     import torch
 
     from ann_solo_tpu_torch.device import synchronize
@@ -1643,7 +1710,366 @@ def phase_streaming_8m(dev, n_lib=N_STREAM, n_q=STREAM_QUERIES,
          "streaming_build_sec": t_build, "index_bytes": index_bytes,
          "resident_bytes_before_build": resident,
          "build_max_memory_allocated_bytes": build_peak})
-    return out["launches"]
+    out.update(lib_arrays=lib_arrays, get_rows=get_rows, config=config)
+    return out
+
+
+def phase_sharded_8m(dev, s8m, n_shards=N_SHARDS_8M):
+    """Phase 11a: phase 10b's library born sharded over a (dp=1, lib=4)
+    mesh of the one card, searched through kernel B2 shard by shard, then
+    10b's index placed on a (dp=2, lib=2) mesh.  Gates and logs as in the
+    module docstring.  Returns B2's launches of the timed batches."""
+    import torch
+
+    from ann_solo_tpu_torch.device import synchronize
+    from ann_solo_tpu_torch.ops import ivf_probe_cuda, shifted_dot_cuda
+    from ann_solo_tpu_torch.parallel.mesh import make_mesh
+    from ann_solo_tpu_torch.parallel.sharded_ivf import ShardedIvfIndex
+    from ann_solo_tpu_torch.search import ann_open_search_batch
+
+    index, lib, batches = s8m["index"], s8m["lib"], s8m["batches"]
+    n_lib = lib.mz.shape[0]
+    n_q = len(batches[0][0])
+    params = big_params()
+    q_n = np.full(n_q, K_PEAKS, np.int32)
+    mesh = make_mesh(n_shards, dp_size=1, devices=[dev] * n_shards)
+    resident = build_peak = 0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    sharded = ShardedIvfIndex.build_sharded_streaming(
+        mesh, s8m["get_rows"], n_lib, HASH_LEN, s8m["config"](),
+        precursor_mz=lib.precursor_mz, storage_dtype=torch.int8,
+        centroids=index.centroids)
+    synchronize(dev)
+    t_build = time.perf_counter() - t0
+    if dev.type == "cuda":
+        build_peak = torch.cuda.max_memory_allocated(dev)
+    build_stages = dict(sharded.build_seconds)
+    l_l = sharded.lists_per_shard
+    same = {"centroids": bool(torch.equal(sharded.centroids,
+                                          index.centroids))}
+    for s, blk in enumerate(sharded.blocks()):
+        lists = slice(s * l_l, (s + 1) * l_l)
+        for name, mine, ref in (
+                ("ids", blk.ids, index.padded_ids[lists]),
+                ("vectors", blk.vectors.view(torch.uint8),
+                 index.padded_vectors[lists].view(torch.uint8)),
+                ("scales", blk.scales, index.padded_scales[lists]),
+                ("prec", blk.prec, index.padded_prec[lists])):
+            same[name] = same.get(name, True) and bool(torch.equal(mine, ref))
+    regime = sharded._regime_params(n_q, sharded.num_probe,
+                                    BIG_CANDIDATES * sharded.redundancy)
+
+    def run(idx, batch, stages=None):
+        _, q_mz, q_int, q_prec = batch
+        return ann_open_search_batch(idx, lib, q_mz, q_int, q_n, q_prec,
+                                     CHARGE, params, stage_seconds=stages)
+
+    def select(idx, batch):
+        vectors, qp = s8m["embed"](batch)
+        return idx.search_device(vectors, BIG_CANDIDATES, q_prec=qp,
+                                 charge=float(CHARGE), tol_val=OPEN_TOL_DA,
+                                 tol_mode="Da")
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    run(sharded, batches[0])  # warm-up
+    synchronize(dev)
+    ivf_probe_cuda.LAUNCHES = 0
+    shifted_dot_cuda.LAUNCHES = 0
+    overflow, outs = [], []
+    t0 = time.perf_counter()
+    for batch in batches:
+        outs.append(run(sharded, batch))
+        overflow.append(sharded._last_overflow)
+    synchronize(dev)
+    elapsed = time.perf_counter() - t0
+    launches = ivf_probe_cuda.LAUNCHES
+    b1_launches = shifted_dot_cuda.LAUNCHES
+    hit_rates = []
+    for batch, (best, score, n_cands, matches) in zip(batches, outs):
+        _check_outputs(best, score, n_cands, matches, n_lib, n_q,
+                       BIG_CANDIDATES)
+        hit_rates.append(float(np.mean(best == batch[0])))
+    stages = {}
+    run(sharded, batches[1 % len(batches)], stages)
+    search_peak = (torch.cuda.max_memory_allocated(dev)
+                   if dev.type == "cuda" else 0)
+    ids, scores = select(sharded, batches[0])
+    same_lane, key_step = _lanes_vs(ids, scores, *s8m["probe"])
+    dups = _has_duplicates(ids)
+    if dev.type == "cuda":
+        profile_batch(dev, "sharded 8m, last batch",
+                      lambda: run(sharded, batches[-1]))
+    del sharded, ids, scores
+
+    # 10b's index placed on a (dp=2, lib=2) mesh: views, no copies.
+    before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    placed = ShardedIvfIndex(
+        make_mesh(4, dp_size=2, devices=[dev] * 4), index)
+    placed_bytes = (torch.cuda.memory_allocated(dev) - before
+                    if dev.type == "cuda" else 0)
+    p_ids, p_scores = select(placed, batches[0])
+    same_lane_22, key_step_22 = _lanes_vs(p_ids, p_scores, *s8m["probe"])
+    dups_22 = _has_duplicates(p_ids)
+    regime_22 = placed._regime_params(n_q // 2, placed.num_probe,
+                                      BIG_CANDIDATES)
+    del placed, p_ids, p_scores
+    q_s = len(batches) * n_q / elapsed
+    summary = {
+        "mesh": mesh.shape, "lists_per_shard": l_l,
+        "regime_width_chunk": list(regime),
+        "build_sec": t_build, "build_stages_sec": build_stages,
+        "resident_bytes_before_build": resident,
+        "build_max_memory_allocated_bytes": build_peak,
+        "identical_to_10b": same,
+        "queries_per_sec": q_s, "phase10b_queries_per_sec":
+            s8m["queries_per_sec"],
+        "batch_sec": elapsed / len(batches), "stages_sec_per_batch": stages,
+        "overflowed_queries_per_batch": overflow,
+        "search_max_memory_allocated_bytes": search_peak,
+        "best_match_hit_rates": hit_rates,
+        "phase10b_best_match_hit_rates": s8m["hit_rates"],
+        "vs_10b_same_lanes": same_lane, "vs_10b_max_key16_step": key_step,
+        "dp2_lib2": {"regime_width_chunk": list(regime_22),
+                     "placement_bytes": placed_bytes,
+                     "vs_10b_same_lanes": same_lane_22,
+                     "vs_10b_max_key16_step": key_step_22},
+        "b2_launches": launches, "b1_launches": b1_launches,
+    }
+    log("sharded 8m: " + json.dumps(summary))
+    if not all(same.values()):
+        raise AssertionError(f"born-sharded index differs from 10b's: {same}")
+    if launches <= 0 and dev.type == "cuda":
+        raise AssertionError("sharded 8m: kernel B2 was not launched")
+    for name, lanes, step, dup in (("(1, 4)", same_lane, key_step, dups),
+                                   ("(2, 2)", same_lane_22, key_step_22,
+                                    dups_22)):
+        if lanes < 0.999 or step > 1 or dup:
+            raise AssertionError(
+                f"sharded 8m {name} vs 10b: {lanes} lanes equal, key16 step "
+                f"{step}, duplicates {dup}")
+    for i, (rate, ref) in enumerate(zip(hit_rates, s8m["hit_rates"])):
+        if abs(rate - ref) > 1.0 / n_q:
+            raise AssertionError(
+                f"sharded 8m batch {i}: hit rate {rate} vs 10b's {ref}")
+    if placed_bytes > 0.01 * tensor_bytes(index.padded_vectors):
+        raise AssertionError(f"the (2, 2) placement copied {placed_bytes} "
+                             "bytes on one card")
+    return launches
+
+
+def phase_born_sharded(dev, s8m, n=N_BORN, n_q=BIG_QUERIES,
+                       config=BornShardedConfig, shard_bytes=BORN_SHARD_BYTES,
+                       n_iter=BORN_KMEANS_ITERS):
+    """Phase 11b: SCALE r04's born-sharded point on the first `n` rows of
+    phase 10b's library: `build_sharded_streaming` over a (dcn=2, dp=1,
+    lib=4) mesh of the one card with k-means trained sharded, then an
+    in-memory `IvfIndex.build` of the same rows given its centroids, and
+    one batch selected by both.  Gates and logs as in the module
+    docstring."""
+    import torch
+
+    from ann_solo_tpu_torch.device import synchronize
+    from ann_solo_tpu_torch.index.ivf import IvfIndex
+    from ann_solo_tpu_torch.models.vectorize import (
+        device_tables,
+        vectorize_batch,
+    )
+    from ann_solo_tpu_torch.parallel.mesh import make_multislice_mesh
+    from ann_solo_tpu_torch.parallel.sharded_ivf import ShardedIvfIndex
+
+    lib_arrays = tuple(a[:n] for a in s8m["lib_arrays"])
+    lib_mz, lib_int, _, lib_prec = lib_arrays
+    params = big_params()
+    tables = device_tables(params.vectorize, dev)
+    n_peaks = torch.full((n,), K_PEAKS, device=dev)
+
+    def get_rows(idx):
+        rows = idx.clamp(0, n - 1)
+        return vectorize_batch(params.vectorize, tables, lib_mz[rows],
+                               lib_int[rows], n_peaks[rows])
+
+    mesh = make_multislice_mesh(2, 4, devices=[dev] * 8)
+    resident = build_peak = 0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    sharded = ShardedIvfIndex.build_sharded_streaming(
+        mesh, get_rows, n, HASH_LEN, config(),
+        precursor_mz=lib_prec.to(torch.float32), storage_dtype=torch.int8,
+        n_iter=n_iter)
+    synchronize(dev)
+    t_build = time.perf_counter() - t0
+    if dev.type == "cuda":
+        build_peak = torch.cuda.max_memory_allocated(dev)
+    blocks = sharded.blocks()
+    per_shard = [tensor_bytes(b.vectors) for b in blocks]
+    global_bytes = sharded.num_list * sharded.cap * sharded.dim
+
+    chunk = 65536
+    vectors = torch.cat([get_rows(torch.arange(s, min(s + chunk, n),
+                                               device=dev))
+                         for s in range(0, n, chunk)])
+    t0 = time.perf_counter()
+    ref = IvfIndex.build(vectors, config(),
+                         precursor_mz=lib_prec.to(torch.float32),
+                         storage_dtype=torch.int8,
+                         centroids=sharded.centroids, device=dev)
+    synchronize(dev)
+    t_ref = time.perf_counter() - t0
+    del vectors
+    l_l = sharded.lists_per_shard
+    same = {}
+    for s, blk in enumerate(blocks):
+        lists = slice(s * l_l, (s + 1) * l_l)
+        for name, mine, want in (
+                ("ids", blk.ids, ref.padded_ids[lists]),
+                ("vectors", blk.vectors.view(torch.uint8),
+                 ref.padded_vectors[lists].view(torch.uint8)),
+                ("scales", blk.scales, ref.padded_scales[lists]),
+                ("prec", blk.prec, ref.padded_prec[lists])):
+            same[name] = same.get(name, True) and bool(torch.equal(mine,
+                                                                   want))
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2097)
+    rows, q_mz, q_int, q_prec = synth_queries_torch(gen, lib_arrays, n_q)
+    q_vec = vectorize_batch(params.vectorize, tables, q_mz, q_int,
+                            torch.full((n_q,), K_PEAKS, device=dev))
+    qp = torch.as_tensor(q_prec, dtype=torch.float32, device=dev)
+    selected = {}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for name, idx in (("sharded", sharded), ("in_memory", ref)):
+        idx.search_device(q_vec, BIG_CANDIDATES, q_prec=qp,
+                          charge=float(CHARGE), tol_val=OPEN_TOL_DA,
+                          tol_mode="Da")  # warm-up
+        synchronize(dev)
+        t0 = time.perf_counter()
+        out = idx.search_device(q_vec, BIG_CANDIDATES, q_prec=qp,
+                                charge=float(CHARGE), tol_val=OPEN_TOL_DA,
+                                tol_mode="Da")
+        synchronize(dev)
+        selected[name] = out + (time.perf_counter() - t0,)
+    select_peak = (torch.cuda.max_memory_allocated(dev)
+                   if dev.type == "cuda" else 0)
+    s_ids, s_s, t_sel = selected["sharded"]
+    r_ids, r_s, t_ref_sel = selected["in_memory"]
+    same_lane, key_step = _lanes_vs(s_ids, s_s, r_ids, r_s)
+    dups = _has_duplicates(s_ids)
+    rows_d = torch.as_tensor(rows, device=dev)
+    in_cands = float((s_ids == rows_d[:, None]).any(1).float().mean())
+    summary = {
+        "n_vectors": n, "mesh": mesh.shape, "lib_shards":
+            sharded.n_list_shards, "lists_per_shard": l_l,
+        "cap": sharded.cap, "redundancy": sharded.redundancy,
+        "num_probe": sharded.num_probe, "kmeans_iters": n_iter,
+        "regime": sharded.regime(BIG_CANDIDATES),
+        "in_memory_regime": ref.regime(BIG_CANDIDATES),
+        "per_shard_block_bytes": per_shard,
+        "global_block_bytes": global_bytes,
+        "build_sec": t_build, "build_stages_sec": sharded.build_seconds,
+        "resident_bytes_before_build": resident,
+        "build_max_memory_allocated_bytes": build_peak,
+        "in_memory_build_sec": t_ref,
+        "identical_to_in_memory": same,
+        "select_sec_sharded_vs_in_memory": [t_sel, t_ref_sel],
+        "select_max_memory_allocated_bytes": select_peak,
+        "vs_in_memory_same_lanes": same_lane,
+        "vs_in_memory_max_key16_step": key_step,
+        "source_in_candidates": in_cands,
+    }
+    log("born sharded: " + json.dumps(summary))
+    if shard_bytes is not None and any(b != shard_bytes for b in per_shard):
+        raise AssertionError(f"shard blocks {per_shard} != {shard_bytes}")
+    if sum(per_shard) != global_bytes:
+        raise AssertionError("the shard blocks do not add up to the global "
+                             "block")
+    if not all(same.values()):
+        raise AssertionError(f"born-sharded index differs from the "
+                             f"in-memory build: {same}")
+    if same_lane < 0.999 or key_step > 1 or dups:
+        raise AssertionError(
+            f"born sharded vs in-memory select: {same_lane} lanes equal, "
+            f"key16 step {key_step}, duplicates {dups}")
+
+
+def phase_sharded_engine(dev, dp=2, n_shards=4, n_queries=ENGINE_QUERIES,
+                         workdir=None):
+    """Phase 11c: phase 9's CLI (--model none) on the files run A wrote,
+    with `SpectralLibrary._make_library_mesh` patched to a (dp, lib) mesh
+    of the one card.  Gates and logs as in the module docstring."""
+    import os
+
+    import torch
+
+    from ann_solo_tpu_torch import search
+    from ann_solo_tpu_torch.parallel.mesh import make_mesh
+
+    workdir = workdir or os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "build", "engine")
+    lib_path = os.path.join(workdir, "library.splib")
+    query_path = os.path.join(workdir, "queries.mgf")
+    out = os.path.join(workdir, "out_sharded.mztab")
+    mesh = make_mesh(dp * n_shards, dp_size=dp,
+                     devices=[dev] * (dp * n_shards))
+    real = search.SpectralLibrary.__dict__["_make_library_mesh"]
+    search.SpectralLibrary._make_library_mesh = staticmethod(
+        lambda device: mesh)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        t0 = time.perf_counter()
+        profile, launches = run_engine_cli(dev, lib_path, query_path, out)
+        t_cli = time.perf_counter() - t0
+    finally:
+        search.SpectralLibrary._make_library_mesh = real
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    totals, counts, notes = (profile["totals"], profile["counts"],
+                             profile["notes"])
+    got = _psm_rows(out)
+    want = _psm_rows(os.path.join(workdir, "out_none.mztab"))
+    same = [q for q in want if q in got and got[q][20] == want[q][20]]
+    frac = len(same) / max(len(want), 1)
+    differ = [q for q in same if got[q] != want[q]]
+    indexes = {k: v for k, v in notes.items() if k.startswith("index")}
+    summary = {
+        "mesh": mesh.shape, "cli_sec": t_cli, "search_sec": totals["search"],
+        "queries_per_sec": n_queries / totals["search"],
+        "stages_sec": totals, "indexes": indexes,
+        "paths": {k: v for k, v in counts.items() if "level charge" in k},
+        "max_memory_allocated_bytes": peak, "b1_launches": launches,
+        "n_psms": len(got), "run_a_psms": len(want),
+        "same_library_spectrum": frac, "lines_differ_where_same":
+            len(differ),
+    }
+    log("sharded engine: " + json.dumps(summary))
+    for charge in (2, 3):
+        note = notes.get(f"index charge {charge}", {})
+        if note.get("source") != "loaded":
+            raise AssertionError(f"charge {charge}: the index was not loaded "
+                                 f"from run A's file: {note}")
+        if note.get("sharded", {}).get("mesh") != mesh.shape:
+            raise AssertionError(f"charge {charge}: the index is not a "
+                                 f"ShardedIvfIndex on {mesh.shape}: {note}")
+        if counts.get(f"open level charge {charge}: ivf select", 0) <= 0:
+            raise AssertionError(f"charge {charge}: no open-level batch went "
+                                 "through the sharded index")
+    if launches <= 0 and dev.type == "cuda":
+        raise AssertionError("sharded engine: no greedy kernel launched")
+    if got.keys() != want.keys():
+        raise AssertionError("sharded engine: the PSM_IDs differ from run A's")
+    if frac < 0.999 or differ:
+        raise AssertionError(
+            f"sharded engine: same library spectrum for {frac}, "
+            f"{len(differ)} lines differ where it is the same")
 
 
 def engine_corpus(workdir, n_peptides, n_queries, seed):
@@ -1992,9 +2418,15 @@ def main():
     big_launches = big["launches"]
     del big  # phases 7 and 8's library, index and batches
     torch.cuda.empty_cache()
-    phase_streaming_8m(dev)
+    s8m = phase_streaming_8m(dev)
+    big_launches += phase_sharded_8m(dev, s8m)
+    del s8m["index"], s8m["run"], s8m["select"], s8m["probe"], s8m["oracle"]
+    torch.cuda.empty_cache()
+    phase_born_sharded(dev, s8m)
+    del s8m
     torch.cuda.empty_cache()
     phase_engine(dev)
+    phase_sharded_engine(dev)
     phase_engine_cuda_vs_cpu(dev)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [

@@ -1,9 +1,10 @@
 """The port imports nothing of the JAX package, and its copies of what it
 needed from there equal the originals.
 
-Every module of `ann_solo_tpu_torch/` and `chip_smoke.py` is parsed with
-`ast`: no `import` or `from ... import` anywhere in it (at top level or
-inside a function) may name `ann_solo_tpu` or a submodule of it.  The
+Every module of `ann_solo_tpu_torch/` (`parallel/` included) and
+`chip_smoke.py` is parsed with `ast`: no `import` or `from ... import`
+anywhere in it (at top level or inside a function) may name
+`ann_solo_tpu`, `jax` or `jaxlib`, or a submodule of one.  The
 port's MurmurHash3 bin table and mass constants are held equal to the JAX
 package's here; the other copies in `test_torch_engine_*.py`.
 """
@@ -41,13 +42,15 @@ def _imported_modules(path):
 def test_sources_found():
     assert "ann_solo_tpu_torch/models/vectorize.py" in _SOURCES
     assert "ann_solo_tpu_torch/models/preprocess.py" in _SOURCES
+    for name in ("mesh", "collectives", "sharded", "sharded_ivf"):
+        assert f"ann_solo_tpu_torch/parallel/{name}.py" in _SOURCES
     assert len(_SOURCES) > 15
 
 
 @pytest.mark.parametrize("path", _SOURCES)
 def test_no_import_of_the_jax_package(path):
     bad = [name for name in _imported_modules(path)
-           if name == "ann_solo_tpu" or name.startswith("ann_solo_tpu.")]
+           if name.split(".")[0] in ("ann_solo_tpu", "jax", "jaxlib")]
     assert not bad, f"{path} imports {bad}"
 
 
