@@ -7,13 +7,15 @@ std -> open cascade, window rescoring, the ANN open-search batch), `io/`
 (readers and writers, the in-memory library store, mzTab), `fdr.py`,
 `decoy.py`, `ops/` (shifted-dot rescoring, the CUDA kernels, k-means),
 `models/` (the spectrum model, preprocessing, hashed vectorization, SSM
-features) and `index/` (the IVF index).
+features), `index/` (the IVF index), `parallel/` (meshes of devices) and
+the tools around the CLI: `quality.py` and `sweep.py` (the harnesses),
+`eval.py` (mzTab statistics) and `plot.py` (the mirror plot).
 
 This package imports torch, numpy and scipy, and nothing of
 `ann_solo_tpu`: what it needs from the JAX-free modules there (the
 MurmurHash3 bin table, masses, the readers, config, decoys, synthetic
-data) it keeps as its own copy.  Never jax, ml_dtypes, sklearn, pandas or
-h5py.
+data, the local FASTA predictor) it keeps as its own copy.  Never jax,
+ml_dtypes, sklearn, pandas or h5py; matplotlib only to render a plot.
 """
 
 import torch

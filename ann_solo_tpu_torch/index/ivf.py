@@ -36,6 +36,10 @@ the voting budget:
   The JAX package's voting-budget regime is not ported: its
   degenerate-tile rule picks between the chunked regimes and the oracle.
 
+* **Host search** (`IvfIndex.search`, `search_with_scores`): NumPy in and
+  out over `search_device`; `bruteforce_search` is the exact top-k oracle
+  that recall is measured against.
+
 * **Files** (`IvfIndex.save`, `load`, `load_or_build`,
   `ivf_index_filename`): one ``.ivf.npz`` per charge beside the library
   (NumPy's own format, no pickle; the JAX package's stem, never its
@@ -938,7 +942,33 @@ def chunked_scan_params(l: int, cap: int, num_probe: int, k_scan: int,
     return pool_g, list_chunk
 
 
-class IvfIndex:
+class HostSearch:
+    """`search` and `search_with_scores` over `search_device`: NumPy in
+    and out (the JAX `IvfIndex.search` signature; `ShardedIvfIndex`
+    shares it)."""
+
+    def search(self, queries, k: int, num_probe: Optional[int] = None,
+               q_prec=None, charge: float = 1.0, tol_val: float = 0.0,
+               tol_mode: str = "Da") -> np.ndarray:
+        """Top-k neighbor row ids per query ((B, k) int32, -1 padded),
+        in query order.  When `tol_val` > 0, the precursor window (|q - l|
+        * charge <= tol in Da mode, ppm otherwise) is fused into the scan
+        mask."""
+        ids, _ = self.search_with_scores(queries, k, num_probe, q_prec,
+                                         charge, tol_val, tol_mode)
+        return ids
+
+    def search_with_scores(self, queries, k: int,
+                           num_probe: Optional[int] = None, q_prec=None,
+                           charge: float = 1.0, tol_val: float = 0.0,
+                           tol_mode: str = "Da"):
+        """Like `search`, also returning the (B, k) float32 scores."""
+        ids, scores = self.search_device(queries, k, num_probe, q_prec,
+                                         charge, tol_val, tol_mode)
+        return ids.cpu().numpy(), scores.cpu().numpy()
+
+
+class IvfIndex(HostSearch):
     """Inverted-file index over one charge partition, on one device."""
 
     def __init__(
@@ -1437,3 +1467,39 @@ class IvfIndex:
             out_s[rows] = r_s
             out_i[rows] = r_i.to(out_i.dtype)
         return out_s, out_i
+
+
+@torch.no_grad()
+def bruteforce_search(library_vectors, queries, k: int, block: int = 16384,
+                      device=None) -> np.ndarray:
+    """Exact max-inner-product top-k ((B, min(k, n)) int32 row ids; the
+    JAX `bruteforce_search`, the oracle of recall measurements).
+
+    f32 products of the queries with blocks of `block` library rows on
+    `device` (None = the GPU), TF32 off; each block merges into the running
+    top-k by the stable top-k, so equal scores keep the lower row id, as
+    `lax.top_k` keeps them."""
+    device = resolve_device(device)
+    queries = torch.as_tensor(np.asarray(queries, np.float32), device=device)
+    n = library_vectors.shape[0]
+    k = min(k, n)
+    b = queries.shape[0]
+    top_scores = torch.full((b, k), float("-inf"), device=device)
+    top_ids = torch.full((b, k), -1, dtype=torch.int32, device=device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for start in range(0, n, block):
+            chunk = torch.as_tensor(
+                np.asarray(library_vectors[start:start + block], np.float32),
+                device=device)
+            scores = queries @ chunk.T
+            ids = torch.arange(start, start + chunk.shape[0],
+                               dtype=torch.int32, device=device)
+            top_scores, pos = stable_topk_desc(
+                torch.cat([top_scores, scores], dim=1), k)
+            top_ids = torch.cat([top_ids, ids[None, :].expand(b, -1)],
+                                dim=1).gather(1, pos)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return top_ids.cpu().numpy()

@@ -2,8 +2,9 @@
 
 The port's copy of `ann_solo_tpu/io/reader.py`: .splib, .sptxt and .mgf
 files go through the native C++ parsers when they build (`io/*_native.py`),
-else through the Python readers, after one WARNING.  Which one read the
-library and the query file is recorded in the profiler's notes
+else through the Python readers, after one WARNING; a .fasta library is
+digested and its spectra predicted locally (`io/fasta.py`).  Which one
+read the library and the query file is recorded in the profiler's notes
 (``notes["library reader"]``, ``notes["query reader"]``: "native" or
 "python").
 
@@ -21,12 +22,6 @@ from ann_solo_tpu_torch.models.spectrum import Spectrum
 from ann_solo_tpu_torch.utils.profiling import profiler
 
 logger = logging.getLogger(__name__)
-
-FASTA_UNSUPPORTED = (
-    "FASTA spectral libraries are not supported by ann_solo_tpu_torch: "
-    "their spectra are predicted by a remote Prosit server; convert the "
-    "library to .splib, .sptxt or .mgf first"
-)
 
 
 def verify_extension(supported_extensions: List[str], filename: str) -> None:
@@ -53,13 +48,12 @@ def _read(filename: str, role: str, native, read_native,
     yield from (read_native if use_native else read_python)(filename)
 
 
-def read_library_file(filename: str) -> Iterator[Spectrum]:
-    """Read all spectra from a spectral library file.
-
-    A FASTA library is refused: the JAX package predicts its spectra
-    through a remote Prosit server, which this package does not port.
-    """
+def read_library_file(filename: str, config=None) -> Iterator[Spectrum]:
+    """Read/generate all spectra from a spectral library or FASTA file
+    (a FASTA file's digestion and charges from `config`; None: the
+    package's config singleton)."""
     from ann_solo_tpu_torch.io import (
+        fasta,
         mgf,
         mgf_native,
         splib,
@@ -78,7 +72,10 @@ def read_library_file(filename: str) -> Iterator[Spectrum]:
         yield from _read(filename, "library", mgf_native,
                          mgf_native.read_mgf_native, mgf.read_mgf_python)
     elif ext == ".fasta":
-        raise ValueError(FASTA_UNSUPPORTED)
+        if config is None:
+            from ann_solo_tpu_torch.config import config
+        yield from _read(filename, "library", None, None,
+                         lambda name: fasta.read_fasta(name, config))
     else:
         raise FileNotFoundError(f"Unsupported library format: {ext}")
 

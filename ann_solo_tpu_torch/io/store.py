@@ -486,7 +486,7 @@ def open_or_build_store(
         logger.warning("Missing spectral library store; creating %s",
                        filename)
     return build_store(
-        read_library_file(library_filename),
+        read_library_file(library_filename, config),
         config_hash,
         os.path.basename(library_filename),
         params,

@@ -51,6 +51,7 @@ import torch.nn.functional as F
 from ann_solo_tpu_torch.device import synchronize
 from ann_solo_tpu_torch.index import ivf as _ivf
 from ann_solo_tpu_torch.index.ivf import (
+    HostSearch,
     _KEY16_NINF,
     _STREAM_BLOCK,
     _build_settings,
@@ -243,7 +244,7 @@ def _local_scan_chunked(queries, query_prec, local_probed, block: _Block,
     return run_s, run_i
 
 
-class ShardedIvfIndex:
+class ShardedIvfIndex(HostSearch):
     """An IVF index with its list blocks placed once across a mesh.
 
     Made from an `IvfIndex` (placement only) or born sharded by
@@ -601,20 +602,6 @@ class ShardedIvfIndex:
 
     # ------------------------------------------------------------------ #
     # Search
-
-    def search(self, queries, k: int, num_probe: int = 0, q_prec=None,
-               charge: float = 1.0, tol_val: float = 0.0,
-               tol_mode: str = "Da") -> np.ndarray:
-        ids, _ = self.search_with_scores(queries, k, num_probe, q_prec,
-                                         charge, tol_val, tol_mode)
-        return ids
-
-    def search_with_scores(self, queries, k: int, num_probe: int = 0,
-                           q_prec=None, charge: float = 1.0,
-                           tol_val: float = 0.0, tol_mode: str = "Da"):
-        ids, scores = self.search_device(queries, k, num_probe, q_prec,
-                                         charge, tol_val, tol_mode)
-        return ids.cpu().numpy(), scores.cpu().numpy()
 
     def search_device(self, queries, k: int, num_probe: Optional[int] = 0,
                       q_prec=None, charge: float = 1.0, tol_val: float = 0.0,

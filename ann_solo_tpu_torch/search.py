@@ -352,13 +352,11 @@ class SpectralLibrary:
 
     def __init__(self, filename: str, device: DeviceLike = None) -> None:
         self.device = resolve_device(device)
-        # Refuse what is not ported before any work is done.
+        # Refuse an unknown model or file format before any work is done.
         fdr.check_model(config.model if config.model != "none" else None)
         reader.verify_extension(
             [".splib", ".sptxt", ".mgf", ".fasta"], filename
         )
-        if os.path.splitext(filename)[1].lower() == ".fasta":
-            raise ValueError(reader.FASTA_UNSUPPORTED)
         self._filename = filename
         self._lib_params = PreprocessParams.from_config(
             config, is_library=True

@@ -181,10 +181,41 @@ Phases, each raising on failure (non-zero exit, no final line):
    went through them; against run A's mzTab the same PSM_IDs, the same
    library spectrum for >= 99.9% of them, identical lines wherever it is
    the same.  Logs search seconds and queries/s.
+   Phase 9's small corpus also runs a FASTA library: 50 of its peptides,
+   ten to a protein, digested and predicted locally (`io/fasta.py`),
+   searched by the CLI in --mode bf on the card and with --no_gpu, each
+   building its own store: identical PSM lines;
+12a. QUALITY r05 (QUALITY_r05.json) through the port's harness:
+   `quality.main` with --reuse-corpus on phase 9's corpus (with its
+   truth.json) and QUALITY r05's settings (100,000 peptides, 10,000
+   queries, seed 42, --model none, num_probe 256, 1,024 candidates, int8;
+   run A's settings hash), both legs and the recall curve, each leg
+   timed with its peak device memory, B1's launches and the regimes.
+   Gates: the ann leg loads the store and both indexes (no library read,
+   decoy, preprocess or index build seconds) and writes run A's PSM
+   lines; the bf leg loads the store and runs every level of both charges
+   by window rescoring, launching B1; bf confident PSMs at q < 0.01
+   within 1% of QUALITY r05's 9,467 with accuracy >= 0.95;
+   ann_vs_bf_ids_ratio >= 0.98; recall@1024 >= 0.97 over all of bf's
+   confident PSMs.  Logs every key beside QUALITY r05's counts (not its
+   TPU seconds);
+12b. the SWEEP harness at its defaults (`sweep.main`: 131,072 Gaussian
+   unit vectors of width 800, 1,024 queries, num_list {1,024, 2,048,
+   4,096} x num_probe {32, 64, 128, 256}, k = 1,024, seed 11) on the card,
+   its grid logged beside SWEEP_r02.json's recalls; then
+   `bruteforce_search` on the card and on the CPU on the same inputs.
+   Gates: >= 99.9% of the card's top-k ids in the CPU's top-k of the same
+   query (their positions are logged: the two f32 products sum in other
+   orders and swap neighbouring ranks); no recall@k falls as num_probe
+   grows at a fixed num_list;
+12c. the mirror plot's matching (`plot.ssm_matches`) for 20 confident
+   target PSMs of run A's mzTab (10 unmodified, 10 modified), on the card
+   (B1) and on the CPU: identical peak matches; each score logged beside
+   the mzTab's.  No render: the card's machine has no matplotlib.
 
-The line before the last is the kernels' JSON record (B2's launches: phase
-7's and phase 11a's timed batches); the last line is ``{"ok": true,
-"device": {...}}``.
+The line before the last is the kernels' JSON record (B1's launches: phase
+4's timed batches and phase 12's; B2's: phase 7's and phase 11a's timed
+batches); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -315,6 +346,18 @@ QUALITY_R05_ANN = {"n_confident": 9356, "accuracy": 0.973492945703292,
                    "foreign_leak_rate": 0.07, "empirical_fdp": 0.02651}
 ENGINE_ACCURACY_GATE = 0.95
 ENGINE_CONFIDENT_GATE = 0.9  # of the non-foreign queries
+# Peptides of the small corpus written as the FASTA library of phase 9.
+FASTA_PEPTIDES = 50
+# Phase 12a: QUALITY r05's harness settings (QUALITY_r05.json "corpus" and
+# "config"), which give phase 9's settings hash, and its gates.
+QUALITY_ARGS = [
+    "--n-peptides", str(ENGINE_PEPTIDES), "--n-queries", str(ENGINE_QUERIES),
+    "--seed", str(ENGINE_SEED), "--model", "none", "--num_probe", "256",
+    "--num_candidates", "1024", "--index_dtype", "int8",
+]
+QUALITY_BF_TOLERANCE = 0.01  # bf confident within 1% of QUALITY r05's
+QUALITY_RATIO_GATE = 0.98  # ann_vs_bf_ids_ratio
+QUALITY_RECALL_GATE = 0.97  # recall@1024
 
 
 class ScaleConfig:
@@ -2036,7 +2079,8 @@ def phase_sharded_engine(dev, dp=2, n_shards=4, n_queries=ENGINE_QUERIES,
                              profile["notes"])
     got = _psm_rows(out)
     want = _psm_rows(os.path.join(workdir, "out_none.mztab"))
-    same = [q for q in want if q in got and got[q][20] == want[q][20]]
+    same = [q for q in want
+            if q in got and got[q][LIB_SPECTRUM] == want[q][LIB_SPECTRUM]]
     frac = len(same) / max(len(want), 1)
     differ = [q for q in same if got[q] != want[q]]
     indexes = {k: v for k, v in notes.items() if k.startswith("index")}
@@ -2073,8 +2117,9 @@ def phase_sharded_engine(dev, dp=2, n_shards=4, n_queries=ENGINE_QUERIES,
 
 
 def engine_corpus(workdir, n_peptides, n_queries, seed):
-    """`synthdata.make_corpus` written as a .splib library and an .mgf
-    query file under `workdir`; returns their paths and the truth."""
+    """`synthdata.make_corpus` written as a .splib library, an .mgf query
+    file and the truth (`truth.json`, QUALITY's name) under `workdir`;
+    returns the first two paths and the truth."""
     import os
 
     from ann_solo_tpu_torch.io.mgf import write_mgf
@@ -2088,34 +2133,9 @@ def engine_corpus(workdir, n_peptides, n_queries, seed):
     query_path = os.path.join(workdir, "queries.mgf")
     write_splib(library, lib_path)
     write_mgf(queries, query_path)
+    with open(os.path.join(workdir, "truth.json"), "w") as f:
+        json.dump(truth, f)
     return lib_path, query_path, truth
-
-
-def mztab_psms(path):
-    """PSM rows of an mzTab file as field lists (plain text)."""
-    with open(path) as f:
-        return [line.rstrip("\n").split("\t") for line in f
-                if line.startswith("PSM\t")]
-
-
-def mztab_stats(path, truth, fdr=ENGINE_FDR):
-    """QUALITY's statistics from the mzTab: confident target PSMs at
-    q < fdr, their accuracy against the truth, the foreign leak and the
-    empirical FDP (ann_solo_tpu/quality.py:_mztab_stats)."""
-    psms = mztab_psms(path)
-    # Columns: 1 sequence, 2 PSM_ID, 9 q-value, 21 decoy flag.
-    targets = [row for row in psms if row[21] == "0"]
-    confident = [row for row in targets if float(row[9]) < fdr]
-    correct = sum(truth.get(row[2]) == row[1] for row in confident)
-    n_foreign = sum(1 for v in truth.values() if v is None)
-    foreign = sum(row[2].startswith("q_foreign") for row in confident)
-    n = len(confident)
-    return {
-        "n_ssms": len(psms), "n_targets": len(targets), "n_confident": n,
-        "n_correct": correct, "accuracy": correct / n if n else 0.0,
-        "foreign_leak_rate": foreign / n_foreign if n_foreign else 0.0,
-        "empirical_fdp": 1.0 - correct / n if n else 0.0,
-    }
 
 
 def run_engine_cli(dev, lib_path, query_path, out_path, extra=()):
@@ -2154,8 +2174,11 @@ def engine_run(dev, name, lib_path, query_path, truth, n_queries, model,
     `reference` holds the --model none statistics a model run must keep.
     Returns (the identification statistics, B1's launches)."""
     import os
+    from types import SimpleNamespace
 
     import torch
+
+    from ann_solo_tpu_torch.quality import _mztab_stats
 
     workdir = os.path.dirname(lib_path)
     if dev.type == "cuda":
@@ -2167,7 +2190,7 @@ def engine_run(dev, name, lib_path, query_path, truth, n_queries, model,
                                        ["--model", model])
     t_cli = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-    stats = mztab_stats(out_path, truth)
+    stats = _mztab_stats(out_path, truth, SimpleNamespace(fdr=ENGINE_FDR))
     totals, counts, notes = (profile["totals"], profile["counts"],
                              profile["notes"])
     files = {key: {k: note[k] for k in ("source", "file", "bytes")}
@@ -2265,8 +2288,19 @@ def phase_engine(dev, n_peptides=ENGINE_PEPTIDES, n_queries=ENGINE_QUERIES,
     return total
 
 
+LIB_SPECTRUM = "opt_ms_run[1]_cv_MS:1003062_spectrum_index"
+SCORE, Q = "search_engine_score[1]", "search_engine_score[2]"
+
+
 def _psm_rows(path):
-    return {row[2]: row for row in mztab_psms(path)}
+    """PSM_ID -> {column: value as text} of an mzTab file, read by the
+    port's `read_mztab_ssms` (text: equal values compare equal, NaN
+    too)."""
+    from ann_solo_tpu_torch.io.mztab import read_mztab_ssms
+
+    ssms = read_mztab_ssms(path)
+    return {qid: {name: str(col[i]) for name, col in ssms.columns.items()}
+            for i, qid in enumerate(ssms.index)}
 
 
 def store_native_vs_python(dev, lib_path, query_path):
@@ -2325,8 +2359,8 @@ def phase_engine_cuda_vs_cpu(dev, n_peptides=4000, n_queries=1000,
 
     workdir = workdir or os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "build", "engine_small")
-    lib_path, query_path, _ = engine_corpus(workdir, n_peptides, n_queries,
-                                            7)
+    lib_path, query_path, truth = engine_corpus(workdir, n_peptides,
+                                                n_queries, 7)
     cpu = torch.device("cpu")
     store_native_vs_python(dev, lib_path, query_path)
 
@@ -2349,9 +2383,10 @@ def phase_engine_cuda_vs_cpu(dev, n_peptides=4000, n_queries=1000,
                if isinstance(v, dict) and "source" in v}
     if set(sources.values()) != {"loaded"} or len(sources) < 2:
         raise AssertionError(f"second run: not loaded: {sources}")
-    if mztab_psms(built) != mztab_psms(loaded):
+    loaded_rows = _psm_rows(loaded)
+    if _psm_rows(built) != loaded_rows:
         raise AssertionError("built vs loaded: the PSM lines differ")
-    log(f"engine built-vs-loaded: {len(mztab_psms(loaded))} identical PSM "
+    log(f"engine built-vs-loaded: {len(loaded_rows)} identical PSM "
         "lines")
 
     # Both models on the card and on the CPU, files loaded.
@@ -2364,14 +2399,16 @@ def phase_engine_cuda_vs_cpu(dev, n_peptides=4000, n_queries=1000,
         differ = [q for q in want if got[q] != want[q]]
         for q in differ[:10]:
             log(f"engine cuda-vs-cpu: {model}: {q}: card score "
-                f"{got[q][8]} q {got[q][9]} {got[q][20]}; cpu score "
-                f"{want[q][8]} q {want[q][9]} {want[q][20]}")
+                f"{got[q][SCORE]} q {got[q][Q]} {got[q][LIB_SPECTRUM]}; "
+                f"cpu score {want[q][SCORE]} q {want[q][Q]} "
+                f"{want[q][LIB_SPECTRUM]}")
         log(f"engine cuda-vs-cpu: {model}: {len(want)} PSMs, "
             f"{len(differ)} lines differ")
-        if any(got[q][20] != want[q][20] for q in want):
+        if any(got[q][LIB_SPECTRUM] != want[q][LIB_SPECTRUM]
+               for q in want):
             raise AssertionError(f"{model}: library spectra differ")
-        q_got = np.asarray([float(got[q][9]) for q in want])
-        q_want = np.asarray([float(want[q][9]) for q in want])
+        q_got = np.asarray([float(got[q][Q]) for q in want])
+        q_want = np.asarray([float(want[q][Q]) for q in want])
         if not np.allclose(q_got, q_want, rtol=1e-6, atol=0, equal_nan=True):
             raise AssertionError(f"{model}: q-values differ, CUDA vs CPU")
 
@@ -2384,7 +2421,8 @@ def phase_engine_cuda_vs_cpu(dev, n_peptides=4000, n_queries=1000,
         got, want = rows[dev.type], rows["cpu"]
         if got.keys() != want.keys():
             raise AssertionError(f"{mode}: the PSM_IDs differ, CUDA vs CPU")
-        same = [q for q in want if got[q][20] == want[q][20]]
+        same = [q for q in want
+                if got[q][LIB_SPECTRUM] == want[q][LIB_SPECTRUM]]
         frac = len(same) / max(len(want), 1)
         differ = [q for q in same if got[q] != want[q]]
         log(f"engine cuda-vs-cpu: {mode}: {len(want)} PSMs, same library "
@@ -2393,6 +2431,313 @@ def phase_engine_cuda_vs_cpu(dev, n_peptides=4000, n_queries=1000,
             raise AssertionError(f"{mode}: same library spectrum for {frac}")
         if differ:
             raise AssertionError(f"{mode}: PSM lines differ: {differ[:5]}")
+
+    fasta_cuda_vs_cpu(dev, workdir, query_path, truth)
+
+
+def fasta_cuda_vs_cpu(dev, workdir, query_path, truth):
+    """A FASTA library of a corpus's peptides (10 to a protein), searched
+    by the CLI on `dev` and with --no_gpu, each building its own store
+    from the predicted spectra and searching it exactly (--mode bf: each
+    device's own k-means may pick other candidates, as the ann comparison
+    of `phase_engine_cuda_vs_cpu` allows): identical PSM lines."""
+    import os
+
+    import torch
+
+    fasta = os.path.join(workdir, "proteins.fasta")
+    peptides = sorted({p for p in truth.values() if p is not None})
+    peptides = peptides[:FASTA_PEPTIDES]
+    with open(fasta, "w") as f:
+        for i in range(0, len(peptides), 10):
+            f.write(f">sp|P{i}|P{i} protein {i}\n"
+                    f"{''.join(peptides[i:i + 10])}\n")
+    rows = {}
+    for d in (dev, torch.device("cpu")):
+        remove_library_files(workdir)
+        out = os.path.join(workdir, f"fasta_{d.type}.mztab")
+        t0 = time.perf_counter()
+        profile, _ = run_engine_cli(d, fasta, query_path, out,
+                                    ["--mode", "bf"])
+        log(f"engine cuda-vs-cpu: fasta on {d.type} "
+            f"{time.perf_counter() - t0:.1f}s "
+            f"(store {profile['notes']['store']})")
+        rows[d.type] = _psm_rows(out)
+    got, want = rows[dev.type], rows["cpu"]
+    differ = [q for q in want if got.get(q) != want[q]]
+    for q in differ[:10]:
+        log(f"engine cuda-vs-cpu: fasta: {q}: card "
+            + json.dumps({k: v for k, v in (got.get(q) or {}).items()
+                          if v != want[q].get(k)})
+            + " cpu " + json.dumps({k: v for k, v in want[q].items()
+                                    if v != (got.get(q) or {}).get(k)}))
+    log(f"engine cuda-vs-cpu: fasta: {len(peptides)} peptides, "
+        f"{len(want)} PSMs, {len(differ)} lines differ")
+    if not want or got.keys() != want.keys() or differ:
+        raise AssertionError(f"fasta: PSM lines differ, CUDA vs CPU: "
+                             f"{differ[:5]}")
+
+
+def _workdir(name):
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        name)
+
+
+def _record(name):
+    """A committed JSON record of the JAX package (QUALITY_r05.json,
+    SWEEP_r02.json) from the checkout, without its TPU search times."""
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), name)
+    with open(path) as f:
+        record = json.load(f)
+    for leg in record.values():
+        if isinstance(leg, dict):
+            leg.pop("search_seconds", None)
+    return record
+
+
+def phase_quality(dev, args=QUALITY_ARGS, workdir=None, full_size=True):
+    """Phase 12a: the port's QUALITY harness (`quality.main`, both legs
+    and the recall curve) on phase 9's corpus and files.  Gates as in the
+    module docstring (the counts' only with `full_size`).  Returns B1's
+    launches in the two legs."""
+    import os
+
+    import torch
+
+    from ann_solo_tpu_torch import cli, quality
+    from ann_solo_tpu_torch.ops import shifted_dot_cuda
+    from ann_solo_tpu_torch.utils.profiling import profiler
+
+    workdir = workdir or _workdir("engine")
+    out = os.path.join(workdir, "quality.json")
+    legs, recall = {}, {}
+    real_main, real_recall = cli.main, quality._ann_recall_curve
+
+    def peak_reset():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak():
+        return (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                else 0)
+
+    def leg(cli_args):
+        mode = cli_args[cli_args.index("--mode") + 1]
+        peak_reset()
+        shifted_dot_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rc = real_main(cli_args)
+        legs[mode] = {
+            "cli_sec": time.perf_counter() - t0,
+            "b1_launches": shifted_dot_cuda.LAUNCHES,
+            "max_memory_allocated_bytes": peak(),
+            "totals": dict(profiler.totals),
+            "counts": dict(profiler.counts), "notes": dict(profiler.notes),
+        }
+        return rc
+
+    def timed_recall(*recall_args):
+        peak_reset()
+        t0 = time.perf_counter()
+        curve = real_recall(*recall_args)
+        recall.update(sec=time.perf_counter() - t0,
+                      max_memory_allocated_bytes=peak())
+        return curve
+
+    cli.main, quality._ann_recall_curve = leg, timed_recall
+    t0 = time.perf_counter()
+    try:
+        rc = quality.main(list(args) + [
+            "--workdir", workdir, "--out", out, "--reuse-corpus"]
+            + (["--no_gpu"] if dev.type == "cpu" else []))
+    finally:
+        cli.main, quality._ann_recall_curve = real_main, real_recall
+    t_total = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"quality.main returned {rc}")
+    with open(out) as f:
+        results = json.load(f)
+    record = _record("QUALITY_r05.json")
+    for mode, info in legs.items():
+        totals, notes = info["totals"], info["notes"]
+        log(f"quality {mode} leg: " + json.dumps({
+            "cli_sec": info["cli_sec"], "search_sec": totals["search"],
+            "queries_per_sec": results["corpus"]["n_queries"]
+            / totals["search"],
+            "max_memory_allocated_bytes": info["max_memory_allocated_bytes"],
+            "b1_launches": info["b1_launches"], "stages_sec": totals,
+            "paths": {k: v for k, v in info["counts"].items()
+                      if "level charge" in k},
+            "files": {k: {f: v[f] for f in ("source", "file")}
+                      for k, v in notes.items()
+                      if isinstance(v, dict) and "source" in v},
+            "regimes": {k: v.get("regime") for k, v in notes.items()
+                        if k.startswith("index charge")},
+        }))
+    log("quality recall curve: " + json.dumps(recall))
+    log("quality: " + json.dumps({"sec": t_total, "port": results,
+                                  "jax_quality_r05": record}))
+
+    ann, bf = legs["ann"], legs["bf"]
+    files = {k: v.get("source") for k, v in ann["notes"].items()
+             if isinstance(v, dict) and "source" in v}
+    if files != {"store": "loaded", "index charge 2": "loaded",
+                 "index charge 3": "loaded"}:
+        raise AssertionError(f"quality ann leg: files not loaded: {files}")
+    built = [k for k in ann["totals"] if k.startswith(
+        ("library read", "decoys", "library preprocess", "store write",
+         "index build", "index write"))]
+    if built:
+        raise AssertionError(f"quality ann leg: files present, yet {built}")
+    got = _psm_rows(os.path.join(workdir, "ann.mztab"))
+    if got != _psm_rows(os.path.join(workdir, "out_none.mztab")):
+        raise AssertionError("quality ann leg: PSM lines differ from run A's")
+    if bf["notes"].get("store", {}).get("source") != "loaded":
+        raise AssertionError("quality bf leg: the store was not loaded")
+    for charge in (2, 3):
+        for level in ("std", "open"):
+            key = f"{level} level charge {charge}: "
+            if bf["counts"].get(key + "window rescoring", 0) <= 0 \
+                    or bf["counts"].get(key + "ivf select", 0):
+                raise AssertionError(f"quality bf leg: {key} not by window "
+                                     f"rescoring: {bf['counts']}")
+    if dev.type == "cuda" and bf["b1_launches"] <= 0:
+        raise AssertionError("quality bf leg: no greedy kernel launched")
+    checked = results["ann_candidate_recall"]["n_bf_ssms_checked"]
+    if checked != results["bf"]["n_confident"]:
+        raise AssertionError(f"quality: {checked} bf SSMs checked of "
+                             f"{results['bf']['n_confident']}")
+    if full_size:
+        want = record["bf"]["n_confident"]
+        n_bf = results["bf"]["n_confident"]
+        if abs(n_bf - want) > QUALITY_BF_TOLERANCE * want:
+            raise AssertionError(f"quality bf: {n_bf} confident, "
+                                 f"QUALITY r05 {want}")
+        if results["bf"]["accuracy"] < ENGINE_ACCURACY_GATE:
+            raise AssertionError(f"quality bf: accuracy "
+                                 f"{results['bf']['accuracy']}")
+        if results["ann_vs_bf_ids_ratio"] < QUALITY_RATIO_GATE:
+            raise AssertionError(f"quality: ann/bf "
+                                 f"{results['ann_vs_bf_ids_ratio']}")
+        deep = results["ann_candidate_recall"]["recall@1024"]
+        if deep < QUALITY_RECALL_GATE:
+            raise AssertionError(f"quality: recall@1024 {deep}")
+    return ann["b1_launches"] + bf["b1_launches"]
+
+
+def phase_sweep(dev, n=131072, n_queries=1024, k=1024,
+                num_list=(1024, 2048, 4096), num_probe=(32, 64, 128, 256),
+                seed=11):
+    """Phase 12b: the port's SWEEP harness in its default (Gaussian
+    vectors) mode, then `bruteforce_search` on the card against its CPU
+    run on the same inputs.  Gates as in the module docstring."""
+    import os
+
+    from ann_solo_tpu_torch import sweep
+    from ann_solo_tpu_torch.index.ivf import bruteforce_search
+
+    out = os.path.join(_workdir("sweep"), "sweep.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    t0 = time.perf_counter()
+    rc = sweep.main(
+        ["--n", str(n), "--n-queries", str(n_queries), "--k", str(k),
+         "--seed", str(seed), "--out", out, "--num-list"]
+        + [str(v) for v in num_list] + ["--num-probe"]
+        + [str(v) for v in num_probe]
+        + (["--no_gpu"] if dev.type == "cpu" else []))
+    t_sweep = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"sweep.main returned {rc}")
+    with open(out) as f:
+        grid = json.load(f)["grid"]
+    record = {(e["num_list"], e["num_probe"]): e
+              for e in _record("SWEEP_r02.json")["grid"]}
+    vectors, _, queries = sweep.gaussian_corpus(n, n_queries, seed)
+    times, ids = {}, {}
+    for name, d in (("device", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        ids[name] = bruteforce_search(vectors, queries, k, device=d)
+        times[name] = time.perf_counter() - t0
+    # The share of the card's top-k ids the CPU's top-k of the same query
+    # holds (the sets recall is measured against); the positional share
+    # is lower: the two f32 products sum in other orders, which swaps
+    # neighbouring ranks whose scores differ in the last bits.
+    equal = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / len(b)
+                           for a, b in zip(ids["device"], ids["cpu"])]))
+    positional = float((ids["device"] == ids["cpu"]).mean())
+    for entry in grid:
+        jax = record.get((entry["num_list"], entry["num_probe"]), {})
+        log("sweep: " + json.dumps({
+            "port": entry, "jax_sweep_r02": {
+                key: v for key, v in jax.items()
+                if key.startswith("recall@")}}))
+    log("sweep: " + json.dumps({
+        "sec": t_sweep, "bruteforce_sec": times,
+        "bruteforce_ids_in_cpu_top_k": equal,
+        "bruteforce_ids_equal_cpu_position": positional}))
+    if equal < 0.999:
+        raise AssertionError(f"bruteforce_search: {equal} of the ids in the "
+                             "CPU run's top-k")
+    for a, b in zip(grid, grid[1:]):
+        if a["num_list"] != b["num_list"]:
+            continue
+        fell = [key for key in a if key.startswith("recall@")
+                and b[key] < a[key]]
+        if fell:
+            raise AssertionError(f"sweep: {fell} fell from num_probe "
+                                 f"{a['num_probe']} to {b['num_probe']} at "
+                                 f"num_list {a['num_list']}")
+
+
+def phase_plot_matching(dev, workdir=None, n_each=10):
+    """Phase 12c: `plot.ssm_matches` for confident target PSMs of run A's
+    mzTab (`n_each` unmodified, `n_each` modified) on the card and on the
+    CPU: the peak matches must be identical.  Returns B1's launches of the
+    card's run."""
+    import os
+
+    from ann_solo_tpu_torch.eval import confident_targets
+    from ann_solo_tpu_torch.io.mztab import read_mztab_ssms
+    from ann_solo_tpu_torch.ops import shifted_dot_cuda
+    from ann_solo_tpu_torch.plot import ssm_matches
+
+    path = os.path.join(workdir or _workdir("engine"), "out_none.mztab")
+    confident = confident_targets(read_mztab_ssms(path), ENGINE_FDR)
+    shift = np.abs(confident["exp_mass_to_charge"]
+                   - confident["calc_mass_to_charge"]) * confident["charge"]
+    ids = [confident.index[i] for i in np.nonzero(shift <= 0.1)[0][:n_each]]
+    ids += [confident.index[i] for i in np.nonzero(shift > 0.1)[0][:n_each]]
+    shifted_dot_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = ssm_matches(path, ids, device=dev)
+    t_dev = time.perf_counter() - t0
+    launches = shifted_dot_cuda.LAUNCHES
+    want = ssm_matches(path, ids, device="cpu")
+    position = {qid: i for i, qid in enumerate(confident.index)}
+    differ = []
+    for qid, g, w in zip(ids, got, want):
+        same = np.array_equal(g.peak_matches, w.peak_matches)
+        if not same:
+            differ.append(qid)
+        log("plot matching: " + json.dumps({
+            "psm": qid, "matches": len(g.peak_matches),
+            "identical_to_cpu": same, "score": g.score,
+            "cpu_score": w.score, "mztab_score": float(
+                confident["search_engine_score[1]"][position[qid]])}))
+    log(f"plot matching: {len(ids)} PSMs in {t_dev:.2f}s on {dev.type}, "
+        f"B1 launches {launches}, {len(differ)} differ from the CPU's")
+    if len(ids) != 2 * n_each or differ:
+        raise AssertionError(f"plot matching: {len(ids)} PSMs, differ from "
+                             f"the CPU's: {differ}")
+    if dev.type == "cuda" and launches <= 0:
+        raise AssertionError("plot matching: no greedy kernel launched")
+    return launches
 
 
 def main():
@@ -2428,6 +2773,9 @@ def main():
     phase_engine(dev)
     phase_sharded_engine(dev)
     phase_engine_cuda_vs_cpu(dev)
+    launches += phase_quality(dev)
+    phase_sweep(dev)
+    launches += phase_plot_matching(dev)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [
         {

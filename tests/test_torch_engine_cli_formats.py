@@ -5,9 +5,9 @@ it refuses.
 errors), `test_e2e_formats.py` (mzML queries) and `test_iprg_format.py`
 (a binary .splib library, every setting through a config.ini given with
 ``-c``): the port's CLI with ``--no_gpu`` writes the JAX CLI's PSM lines.
-``--model rf|svm`` (and the default, rf) run; an unknown model and FASTA
-libraries are refused before the store is opened, and without ``--no_gpu``
-the CLI needs CUDA.
+``--model rf|svm`` (and the default, rf) run; an unknown model is refused
+before the store is opened, and without ``--no_gpu`` the CLI needs CUDA.
+(FASTA libraries: `test_torch_harness_eval.py`.)
 """
 
 import shutil
@@ -192,16 +192,6 @@ def test_default_model_runs_and_unknown_model_is_refused(multifile,
     monkeypatch.setitem(torch_config._namespace, "model", "xgb")
     with pytest.raises(ValueError, match="Unknown semi-supervised"):
         torch_search.SpectralLibrary(lib_path, device="cpu")
-
-
-def test_fasta_library_refused_before_the_store(multifile, monkeypatch):
-    tmp, _ = multifile
-    fasta = tmp / "prot.fasta"
-    fasta.write_text(">sp|TEST|TEST test protein\nACDEFGHIKLMNPQSTVWYK\n")
-    monkeypatch.setattr(torch_search, "open_or_build_store", None)  # never reached
-    with pytest.raises(ValueError, match="FASTA"):
-        torch_main([str(fasta), str(tmp / "run0.mgf"),
-                    str(tmp / "x.mztab")] + BF_ARGS + ["--no_gpu"])
 
 
 def test_cli_needs_cuda_without_no_gpu(multifile, monkeypatch):

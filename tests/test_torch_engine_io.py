@@ -252,13 +252,6 @@ def test_query_readers_equal_jax(library, tmp_path):
                 assert_same_spectrum(a, b)
 
 
-def test_fasta_library_is_refused(tmp_path):
-    path = tmp_path / "prot.fasta"
-    path.write_text(">sp|P|T\nPEPTIDEKAAAK\n")
-    with pytest.raises(ValueError, match="FASTA"):
-        next(reader.read_library_file(str(path)))
-
-
 # --------------------------------------------------------------------- #
 # decoys, synthetic data
 

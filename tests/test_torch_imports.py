@@ -1,12 +1,17 @@
-"""The port imports nothing of the JAX package, and its copies of what it
+"""The port imports nothing of the JAX package nor what the GPU machine
+lacks, has a counterpart of every JAX module, and its copies of what it
 needed from there equal the originals.
 
 Every module of `ann_solo_tpu_torch/` (`parallel/` included) and
 `chip_smoke.py` is parsed with `ast`: no `import` or `from ... import`
 anywhere in it (at top level or inside a function) may name
-`ann_solo_tpu`, `jax` or `jaxlib`, or a submodule of one.  The
-port's MurmurHash3 bin table and mass constants are held equal to the JAX
-package's here; the other copies in `test_torch_engine_*.py`.
+`ann_solo_tpu`, `jax`, `jaxlib`, `ml_dtypes`, `pandas`, `h5py` or
+`sklearn`, or a submodule of one; `matplotlib` only inside
+`plot.py::mirror_plot`.  Every module of `ann_solo_tpu/` has a module of
+the same path in `ann_solo_tpu_torch/` or is listed with the reason it
+has none.  The port's MurmurHash3 bin table and mass constants are held
+equal to the JAX package's here; the other copies in
+`test_torch_engine_*.py`.
 """
 
 import ast
@@ -28,10 +33,41 @@ _SOURCES = sorted(
 ) + ["chip_smoke.py"]
 
 
-def _imported_modules(path):
-    """Every module name an import statement in `path` names."""
+# Modules of the JAX package without a counterpart of the same path.
+NO_COUNTERPART = {
+    "ops/shifted_dot_pallas.py": "kernel B1: csrc/shifted_dot.cu, "
+                                 "ops/shifted_dot_cuda.py",
+    "ops/ivf_probe_pallas.py": "kernel B2: csrc/ivf_probe_scan.cu, "
+                               "ops/ivf_probe_cuda.py",
+    "ops/ivf_scan_pallas.py": "kernel B3: csrc/ivf_chunked_scan.cu, "
+                              "ops/ivf_scan_cuda.py",
+    "prosit.py": "a Koina client (koinapy, pandas, the network): the port "
+                 "predicts FASTA spectra locally (io/fasta.py)",
+    "utils/jax_cache.py": "XLA's compilation cache: the port's kernels are "
+                          "cached by ops/_build.py in build/kernels/",
+}
+_NOT_ON_THE_GPU_MACHINE = ("ann_solo_tpu", "jax", "jaxlib", "ml_dtypes",
+                           "pandas", "h5py", "sklearn")
+
+
+def _modules(package):
+    root = os.path.join(REPO, package)
+    return {os.path.relpath(os.path.join(d, name), root)
+            for d, _, names in os.walk(root) for name in names
+            if name.endswith(".py")}
+
+
+def _imported_modules(path, skip_function=None):
+    """Every module name an import statement in `path` names (outside the
+    function named `skip_function`)."""
     tree = ast.parse(open(os.path.join(REPO, path)).read(), path)
+    skipped = set()
     for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef) and node.name == skip_function:
+            skipped.update(id(n) for n in ast.walk(node))
+    for node in ast.walk(tree):
+        if id(node) in skipped:
+            continue
         if isinstance(node, ast.Import):
             yield from (alias.name for alias in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -50,8 +86,28 @@ def test_sources_found():
 @pytest.mark.parametrize("path", _SOURCES)
 def test_no_import_of_the_jax_package(path):
     bad = [name for name in _imported_modules(path)
-           if name.split(".")[0] in ("ann_solo_tpu", "jax", "jaxlib")]
+           if name.split(".")[0] in _NOT_ON_THE_GPU_MACHINE]
     assert not bad, f"{path} imports {bad}"
+    plotting = [name for name in _imported_modules(path, "mirror_plot")
+                if name.split(".")[0] == "matplotlib"]
+    assert not plotting, f"{path} imports {plotting}"
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Each module of `ann_solo_tpu/` has one of the same path in the
+    port, or a reason in `NO_COUNTERPART`; no reason is left over for a
+    module that exists in the port or no longer exists."""
+    jax_modules = _modules("ann_solo_tpu")
+    port_modules = _modules("ann_solo_tpu_torch")
+    missing = jax_modules - port_modules - set(NO_COUNTERPART)
+    assert not missing, f"no counterpart and no reason: {sorted(missing)}"
+    assert set(NO_COUNTERPART) <= jax_modules - port_modules
+    for path in ("quality.py", "sweep.py", "eval.py", "plot.py",
+                 "io/fasta.py"):
+        assert path in port_modules
+    for name in ("csrc/shifted_dot.cu", "csrc/ivf_probe_scan.cu",
+                 "csrc/ivf_chunked_scan.cu", "ops/_build.py"):
+        assert os.path.isfile(os.path.join(REPO, "ann_solo_tpu_torch", name))
 
 
 @pytest.mark.parametrize("n_bins,hash_len,seed", [

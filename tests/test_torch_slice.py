@@ -298,6 +298,15 @@ GUARD_CLI = textwrap.dedent("""
     svm = [line.split("\\t") for line in open(out_svm)
            if line.startswith("PSM")]
     assert {row[2] for row in svm} == {row[2] for row in psm}
+    # The post-search tools read the result without pandas.
+    from ann_solo_tpu_torch import quality, sweep  # noqa: F401
+    from ann_solo_tpu_torch.eval import ssm_stats
+    from ann_solo_tpu_torch.io.mztab import read_mztab_ssms
+    from ann_solo_tpu_torch.plot import ssm_matches
+    assert ssm_stats(read_mztab_ssms(out), 0.05)["n_ssms"] == len(psm)
+    target = next(row[2] for row in psm if row[21].strip() == "0")
+    (match,) = ssm_matches(out, [target], device="cpu")
+    assert len(match.peak_matches) > 0
     for name in ("jax", "sklearn", "pandas", "h5py"):
         assert sys.modules[name] is None
     print("cli guard ok", len(psm), correct)
@@ -308,7 +317,7 @@ def test_import_guard_cli_search_runs_without_jax():
     """The CLI imports and searches to a written mzTab with jax, jaxlib,
     ml_dtypes, sklearn, pandas and h5py unimportable: a first run that
     writes the store and index files, a second with ``--model svm`` that
-    reads them."""
+    reads them; then `eval` and `plot` read the result."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", GUARD_CLI], cwd=REPO, env=env,
