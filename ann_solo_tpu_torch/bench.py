@@ -1,0 +1,297 @@
+"""Headline benchmark of the port: open-search queries/s on one card.
+
+The port of the repo's `bench.py`, with its workload: a synthetic
+iPRG2012-scale charge partition (131,072 processed library spectra of 50
+peaks, hash_len 800, sorted by precursor m/z), an IVF index at the shipped
+defaults (auto num_list -> 4,096 lists here, num_probe 512, x2 SOAR, int8
+lists), and 4 batches of 4,096 charge-2 queries (noised copies of library
+rows) searched open at +-500 Da with 512 candidates: vectorize -> select
+(`IvfIndex.search_device`, the window fused) -> exact shifted-dot
+rescoring (`rescore_candidate_matrix`, kernel B1 on the card) -> best
+match.  A second leg keeps the reference's 1,024 candidates.  The library
+build (k-means and list packing) is timed apart, cold and again.
+
+    python -m ann_solo_tpu_torch.bench [--no_gpu]
+
+Prints ONE JSON line with the JAX bench's keys less its TPU-only ones
+(`mxu_mfu_estimate`, `warmup_compile_sec`, `compile_stall_detected`):
+there is no compile thread, so `warmup_sec` and `warm_batch_sec` are the
+first and second batches.  `metric` names the device.  Exits 1 after the
+line when the last batch's self-match hit rate is below 0.95.  Runs on
+the CUDA GPU and raises without one, unless ``--no_gpu`` (or
+``run(device="cpu")``) asks for the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+import types
+
+import numpy as np
+import torch
+
+REFERENCE_QPS = 105.0  # GPU-FAISS reference throughput (JPR 2019)
+
+N_LIBRARY = 131072
+N_QUERIES = 4096
+N_BATCHES = 4
+K_PEAKS = 50
+HASH_LEN = 800
+NUM_LIST = 0  # 0 = the size-aware auto default (-> 4,096 here)
+NUM_PROBE = 512
+NUM_CANDIDATES = 512
+REF_CANDIDATES = 1024
+REDUNDANCY = 2
+INDEX_DTYPE = "int8"
+CHARGE = 2
+FRAG_TOL = 0.04
+OPEN_TOL_DA = 500.0
+HIT_RATE_GATE = 0.95
+
+_STORAGE = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def log(*args):
+    print(*args, file=sys.stderr, flush=True)
+
+
+def synth_processed(rng, n, k_peaks=K_PEAKS):
+    """Synthetic processed spectra (rank-scaled, unit-norm, m/z sorted):
+    the JAX bench's draws, in its order."""
+    mz = np.sort(
+        rng.uniform(101.0, 1500.0, (n, k_peaks)).astype(np.float32), axis=1
+    )
+    intensity = rng.uniform(0.1, 1.0, (n, k_peaks)).astype(np.float32)
+    intensity /= np.linalg.norm(intensity, axis=1, keepdims=True)
+    ann = rng.integers(0, CHARGE + 1, (n, k_peaks)).astype(np.int32)
+    n_peaks = np.full(n, k_peaks, np.int32)
+    prec = rng.uniform(400.0, 1200.0, n).astype(np.float64)
+    return mz, intensity, ann, n_peaks, prec
+
+
+def synth_library(rng, n):
+    """(mz, intensity, ann_charge, precursor m/z) of `synth_processed`,
+    sorted by precursor m/z (stable)."""
+    mz, intensity, ann, _, prec = synth_processed(rng, n)
+    order = np.argsort(prec, kind="stable")
+    return mz[order], intensity[order], ann[order], prec[order]
+
+
+def synth_queries(rng, lib_arrays, n_q):
+    """(source rows, m/z, intensity, precursor m/z) of `n_q` noised copies
+    of distinct library rows: the JAX bench's query batches."""
+    lib_mz, lib_int, _, lib_prec = lib_arrays
+    n, k = lib_mz.shape
+    rows = rng.choice(n, n_q, replace=False)
+    q_mz = lib_mz[rows] + rng.normal(0, 0.005, (n_q, k)).astype(np.float32)
+    q_int = np.abs(
+        lib_int[rows] + rng.normal(0, 0.02, (n_q, k)).astype(np.float32)
+    )
+    q_int /= np.linalg.norm(q_int, axis=1, keepdims=True)
+    q_prec = lib_prec[rows] + rng.normal(0, 0.002, n_q)
+    return rows, np.sort(q_mz, axis=1), q_int, q_prec
+
+
+def open_search_params():
+    from ann_solo_tpu_torch.models.vectorize import VectorizeParams
+    from ann_solo_tpu_torch.search import OpenSearchParams
+
+    return OpenSearchParams(
+        vectorize=VectorizeParams(11.0, 2010.0, 0.04, HASH_LEN),
+        num_candidates=NUM_CANDIDATES,
+        precursor_tolerance_mass_open=OPEN_TOL_DA,
+        precursor_tolerance_mode_open="Da",
+        fragment_mz_tolerance=FRAG_TOL,
+        allow_peak_shifts=True,
+    )
+
+
+@torch.no_grad()
+def run(n_library=N_LIBRARY, n_queries=N_QUERIES, n_batches=N_BATCHES,
+        device=None, index_dtype=INDEX_DTYPE, num_probe=NUM_PROBE):
+    """The benchmark on `device` (None: the GPU).
+
+    Returns a dict: ``result`` (the JSON line's object), and for callers
+    that go on with the same data ``index``, ``lib`` (the library's peak
+    blocks on the device), ``lib_arrays`` (its NumPy arrays), ``params``
+    (`OpenSearchParams`), ``batches`` ((rows, m/z, intensity, precursor
+    m/z) each) and ``hit_rates`` (each timed batch's)."""
+    from ann_solo_tpu_torch.convert import library_from_numpy
+    from ann_solo_tpu_torch.device import resolve_device, synchronize
+    from ann_solo_tpu_torch.index.ivf import IvfIndex
+    from ann_solo_tpu_torch.models.vectorize import (
+        device_tables,
+        vectorize_batch,
+    )
+    from ann_solo_tpu_torch.ops.rescore import rescore_candidate_matrix
+
+    dev = resolve_device(device)
+    storage_dtype = _STORAGE[index_dtype]
+    params = open_search_params()
+    rng = np.random.default_rng(42)
+    lib_arrays = synth_library(rng, n_library)
+    lib_mz, lib_int, lib_ann, lib_prec = lib_arrays
+    tables = device_tables(params.vectorize, dev)
+
+    def vectorize(mz, intensity):
+        return vectorize_batch(
+            params.vectorize, tables, torch.from_numpy(mz).to(dev),
+            torch.from_numpy(intensity).to(dev),
+            torch.full((len(mz),), K_PEAKS, dtype=torch.int32, device=dev))
+
+    t0 = time.perf_counter()
+    lib_vectors = torch.cat([
+        vectorize(lib_mz[s:s + n_queries], lib_int[s:s + n_queries])
+        for s in range(0, n_library, n_queries)
+    ])
+    synchronize(dev)
+    log(f"library vectorization: {time.perf_counter() - t0:.3f}s")
+    config = types.SimpleNamespace(num_list=NUM_LIST, num_probe=num_probe,
+                                   ivf_redundancy=REDUNDANCY)
+
+    def build():
+        t0 = time.perf_counter()
+        index = IvfIndex.build(
+            lib_vectors, config, precursor_mz=lib_prec.astype(np.float32),
+            storage_dtype=storage_dtype, device=dev)
+        synchronize(dev)
+        return index, time.perf_counter() - t0
+
+    index, t_build = build()
+    # The engine builds one index per precursor charge: the second build
+    # is the steady rate.
+    index2, t_build_warm = build()
+    del index2, lib_vectors
+    build_rate = n_library / max(t_build_warm, 1e-9)
+    log(f"IVF build: cold {t_build:.3f}s, again {t_build_warm:.3f}s "
+        f"({build_rate:.0f} vectors/s, {index.bytes_per_vector:.1f} "
+        f"B/vector {index_dtype})")
+    lib = library_from_numpy(lib_mz, lib_int, lib_ann, lib_prec, dev)
+    batches = [synth_queries(rng, lib_arrays, n_queries)
+               for _ in range(n_batches)]
+    q_n = torch.full((n_queries,), K_PEAKS, dtype=torch.int32, device=dev)
+
+    def stage_inputs(batch):
+        _, q_mz, q_int, q_prec = batch
+        return (torch.from_numpy(q_mz).to(dev),
+                torch.from_numpy(q_int).to(dev),
+                torch.from_numpy(q_prec.astype(np.float32)).to(dev))
+
+    def stage_vectorize(q_mz, q_int):
+        return vectorize_batch(params.vectorize, tables, q_mz, q_int, q_n)
+
+    def stage_select(q_vec, q_prec, k):
+        ids, _ = index.search_device(
+            q_vec, k, q_prec=q_prec, charge=float(CHARGE),
+            tol_val=OPEN_TOL_DA, tol_mode="Da")
+        return ids
+
+    def stage_rescore(q_mz, q_int, q_prec, cand_ids):
+        return rescore_candidate_matrix(
+            q_mz, q_int, q_prec, lib.mz, lib.intensity, lib.ann_charge,
+            lib.precursor_mz, cand_ids, FRAG_TOL, params.num_shifts(CHARGE),
+            params.allow_peak_shifts)
+
+    def run_batch(batch, k=NUM_CANDIDATES):
+        q_mz, q_int, q_prec = stage_inputs(batch)
+        cand_ids = stage_select(stage_vectorize(q_mz, q_int), q_prec, k)
+        best_idx, best_score, _ = stage_rescore(q_mz, q_int, q_prec,
+                                                cand_ids)
+        return best_idx, best_score
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    (best_idx, _), t_warm = timed(lambda: run_batch(batches[0]))
+    _, t_warm2 = timed(lambda: run_batch(batches[1 % n_batches]))
+    log(f"first batch {t_warm:.3f}s, second {t_warm2:.3f}s; self-match "
+        f"hit rate {np.mean(best_idx == batches[0][0]):.4f}")
+
+    outs, elapsed = timed(lambda: [run_batch(b) for b in batches])
+    qps = n_batches * n_queries / elapsed
+    hit_rates = [float(np.mean(best == batch[0]))
+                 for batch, (best, _) in zip(batches, outs)]
+
+    # Stage seconds of one batch, the device synchronized at each stage
+    # boundary; the second of two passes is reported, as the JAX bench
+    # does.
+    batch = batches[1 % n_batches]
+    for _ in range(2):
+        (q_mz, q_int, q_prec), _ = timed(lambda: stage_inputs(batch))
+        q_vec, t_s1 = timed(lambda: stage_vectorize(q_mz, q_int))
+        cand_ids, t_s2 = timed(
+            lambda: stage_select(q_vec, q_prec, NUM_CANDIDATES))
+        _, t_s3 = timed(lambda: stage_rescore(q_mz, q_int, q_prec,
+                                              cand_ids))
+    log(f"stage seconds a batch (B={n_queries}): vectorize {t_s1:.4f}, "
+        f"select {t_s2:.4f}, rescore {t_s3:.4f}")
+
+    # The reference's 1,024-candidate operating point.
+    run_batch(batches[0], k=REF_CANDIDATES)
+    ref_outs, t_ref = timed(
+        lambda: [run_batch(b, k=REF_CANDIDATES) for b in batches])
+    ref_qps = n_batches * n_queries / t_ref
+    ref_hit = float(np.mean(ref_outs[-1][0] == batches[-1][0]))
+    final_hit_rate = hit_rates[-1]
+    gate_passed = final_hit_rate >= HIT_RATE_GATE
+    if not gate_passed:
+        log(f"FAIL: self-match hit rate {final_hit_rate:.4f} below the "
+            f"gate {HIT_RATE_GATE}")
+    kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu")
+    log(f"open-search throughput: {qps:.1f} queries/s; "
+        f"{REF_CANDIDATES} candidates: {ref_qps:.1f} queries/s")
+    result = {
+        "metric": f"iPRG2012-scale open-search throughput on {kind} "
+        f"({n_library} library, IVF {index.num_list}/{index.num_probe} "
+        f"fused window, {index_dtype} storage, {NUM_CANDIDATES} "
+        "candidates, shifted dot)",
+        "value": qps,
+        "unit": "queries/sec/chip",
+        "vs_baseline": qps / REFERENCE_QPS,
+        "stages_sec_per_batch": {
+            "vectorize": t_s1, "ann_select": t_s2, "rescore": t_s3,
+        },
+        "ivf_build_sec_cold": t_build,
+        "ivf_build_sec": t_build_warm,
+        "ivf_build_vectors_per_sec": build_rate,
+        "num_list": index.num_list,
+        "index_dtype": index_dtype,
+        "index_bytes_per_vector": index.bytes_per_vector,
+        "warmup_sec": t_warm,
+        "warm_batch_sec": t_warm2,
+        "rescored_pairs_per_sec": qps * NUM_CANDIDATES,
+        "self_match_hit_rate": final_hit_rate,
+        "hit_rate_gate": HIT_RATE_GATE,
+        "hit_rate_gate_passed": gate_passed,
+        "num_candidates": NUM_CANDIDATES,
+        "ref_default_num_candidates": REF_CANDIDATES,
+        "ref_default_queries_per_sec": ref_qps,
+        "ref_default_self_match_hit_rate": ref_hit,
+    }
+    return {"result": result, "index": index, "lib": lib,
+            "lib_arrays": lib_arrays, "params": params, "batches": batches,
+            "hit_rates": hit_rates}
+
+
+def main(args=None) -> int:
+    parser = argparse.ArgumentParser(
+        description="Open-search throughput of the PyTorch port at the "
+        "bench workload (one JSON line)")
+    parser.add_argument("--no_gpu", action="store_true",
+                        help="run on the CPU (the kernels' plain versions)")
+    parsed = parser.parse_args(args)
+    out = run(device="cpu" if parsed.no_gpu else None)
+    result = out["result"]
+    print(json.dumps(result), flush=True)
+    return 0 if result["hit_rate_gate_passed"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

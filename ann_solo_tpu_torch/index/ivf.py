@@ -1006,6 +1006,18 @@ class IvfIndex(HostSearch):
     def num_list(self) -> int:
         return self.padded_vectors.shape[0]
 
+    @property
+    def bytes_per_vector(self) -> float:
+        """Storage bytes per indexed vector, padding and redundant copies
+        included (the JAX `IvfIndex.bytes_per_vector`: unique ids are the
+        denominator)."""
+        ids = self.padded_ids
+        n = int(torch.unique(ids[ids >= 0]).numel())
+        total = sum(t.numel() * t.element_size() for t in (
+            self.padded_vectors, self.padded_ids, self.padded_prec,
+            self.padded_scales))
+        return total / max(n, 1)
+
     def scan_block(self) -> torch.Tensor:
         """(L*cap, D) float32 copy of the list block for the scan product
         (cached; int8 and bf16 values convert exactly)."""

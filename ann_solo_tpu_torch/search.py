@@ -84,7 +84,7 @@ from ann_solo_tpu_torch.ops.shifted_dot_cuda import (
 from ann_solo_tpu_torch.parallel.collectives import on_device
 from ann_solo_tpu_torch.parallel.mesh import make_mesh, n_list_shards
 from ann_solo_tpu_torch.parallel.sharded_ivf import ShardedIvfIndex
-from ann_solo_tpu_torch.utils.profiling import profiler
+from ann_solo_tpu_torch.utils.profiling import device_trace, profiler
 
 logger = logging.getLogger(__name__)
 
@@ -701,7 +701,7 @@ class SpectralLibrary:
                         index, lib, start, stop):
                     sl = slice(lo, hi)
                     stages: Dict[str, float] = {}
-                    with on_device(block.device):
+                    with on_device(block.device), device_trace():
                         bi, bs, nc, mb = ann_open_search_batch(
                             part, block, q_mz_d[sl], q_int_d[sl],
                             torch.from_numpy(q_n[sl]), q_prec[sl], charge,
@@ -720,7 +720,7 @@ class SpectralLibrary:
                 q_prec, charge, lib.precursor_mz, tol_val, tol_mode
             )
             num_candidates_per_query = hi - lo
-            with profiler.stage(f"{mode} window rescoring"):
+            with profiler.stage(f"{mode} window rescoring"), device_trace():
                 best_idx, best_score = self._rescore_window_ranges(
                     q_mz_d, q_int_d, q_prec_d, lib, lo, hi, charge
                 )

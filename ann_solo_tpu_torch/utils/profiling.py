@@ -5,7 +5,8 @@ Each stage's wall seconds accumulate under its name.  When a CUDA device
 is set, it is synchronized as a stage ends, so the seconds include the
 queued device work of that stage.  `count` tallies events that take no
 time (which path a batch took); `notes` holds facts a run reports (an
-index's shape).
+index's shape).  `device_trace` writes a torch.profiler trace of a block
+when a trace directory is set (``ANN_SOLO_TORCH_TRACE_DIR``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import logging
+import os
 import time
 from typing import Dict, Iterator, Optional
 
@@ -75,3 +77,30 @@ class StageProfiler:
 
 # Process-wide profiler used by the search engine.
 profiler = StageProfiler()
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: Optional[str] = None) -> Iterator[None]:
+    """Optionally capture a torch.profiler trace around a block.
+
+    Enabled when `trace_dir` or ``ANN_SOLO_TORCH_TRACE_DIR`` is set: the
+    block runs under `torch.profiler.profile` (CPU activity, and CUDA
+    activity where PyTorch sees a GPU) and its Chrome trace is written to
+    ``trace_{n:05d}.json`` in the directory, `n` one more than the traces
+    already there.  A no-op otherwise.
+    """
+    trace_dir = trace_dir or os.environ.get("ANN_SOLO_TORCH_TRACE_DIR")
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(trace_dir, exist_ok=True)
+    n = sum(name.startswith("trace_") and name.endswith(".json")
+            for name in os.listdir(trace_dir))
+    prof.export_chrome_trace(os.path.join(trace_dir, f"trace_{n:05d}.json"))

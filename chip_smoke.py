@@ -2,7 +2,17 @@
 
     python3 chip_smoke.py
 
-Phases, each raising on failure (non-zero exit, no final line):
+Standard output holds one summary line a phase (``chip_smoke <phase>:
+<seconds> s | <figures> | gates ok``), the total, the card's nvidia-smi
+line, the kernels' JSON record and ``{"ok": true, ...}``; everything else
+(each kernel case, profiler tables, per-batch figures, what a harness
+prints) goes to `build/chip_smoke.log`.  A phase that fails ends the run
+with a non-zero exit and no final line, after printing the phase, its
+traceback and the log's last lines.  The engine's logging goes to
+standard error.
+
+Phases, in the order they run (1-6, 7, 8, 7b, 10a, 10b, 11a, 11b, 9,
+11c, 9s, 12a, 12d, 12b, 12c), each raising on failure:
 
 1. device: needs CUDA; prints torch/CUDA versions and the card's name and
    power limit as nvidia-smi reports them;
@@ -47,12 +57,13 @@ Phases, each raising on failure (non-zero exit, no final line):
    run's probes touch) over 3.35 TB/s and its operations over the peak
    rate of their type (bf16 tensor cores for B2 and B3, f32 for B1: the
    matrix build alone, since the greedy walks only positive entries);
-4. the open-search slice at the bench scale: a 131,072-spectrum library
-   (K = 50 peaks, hash_len 800), auto num_list, num_probe 512, x2 SOAR
-   redundancy, int8 storage; 4 batches of 4,096 charge-2 queries, +-500 Da,
-   512 candidates, fragment tolerance 0.04, certificate rescoring and
-   best-pair matches.  Gate: self-match hit rate >= 0.95 per batch; B1's
-   launch count must grow during the timed batches;
+4. the bench (`ann_solo_tpu_torch.bench.run`, what ``python -m
+   ann_solo_tpu_torch.bench`` prints): a 131,072-spectrum library (K = 50
+   peaks, hash_len 800), auto num_list, num_probe 512, x2 SOAR
+   redundancy, int8 storage, built twice; 4 batches of 4,096 charge-2
+   queries, +-500 Da, 512 candidates, fragment tolerance 0.04,
+   vectorize -> select -> certificate rescoring, then the 1,024-candidate
+   leg.  Gates: self-match hit rate >= 0.95 per batch; B1 launched;
 5. preprocess: a raw 4,096-spectrum block through `preprocess_batch`
    (CUDA vs CPU identical) and one more search batch;
 6. CUDA vs CPU: the same slice on a 16,384-spectrum index with 256 queries
@@ -85,6 +96,15 @@ Phases, each raising on failure (non-zero exit, no final line):
    within one step, no duplicate ids; each batch's best-match hit rate
    equal to phase 7's within one query.  Then one batch of the B3 path
    runs under torch.profiler;
+7b. `scale_demo`'s default point (`ann_solo_tpu_torch.scale_demo`, SCALE
+   r04's single-chip configuration on its own rows): 2,097,152 unit rows
+   of width 800 from `make_gen_rows` (a hash of (row, column)), an int8
+   index of 4,096 lists built in memory (the float32 source block freed
+   after the build; phase 7's index stays resident), num_probe 64, 1,024
+   queries with 1,024 candidates through the probe path.  Gates: B2
+   launched; each query's source row among its candidates for >= 0.95 of
+   the queries, or, below that, no fewer than the on-card per-query oracle
+   finds by more than one query;
 9. the engine (`python -m ann_solo_tpu_torch.cli`, called in the process):
    QUALITY r05's corpus (`synthdata.make_corpus`, seed 42: 100,000
    library spectra, 200,000 store rows with decoys, 10,000 queries, 35%
@@ -109,7 +129,8 @@ Phases, each raising on failure (non-zero exit, no final line):
    9,500 non-foreign queries.  Runs B and C besides: the store and both
    indexes were loaded, not built; no library read, decoy, preprocess or
    index build seconds; confident PSMs at q < 0.01 no fewer than run A's
-   less 1%.  Then, on a 4,000-peptide corpus (seed 7, 1,000 queries), the
+   less 1%.  Then (phase 9s, after 11c), on a 1,000-peptide corpus (seed 7,
+   250 queries), the
    store built twice with run A's settings, through the native reader and
    from the Python reader's spectra: every column identical; and the CLI
    on that corpus: --model none twice on the card, built then loaded,
@@ -199,6 +220,15 @@ Phases, each raising on failure (non-zero exit, no final line):
    ann_vs_bf_ids_ratio >= 0.98; recall@1024 >= 0.97 over all of bf's
    confident PSMs.  Logs every key beside QUALITY r05's counts (not its
    TPU seconds);
+12d. the diagnostics on 12a's workdir (`ann_solo_tpu_torch.tools`):
+   `bf_profile` on its first 2,048 queries, untraced, then traced
+   (`device_trace` around each rescoring call, the traces' device time
+   summed by kernel: B1 against the rest, stage 1 mostly); `probe_diag`
+   (probed-list recall of bf's SSMs by depth and ordering, on bf16
+   indexes built and written beside the library); `fdr_leak_diag`
+   (calibration and foreign leak of both legs).  Gates: both levels
+   rescored windows, B1 launched and holds device time in the traces; SSMs
+   checked, no recall falls as the depth grows; both legs diagnosed;
 12b. the SWEEP harness at its defaults (`sweep.main`: 131,072 Gaussian
    unit vectors of width 800, 1,024 queries, num_list {1,024, 2,048,
    4,096} x num_probe {32, 64, 128, 256}, k = 1,024, seed 11) on the card,
@@ -213,17 +243,21 @@ Phases, each raising on failure (non-zero exit, no final line):
    (B1) and on the CPU: identical peak matches; each score logged beside
    the mzTab's.  No render: the card's machine has no matplotlib.
 
-The line before the last is the kernels' JSON record (B1's launches: phase
-4's timed batches and phase 12's; B2's: phase 7's and phase 11a's timed
-batches); the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is the kernels' JSON record (B1's launches:
+phase 4's bench run and phases 12a, 12d and 12c; B2's: phase 7's and
+phase 11a's timed batches and phase 7b's run); the last line is ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 
@@ -393,8 +427,39 @@ class BornShardedConfig:
     ivf_redundancy = 2
 
 
+# Standard output carries one summary line a phase; the detail (each
+# kernel case, profiler tables, per-batch figures, and whatever a harness
+# prints) goes to this log, opened by `main`.
+LOG_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke.log")
+_LOG = None
+_STDOUT = sys.stdout
+_PHASE = {"label": None, "start": 0.0, "notes": []}
+
+
 def log(*args):
-    print(*args, flush=True)
+    """A line of detail: into the log once `main` has opened it."""
+    print(*args, file=_LOG or sys.stdout, flush=True)
+
+
+def note(*parts):
+    """Figures for the running phase's summary line."""
+    _PHASE["notes"].extend(parts)
+
+
+def phase(label, fn, *args, **kwargs):
+    """Run one phase with its detail and its prints in the log, then print
+    its summary line: ``chip_smoke <label>: <seconds> s | <figures> |
+    gates ok``.  A phase that raises ends the run (see `main`)."""
+    _PHASE.update(label=label, start=time.perf_counter(), notes=[])
+    log(f"=== phase {label}")
+    with contextlib.redirect_stdout(_LOG or sys.stdout):
+        out = fn(*args, **kwargs)
+    seconds = time.perf_counter() - _PHASE["start"]
+    print(" | ".join([f"chip_smoke {label}: {seconds:.1f} s",
+                      *_PHASE["notes"], "gates ok"]), file=_STDOUT,
+          flush=True)
+    return out
 
 
 class BenchConfig:
@@ -446,31 +511,6 @@ def tensor_bytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def synth_library(rng, n, k=K_PEAKS):
-    """bench.py's `synth_processed`, sorted by precursor m/z."""
-    mz = np.sort(rng.uniform(101.0, 1500.0, (n, k)).astype(np.float32), 1)
-    intensity = rng.uniform(0.1, 1.0, (n, k)).astype(np.float32)
-    intensity /= np.linalg.norm(intensity, axis=1, keepdims=True)
-    ann = rng.integers(0, CHARGE + 1, (n, k)).astype(np.int32)
-    prec = rng.uniform(400.0, 1200.0, n).astype(np.float64)
-    order = np.argsort(prec, kind="stable")
-    return mz[order], intensity[order], ann[order], prec[order]
-
-
-def synth_queries(rng, lib, n_q):
-    """Noised copies of library rows (bench.py's query batches)."""
-    lib_mz, lib_int, _, lib_prec = lib
-    n, k = lib_mz.shape
-    rows = rng.choice(n, n_q, replace=False)
-    q_mz = lib_mz[rows] + rng.normal(0, 0.005, (n_q, k)).astype(np.float32)
-    q_int = np.abs(
-        lib_int[rows] + rng.normal(0, 0.02, (n_q, k)).astype(np.float32)
-    )
-    q_int /= np.linalg.norm(q_int, axis=1, keepdims=True)
-    q_prec = lib_prec[rows] + rng.normal(0, 0.002, n_q)
-    return rows, np.sort(q_mz, axis=1), q_int, q_prec
-
-
 def synth_pairs(rng, p, kq, kc, charge, ties):
     """(query, candidate) pairs with direct, shifted and conflicting peak
     matches; `ties` quantizes intensities so equal scores are common."""
@@ -507,15 +547,17 @@ def phase_device():
     from ann_solo_tpu_torch.device import require_cuda
 
     dev = require_cuda()
-    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.device_count()} device(s)")
+    versions = (f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+                f"{torch.cuda.device_count()} device(s)")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
-    )
-    log(smi.stdout.strip().splitlines()[0])
-    return dev
+    ).stdout.strip().splitlines()[0]
+    log(versions)
+    log(smi)
+    note(versions, smi)
+    return dev, smi
 
 
 PARSERS = ("splib_parser", "sptxt_parser", "mgf_parser")
@@ -566,6 +608,8 @@ def phase_build(names=("shifted_dot", "ivf_probe_scan", "ivf_chunked_scan"),
                                  "load")
     log(f"build: {len(names)} kernels and {len(parsers)} parsers in "
         f"{time.perf_counter() - t0:.2f}s")
+    note(f"{len(names)} kernels and {len(parsers)} parsers built "
+         f"(nvcc and g++ in parallel) in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_kernel(dev, cases=KERNEL_CASES, kernel_reps=20, plain_reps=3):
@@ -624,6 +668,9 @@ def phase_kernel(dev, cases=KERNEL_CASES, kernel_reps=20, plain_reps=3):
                 f"{ops + dense_greedy:.4g} ops -> "
                 f"{(ops + dense_greedy) / F32_FLOPS * 1e3:.4f} ms")
             record.update(ms=ms, plain_ms=plain_ms, **fields)
+            note(f"B1 {name} (P={p}, K={kq}): {ms:.4f} ms, plain "
+                 f"{plain_ms:.2f} ms, {100 * fields['bound_ms'] / ms:.2f}% "
+                 f"of its {fields['bound_ms']:.4f} ms bound")
         # Positive entries a pair: the list the kernel walks.
         n_pos = int((shifted_dot_scores_matrix(*args) > 0).sum()) / p
         log(f"kernel {name}: P={p} K={qm.shape[1]} charge={charge} "
@@ -756,6 +803,9 @@ def phase_probe_kernel(dev, cases=PROBE_CASES, kernel_reps=20,
         fields = bound("B2", name, ms, n_bytes, ops, BF16_FLOPS)
         if name == cases[0][0]:
             record.update(ms=ms, plain_ms=plain_ms, **fields)
+            note(f"B2 {name}: {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+                 f"{100 * fields['bound_ms'] / ms:.2f}% of its "
+                 f"{fields['bound_ms']:.4f} ms bound")
         log(f"B2 {name}: B={b} L={l} P={p} cap={cap} D={d} {storage} "
             f"window={tol_mode if tol_val > 0 else 'none'} probes={table}: "
             f"{n_lists} lists probed; masks identical "
@@ -769,6 +819,8 @@ def phase_probe_kernel(dev, cases=PROBE_CASES, kernel_reps=20,
             log(f"B2 {storage}: {lib.ivf_probe_scan_smem_bytes(code)} bytes "
                 "of shared memory a block, "
                 f"{lib.ivf_probe_scan_resident_blocks(code)} blocks an SM")
+    note(f"{len(cases)} cases: masks identical, max |d| "
+         f"{record['max_abs_err']:.3g} within each case's tolerance")
     return record
 
 
@@ -879,6 +931,9 @@ def phase_scan_kernel(dev, cases=SCAN_CASES, kernel_reps=5, plain_reps=1):
                 "blocks an SM")
         if name == cases[0][0]:
             record.update(ms=ms, plain_ms=plain_ms, **fields)
+            note(f"B3 {name}: {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+                 f"{100 * fields['bound_ms'] / ms:.2f}% of its "
+                 f"{fields['bound_ms']:.4f} ms bound")
         log(f"B3 {name}: B={b} L={l} P={p}+{h} hot cap={cap} D={d} "
             f"{storage} window={tol_mode if tol_val > 0 else 'none'} "
             f"k_scan={k_scan}{' clustered' if clustered else ''}: "
@@ -889,6 +944,8 @@ def phase_scan_kernel(dev, cases=SCAN_CASES, kernel_reps=5, plain_reps=1):
             f" / plain {float(f_p.float().mean()):.4f}; kernel {ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms")
         del arrays, vectors, args, sel_args, rows, want
+    note(f"{len(cases)} cases: finite masks identical, exact cases "
+         "bit-identical, selections within one key16 step")
     return record
 
 
@@ -907,104 +964,43 @@ def _check_outputs(best, score, n_cands, matches, n_lib, n_q,
 
 
 def phase_slice(dev, n_lib=N_LIBRARY, n_q=N_QUERIES, n_batches=N_BATCHES):
-    """The bench workload through the port's entry points."""
+    """Phase 4: the bench workload through `ann_solo_tpu_torch.bench.run`
+    (what ``python -m ann_solo_tpu_torch.bench`` prints).  Returns B1's
+    launches of the run and the index, library and settings for phase
+    5."""
     import torch
 
-    from ann_solo_tpu_torch.convert import library_from_numpy
-    from ann_solo_tpu_torch.device import synchronize
-    from ann_solo_tpu_torch.index.ivf import IvfIndex
-    from ann_solo_tpu_torch.models.vectorize import (
-        VectorizeParams,
-        device_tables,
-        vectorize_batch,
-    )
+    from ann_solo_tpu_torch import bench
     from ann_solo_tpu_torch.ops import shifted_dot_cuda
-    from ann_solo_tpu_torch.search import (
-        OpenSearchParams,
-        ann_open_search_batch,
-    )
 
-    rng = np.random.default_rng(42)
-    lib_arrays = synth_library(rng, n_lib)
-    lib_mz, lib_int, lib_ann, lib_prec = lib_arrays
-    params = OpenSearchParams(
-        vectorize=VectorizeParams(11.0, 2010.0, 0.04, HASH_LEN),
-        num_candidates=NUM_CANDIDATES,
-        precursor_tolerance_mass_open=OPEN_TOL_DA,
-        precursor_tolerance_mode_open="Da",
-        fragment_mz_tolerance=FRAG_TOL,
-        allow_peak_shifts=True,
-    )
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    tables = device_tables(params.vectorize, dev)
-    chunk = 4096
-    lib_vectors = torch.cat([
-        vectorize_batch(
-            params.vectorize, tables,
-            torch.from_numpy(lib_mz[s:s + chunk]).to(dev),
-            torch.from_numpy(lib_int[s:s + chunk]).to(dev),
-            torch.full((len(lib_mz[s:s + chunk]),), K_PEAKS, device=dev),
-        )
-        for s in range(0, n_lib, chunk)
-    ])
-    synchronize(dev)
-    t_vec = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    index = IvfIndex.build(
-        lib_vectors, BenchConfig(), precursor_mz=lib_prec.astype(np.float32),
-        storage_dtype=torch.int8, device=dev,
-    )
-    synchronize(dev)
-    t_build = time.perf_counter() - t0
-    l, cap, d = index.padded_vectors.shape
-    log(f"library: {n_lib} spectra vectorized in {t_vec:.3f}s; IVF build "
-        f"{t_build:.3f}s ({l} lists x cap {cap} x {d}, int8, "
-        f"x{index.redundancy}, num_probe {index.num_probe})")
-    lib = library_from_numpy(lib_mz, lib_int, lib_ann, lib_prec, dev)
-    batches = [synth_queries(rng, lib_arrays, n_q) for _ in range(n_batches)]
-    q_n = np.full(n_q, K_PEAKS, np.int32)
-
-    def run(batch, stages=None):
-        _, q_mz, q_int, q_prec = batch
-        return ann_open_search_batch(
-            index, lib, q_mz, q_int, q_n, q_prec, CHARGE, params,
-            stage_seconds=stages,
-        )
-
-    run(batches[0])  # warm-up (cuBLAS handles, caches)
-    synchronize(dev)
     shifted_dot_cuda.LAUNCHES = 0
-    t0 = time.perf_counter()
-    outs = [run(batch) for batch in batches]
-    synchronize(dev)
-    elapsed = time.perf_counter() - t0
+    out = bench.run(n_library=n_lib, n_queries=n_q, n_batches=n_batches,
+                    device=dev)
     launches = shifted_dot_cuda.LAUNCHES
-    hit_rates = []
-    for batch, (best, score, n_cands, matches) in zip(batches, outs):
-        _check_outputs(best, score, n_cands, matches, n_lib, n_q)
-        hit_rates.append(float(np.mean(best == batch[0])))
-    stages = {}
-    run(batches[1], stages)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-    summary = {
-        "queries_per_sec": n_batches * n_q / elapsed,
-        "batch_sec": elapsed / n_batches,
-        "stages_sec_per_batch": stages,
-        "library_vectorize_sec": t_vec,
-        "ivf_build_sec": t_build,
-        "max_memory_allocated_bytes": peak,
-        "self_match_hit_rates": hit_rates,
-        "mean_candidates": float(np.mean(outs[-1][2])),
-        "kernel_launches": launches,
-    }
-    log("slice: " + json.dumps(summary))
-    if min(hit_rates) < HIT_RATE_GATE:
+    result, hit_rates = out["result"], out["hit_rates"]
+    log("slice: " + json.dumps({
+        "bench": result, "self_match_hit_rates": hit_rates,
+        "max_memory_allocated_bytes": peak, "b1_launches": launches}))
+    stages = result["stages_sec_per_batch"]
+    note(f"{result['value']:.2f} q/s ({n_q} queries x {n_batches}, "
+         f"{result['num_candidates']} candidates)",
+         "a batch: vectorize {vectorize:.4f} + select {ann_select:.4f} + "
+         "rescore {rescore:.4f} s".format(**stages),
+         f"{result['ref_default_num_candidates']} candidates "
+         f"{result['ref_default_queries_per_sec']:.2f} q/s",
+         f"hit rates {min(hit_rates):.4f}-{max(hit_rates):.4f}",
+         f"build {result['ivf_build_sec_cold']:.2f} s cold, "
+         f"{result['ivf_build_sec']:.2f} s again",
+         f"peak {peak} bytes", f"B1 launched {launches}")
+    if min(hit_rates) < HIT_RATE_GATE or not result["hit_rate_gate_passed"]:
         raise AssertionError(f"self-match hit rate {hit_rates} < gate")
     if launches <= 0 and dev.type == "cuda":
         raise AssertionError("the greedy kernel was not launched")
-    return launches, index, lib, lib_arrays, params
+    return launches, out["index"], out["lib"], out["lib_arrays"], \
+        out["params"]
 
 
 def synth_raw(rng, lib_arrays, n):
@@ -1066,6 +1062,8 @@ def phase_preprocess(dev, index, lib, lib_arrays, params, n=N_QUERIES):
     hit = float(np.mean(best == rows))
     log(f"preprocess: {n} raw spectra, {int(a.is_valid.sum())} valid, "
         f"CUDA == CPU; search self-match hit rate {hit:.4f}")
+    note(f"{n} raw spectra, {int(a.is_valid.sum())} valid, CUDA == CPU",
+         f"search hit rate {hit:.4f}")
     if hit < HIT_RATE_GATE:
         raise AssertionError(f"preprocessed hit rate {hit} < gate")
 
@@ -1073,6 +1071,7 @@ def phase_preprocess(dev, index, lib, lib_arrays, params, n=N_QUERIES):
 def phase_cuda_vs_cpu(dev, n_lib=16384, n_q=256):
     import torch
 
+    from ann_solo_tpu_torch.bench import synth_library, synth_queries
     from ann_solo_tpu_torch.convert import (
         ivf_index_from_numpy,
         library_from_numpy,
@@ -1108,7 +1107,7 @@ def phase_cuda_vs_cpu(dev, n_lib=16384, n_q=256):
     arrays = to_numpy(built)
     _, q_mz, q_int, q_prec = synth_queries(rng, lib_arrays, n_q)
     q_n = np.full(n_q, K_PEAKS, np.int32)
-    results = {}
+    results, seconds = {}, {}
     for d in (dev, torch.device("cpu")):
         index = ivf_index_from_numpy(
             arrays["centroids"], arrays["padded_vectors"],
@@ -1121,13 +1120,17 @@ def phase_cuda_vs_cpu(dev, n_lib=16384, n_q=256):
         results[d.type] = ann_open_search_batch(
             index, lib, q_mz, q_int, q_n, q_prec, CHARGE, params
         )
-        log(f"cuda-vs-cpu: {d.type} slice {time.perf_counter() - t0:.2f}s")
+        seconds[d.type] = time.perf_counter() - t0
+        log(f"cuda-vs-cpu: {d.type} slice {seconds[d.type]:.2f}s")
     g_best, g_score, _, g_match = results[dev.type]
     c_best, c_score, _, c_match = results["cpu"]
     same = g_best == c_best
     frac = float(np.mean(same))
     log(f"cuda-vs-cpu: {n_lib}-spectrum index, {n_q} queries: same best "
         f"index for {frac:.4f}")
+    note(f"{n_lib}-spectrum index, {n_q} queries: same best index for "
+         f"{frac:.4f}", f"card {seconds[dev.type]:.2f} s, CPU "
+         f"{seconds['cpu']:.2f} s")
     if frac < 0.999:
         raise AssertionError(f"CUDA vs CPU best index agree on {frac}")
     np.testing.assert_allclose(g_score[same], c_score[same], rtol=1e-5)
@@ -1238,6 +1241,7 @@ def phase_big_slice(dev, n_lib=N_BIG, n_q=BIG_QUERIES, n_batches=N_BATCHES,
     log(f"big library: {n_lib} spectra made and vectorized in {t_lib:.3f}s; "
         f"IVF build {t_build:.3f}s ({l} lists x cap {cap} x {d}, int8, "
         f"x{index.redundancy}, num_probe {index.num_probe})")
+    note(f"build {t_build:.2f} s, peak {build_peak} bytes")
     big = big_library_search(
         dev, "big slice", index, lib_arrays, params, gen, n_q, n_batches,
         {"library_make_vectorize_sec": t_lib, "ivf_build_sec": t_build,
@@ -1400,6 +1404,16 @@ def big_library_search(dev, name, index, lib_arrays, params, gen, n_q,
         "b2_launches": launches,
     })
     log(f"{name}: " + json.dumps(summary))
+    oracle_worst = min(oracle_rates.values())
+    note(f"{summary['queries_per_sec']:.2f} q/s ({n_batches} x {n_q}, "
+         f"{BIG_CANDIDATES} candidates)",
+         "a batch {:.4f} s = select {:.4f} + rescore {:.4f} s".format(
+             elapsed / n_batches, stages.get("select", 0.0),
+             stages.get("rescore", 0.0)),
+         f"hit rates {min(hit_rates):.4f}-{max(hit_rates):.4f} (oracle's "
+         f"lowest {oracle_worst:.4f})",
+         f"lanes vs oracle {same_lane:.5f}", f"search peak {peak} bytes",
+         f"B2 launched {launches}")
     if launches <= 0 and dev.type == "cuda":
         raise AssertionError(f"{name}: kernel B2 was not launched")
     if same_lane < 0.999 or key_step > 1:
@@ -1451,6 +1465,8 @@ def index_file_round_trip(dev, index, select, want, workdir=None):
     log("big slice index file: " + json.dumps({
         "save_sec": t_save, "load_sec": t_load, "bytes": n_bytes,
         "loaded_equals_built": same, "store_fp": loaded.store_fp}))
+    note(f"index file {n_bytes} bytes: saved {t_save:.2f} s, loaded "
+         f"{t_load:.2f} s")
     if not same or loaded.store_fp != "chip_smoke":
         raise AssertionError("the loaded index does not select like the "
                              "built one")
@@ -1495,6 +1511,9 @@ def profile_batch(dev, name, fn):
             by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e6
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    if wall > 0:
+        note(f"profiled batch: wall {wall:.4f} s, kernels {busy:.4f} s, "
+             f"idle {100 * (1 - busy / wall):.1f}%")
     log(f"profile {name}: " + json.dumps({
         "wall_sec": wall, "kernel_sec": busy,
         "idle_share": 1.0 - busy / wall if wall > 0 else None,
@@ -1602,6 +1621,10 @@ def phase_b3_slice(dev, big):
         "b2_launches": b2_launches,
     }
     log("b3 slice: " + json.dumps(summary))
+    note(f"{summary['queries_per_sec']:.2f} q/s", f"flagged a batch "
+         f"{min(flagged)}-{max(flagged)} of {n_q}",
+         f"lanes vs probe path {same_probe:.5f}",
+         f"B3 launched {b3_launches}, B2 (hot lists) {b2_launches}")
     if b3_launches <= 0 and dev.type == "cuda":
         raise AssertionError("kernel B3 was not launched")
     if same_probe < 0.999 or step_probe > 1:
@@ -1613,6 +1636,65 @@ def phase_b3_slice(dev, big):
             raise AssertionError(
                 f"batch {i}: B3 path hit rate {rate} vs phase 7's {rate7}")
     return b3_launches
+
+
+def phase_scale_demo(dev, args=()):
+    """Phase 7b: `scale_demo`'s default point (SCALE r04's single-chip
+    configuration on its own Gaussian rows) through the function its
+    command line runs.  Gates: B2 launched; the source row among a
+    query's candidates for >= 0.95 of the queries, or, below that, no
+    fewer than the on-card per-query oracle finds by more than one query.
+    Returns B2's launches."""
+    import torch
+
+    from ann_solo_tpu_torch import scale_demo
+    from ann_solo_tpu_torch.index.ivf import _ivf_search_perquery
+    from ann_solo_tpu_torch.ops import ivf_probe_cuda
+
+    out_path = os.path.join(_workdir("scale"), "scale.json")
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    parsed = scale_demo.parse_args(
+        list(args) + ["--out", out_path]
+        + (["--no_gpu"] if dev.type == "cpu" else []))
+    ivf_probe_cuda.LAUNCHES = 0
+    out = scale_demo.single_chip(parsed, dev)
+    launches = ivf_probe_cuda.LAUNCHES
+    result, index = out["result"], out["index"]
+    with open(out_path, "w") as f:
+        json.dump(result, f, indent=2)
+    hit = result["source_in_top_candidates"]
+    oracle = None
+    if hit < HIT_RATE_GATE:
+        k = parsed.num_candidates
+        _, ids = _ivf_search_perquery(
+            index.padded_vectors, index.padded_ids, index.padded_prec,
+            index.padded_scales, index.centroids, out["queries"],
+            out["q_prec"], float(scale_demo.CHARGE), index.num_probe, k,
+            index.redundancy * k, scale_demo.OPEN_TOL_DA, "Da",
+            index.redundancy > 1)
+        oracle = scale_demo._source_rate(ids.cpu().numpy(),
+                                         out["query_rows"])
+    log("scale demo: " + json.dumps({
+        "result": result, "regime": index.regime(parsed.num_candidates),
+        "build_max_memory_allocated_bytes":
+            out["build_max_memory_allocated_bytes"],
+        "oracle_source_in_top_candidates": oracle, "b2_launches": launches}))
+    note(f"{result['n_vectors']} rows, {result['num_list']} lists, "
+         f"num_probe {result['num_probe']}: build {result['build_sec']:.2f} "
+         f"s, peak {out['build_max_memory_allocated_bytes']} bytes",
+         f"select {result['select_queries_per_sec']:.2f} q/s",
+         f"source in candidates {hit:.4f}"
+         + ("" if oracle is None else f" (oracle {oracle:.4f})"),
+         f"B2 launched {launches}")
+    if launches <= 0 and dev.type == "cuda":
+        raise AssertionError("scale demo: kernel B2 was not launched")
+    if oracle is not None and hit < oracle - 1.0 / parsed.n_queries:
+        raise AssertionError(f"scale demo: source in candidates {hit}, the "
+                             f"oracle's {oracle}")
+    del out, index
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
 
 
 def phase_streaming_switch(dev, big, workdir=None,
@@ -1682,6 +1764,9 @@ def phase_streaming_switch(dev, big, workdir=None,
         "phase7_in_memory_build_sec": big["build_sec"],
         "phase7_in_memory_build_peak_bytes": big["build_peak"],
         "file_bytes": n_bytes, "identical_to_phase7": same}))
+    note(f"load_or_build {t_total:.2f} s ({notes.get('build')}), own peak "
+         f"{peak - resident} bytes", "every array equal to phase 7's"
+         if all(same.values()) else f"differs: {same}")
     if source_bytes <= ivf._STREAM_BUILD_SOURCE_BYTES:
         raise AssertionError("the source block is within the in-memory "
                              "build's bound")
@@ -1747,6 +1832,7 @@ def phase_streaming_8m(dev, n_lib=N_STREAM, n_q=STREAM_QUERIES,
         f"{t_build:.3f}s ({l} lists x cap {cap} x {d}, int8, "
         f"x{index.redundancy}, num_probe {index.num_probe}, {index_bytes} "
         "bytes)")
+    note(f"streaming build {t_build:.2f} s, peak {build_peak} bytes")
     out = big_library_search(
         dev, "streaming 8m", index, lib_arrays, params, gen, n_q, n_batches,
         {"library_make_sec": t_lib, "library_bytes": tensor_bytes(*lib_arrays),
@@ -1884,6 +1970,11 @@ def phase_sharded_8m(dev, s8m, n_shards=N_SHARDS_8M):
         "b2_launches": launches, "b1_launches": b1_launches,
     }
     log("sharded 8m: " + json.dumps(summary))
+    note(f"born-sharded build {t_build:.2f} s (" + ", ".join(
+        f"{k} {v:.2f}" for k, v in build_stages.items()) + ")",
+        f"{q_s:.2f} q/s (10b: {s8m['queries_per_sec']:.2f})",
+        f"overflowed {overflow}", f"lanes vs 10b {same_lane:.5f}, (2, 2) "
+        f"{same_lane_22:.5f}", f"B2 launched {launches}")
     if not all(same.values()):
         raise AssertionError(f"born-sharded index differs from 10b's: {same}")
     if launches <= 0 and dev.type == "cuda":
@@ -2029,6 +2120,9 @@ def phase_born_sharded(dev, s8m, n=N_BORN, n_q=BIG_QUERIES,
         "source_in_candidates": in_cands,
     }
     log("born sharded: " + json.dumps(summary))
+    note(f"build {t_build:.2f} s, {len(per_shard)} shards of "
+         f"{per_shard[0]} bytes", f"select {t_sel:.3f} s sharded, "
+         f"{t_ref_sel:.3f} s in memory, lanes equal {same_lane:.5f}")
     if shard_bytes is not None and any(b != shard_bytes for b in per_shard):
         raise AssertionError(f"shard blocks {per_shard} != {shard_bytes}")
     if sum(per_shard) != global_bytes:
@@ -2095,14 +2189,17 @@ def phase_sharded_engine(dev, dp=2, n_shards=4, n_queries=ENGINE_QUERIES,
             len(differ),
     }
     log("sharded engine: " + json.dumps(summary))
+    note(f"search {totals['search']:.2f} s "
+         f"({n_queries / totals['search']:.2f} q/s)",
+         f"{len(got)} PSMs, {len(differ)} lines differ from run A's")
     for charge in (2, 3):
-        note = notes.get(f"index charge {charge}", {})
-        if note.get("source") != "loaded":
+        info = notes.get(f"index charge {charge}", {})
+        if info.get("source") != "loaded":
             raise AssertionError(f"charge {charge}: the index was not loaded "
-                                 f"from run A's file: {note}")
-        if note.get("sharded", {}).get("mesh") != mesh.shape:
+                                 f"from run A's file: {info}")
+        if info.get("sharded", {}).get("mesh") != mesh.shape:
             raise AssertionError(f"charge {charge}: the index is not a "
-                                 f"ShardedIvfIndex on {mesh.shape}: {note}")
+                                 f"ShardedIvfIndex on {mesh.shape}: {info}")
         if counts.get(f"open level charge {charge}: ivf select", 0) <= 0:
             raise AssertionError(f"charge {charge}: no open-level batch went "
                                  "through the sharded index")
@@ -2216,6 +2313,9 @@ def engine_run(dev, name, lib_path, query_path, truth, n_queries, model,
         "jax_quality_r05_ann": QUALITY_R05_ANN,
     }
     log("engine: " + json.dumps(summary))
+    note(f"{name} --model {model}: CLI {t_cli:.2f} s, search "
+         f"{totals['search']:.2f} s, {stats['n_confident']} confident "
+         f"(accuracy {stats['accuracy']:.5f})")
     if launches <= 0 and dev.type == "cuda":
         raise AssertionError(f"{name}: the engine launched no greedy kernel")
     for charge in (2, 3):
@@ -2348,7 +2448,7 @@ def store_native_vs_python(dev, lib_path, query_path):
                              f"{differ}")
 
 
-def phase_engine_cuda_vs_cpu(dev, n_peptides=4000, n_queries=1000,
+def phase_engine_cuda_vs_cpu(dev, n_peptides=1000, n_queries=250,
                              workdir=None):
     """The CLI on one small corpus, on the card and with --no_gpu: built
     then loaded, both models across devices, and --mode ann and bf with
@@ -2388,6 +2488,8 @@ def phase_engine_cuda_vs_cpu(dev, n_peptides=4000, n_queries=1000,
         raise AssertionError("built vs loaded: the PSM lines differ")
     log(f"engine built-vs-loaded: {len(loaded_rows)} identical PSM "
         "lines")
+    note(f"{n_peptides} peptides, {n_queries} queries: built vs loaded "
+         f"{len(loaded_rows)} identical lines")
 
     # Both models on the card and on the CPU, files loaded.
     for model in ("svm", "rf"):
@@ -2404,6 +2506,8 @@ def phase_engine_cuda_vs_cpu(dev, n_peptides=4000, n_queries=1000,
                 f"{want[q][LIB_SPECTRUM]}")
         log(f"engine cuda-vs-cpu: {model}: {len(want)} PSMs, "
             f"{len(differ)} lines differ")
+        note(f"{model} card vs CPU: {len(differ)} of {len(want)} lines "
+             "differ, same spectra")
         if any(got[q][LIB_SPECTRUM] != want[q][LIB_SPECTRUM]
                for q in want):
             raise AssertionError(f"{model}: library spectra differ")
@@ -2427,6 +2531,7 @@ def phase_engine_cuda_vs_cpu(dev, n_peptides=4000, n_queries=1000,
         differ = [q for q in same if got[q] != want[q]]
         log(f"engine cuda-vs-cpu: {mode}: {len(want)} PSMs, same library "
             f"spectrum for {frac:.4f}, {len(differ)} of those lines differ")
+        note(f"{mode} card vs CPU: same spectrum {frac:.4f}")
         if frac < 0.999:
             raise AssertionError(f"{mode}: same library spectrum for {frac}")
         if differ:
@@ -2473,6 +2578,8 @@ def fasta_cuda_vs_cpu(dev, workdir, query_path, truth):
                                     if v != (got.get(q) or {}).get(k)}))
     log(f"engine cuda-vs-cpu: fasta: {len(peptides)} peptides, "
         f"{len(want)} PSMs, {len(differ)} lines differ")
+    note(f"FASTA ({len(peptides)} peptides) card vs CPU: {len(want)} PSMs, "
+         f"{len(differ)} lines differ")
     if not want or got.keys() != want.keys() or differ:
         raise AssertionError(f"fasta: PSM lines differ, CUDA vs CPU: "
                              f"{differ[:5]}")
@@ -2581,6 +2688,15 @@ def phase_quality(dev, args=QUALITY_ARGS, workdir=None, full_size=True):
                         if k.startswith("index charge")},
         }))
     log("quality recall curve: " + json.dumps(recall))
+    for mode in ("bf", "ann"):
+        info, stats = legs[mode], results[mode]
+        note(f"{mode} leg: CLI {info['cli_sec']:.2f} s, search "
+             f"{info['totals']['search']:.2f} s, {stats['n_confident']} "
+             f"confident (accuracy {stats['accuracy']:.5f}), B1 launched "
+             f"{info['b1_launches']}")
+    note(f"ann/bf {results['ann_vs_bf_ids_ratio']}", "recall@1024 "
+         f"{results['ann_candidate_recall']['recall@1024']}",
+         f"recall curve {recall.get('sec', 0.0):.2f} s")
     log("quality: " + json.dumps({"sec": t_total, "port": results,
                                   "jax_quality_r05": record}))
 
@@ -2631,6 +2747,66 @@ def phase_quality(dev, args=QUALITY_ARGS, workdir=None, full_size=True):
     return ann["b1_launches"] + bf["b1_launches"]
 
 
+def phase_tools(dev, workdir=None, n_queries=2048):
+    """Phase 12d: the diagnostics on phase 12a's workdir: `bf_profile` on
+    its first `n_queries` queries, untraced and then traced
+    (`device_trace`, kernel time summed by name), `probe_diag` and
+    `fdr_leak_diag`.  Gates: both levels rescored windows and B1
+    launched, the traces hold B1's and other kernels' time; SSMs were
+    checked and no recall falls as the probe depth grows; both legs'
+    calibration curves.  Returns B1's launches."""
+    from ann_solo_tpu_torch.ops import shifted_dot_cuda
+    from ann_solo_tpu_torch.tools import bf_profile, fdr_leak_diag, probe_diag
+
+    workdir = workdir or _workdir("engine")
+    no_gpu = dev.type == "cpu"
+    shifted_dot_cuda.LAUNCHES = 0
+    prof = bf_profile.profile(workdir, n_queries, no_gpu,
+                              _workdir("bf_profile_trace"))
+    launches = shifted_dot_cuda.LAUNCHES
+    bf_profile.print_table(prof)
+    log("bf_profile: " + json.dumps(prof))
+    probe = probe_diag.diagnose(workdir, no_gpu)
+    log("probe_diag: " + json.dumps(probe))
+    if fdr_leak_diag.main([workdir]) != 0:
+        raise AssertionError("fdr_leak_diag failed")
+    with open(os.path.join(workdir, "fdr_leak_diag.json")) as f:
+        leak = json.load(f)
+    legs, trace = prof["legs"], prof["trace"]
+    for level in ("std", "open"):
+        leg = legs.get(f"{level} window_rescore")
+        if not leg or leg["pairs"] <= 0:
+            raise AssertionError(f"bf_profile: no {level} window rescoring")
+        note(f"{level} window rescoring {leg['sec']:.2f} s, "
+             f"{leg['pairs']} pairs in {leg['calls']} calls")
+    note(f"bf_profile {prof['n_queries']} queries: search "
+         f"{prof['search_sec']:.2f} s, traced {trace['search_sec_traced']:.2f}"
+         " s", f"rescoring's device time {trace['device_sec']:.3f} s: B1 "
+         f"{trace['b1_sec']:.4f} s ({100 * (trace['b1_share'] or 0):.3g}%), "
+         f"stage 1 and the rest {trace['other_kernels_sec']:.3f} s")
+    plain = probe["recall"]["plain"]
+    note(f"probe_diag {probe['n_checked']} SSMs: probed-list recall "
+         f"p<=256 {plain['p<=256']:.4f} (radius "
+         f"{probe['recall']['radius']['p<=256']:.4f})")
+    note("foreign leak at 1% FDR: " + ", ".join(
+        f"{mode} {leak[mode]['calibration'][1]['foreign_leak_rate']}"
+        for mode in ("bf", "ann")))
+    if dev.type == "cuda" and (launches <= 0 or trace["b1_sec"] <= 0
+                               or trace["other_kernels_sec"] <= 0):
+        raise AssertionError(f"bf_profile: B1 launched {launches}, trace "
+                             f"{trace}")
+    if probe["n_checked"] <= 0:
+        raise AssertionError("probe_diag checked no SSM")
+    for row in probe["recall"].values():
+        values = [row[f"p<={p}"] for p in probe_diag.PROBES]
+        if values != sorted(values):
+            raise AssertionError(f"probe_diag: recall falls with depth: "
+                                 f"{probe['recall']}")
+    if set(leak) != {"bf", "ann"}:
+        raise AssertionError(f"fdr_leak_diag: legs {sorted(leak)}")
+    return launches
+
+
 def phase_sweep(dev, n=131072, n_queries=1024, k=1024,
                 num_list=(1024, 2048, 4096), num_probe=(32, 64, 128, 256),
                 seed=11):
@@ -2677,6 +2853,9 @@ def phase_sweep(dev, n=131072, n_queries=1024, k=1024,
             "port": entry, "jax_sweep_r02": {
                 key: v for key, v in jax.items()
                 if key.startswith("recall@")}}))
+    note(f"sweep.main {t_sweep:.2f} s, {len(grid)} grid points",
+         f"bruteforce_search card {times['device']:.3f} s, CPU "
+         f"{times['cpu']:.2f} s, {equal:.6f} of ids in the CPU's top-k")
     log("sweep: " + json.dumps({
         "sec": t_sweep, "bruteforce_sec": times,
         "bruteforce_ids_in_cpu_top_k": equal,
@@ -2732,6 +2911,8 @@ def phase_plot_matching(dev, workdir=None, n_each=10):
                 confident["search_engine_score[1]"][position[qid]])}))
     log(f"plot matching: {len(ids)} PSMs in {t_dev:.2f}s on {dev.type}, "
         f"B1 launches {launches}, {len(differ)} differ from the CPU's")
+    note(f"{len(ids)} PSMs matched in {t_dev:.2f} s, {len(differ)} differ "
+         f"from the CPU's", f"B1 launched {launches}")
     if len(ids) != 2 * n_each or differ:
         raise AssertionError(f"plot matching: {len(ids)} PSMs, differ from "
                              f"the CPU's: {differ}")
@@ -2740,84 +2921,106 @@ def phase_plot_matching(dev, workdir=None, n_each=10):
     return launches
 
 
+def run_phases():
+    """Every phase in order; returns the kernels' record (the line before
+    the last) and the card's nvidia-smi line."""
+    import torch
+
+    t_start = time.perf_counter()
+    dev, smi = phase("1", phase_device)
+    phase("2", phase_build)
+    record = phase("3", phase_kernel, dev)
+    probe_record = phase("3b", phase_probe_kernel, dev)
+    scan_record = phase("3c", phase_scan_kernel, dev)
+    launches, index, lib, lib_arrays, params = phase("4", phase_slice, dev)
+    phase("5", phase_preprocess, dev, index, lib, lib_arrays, params)
+    del index, lib
+    phase("6", phase_cuda_vs_cpu, dev)
+    big = phase("7", phase_big_slice, dev)
+    b3_launches = phase("8", phase_b3_slice, dev, big)
+    big_launches = big["launches"] + phase("7b", phase_scale_demo, dev)
+    phase("10a", phase_streaming_switch, dev, big)
+    del big  # phases 7 and 8's library, index and batches
+    torch.cuda.empty_cache()
+    s8m = phase("10b", phase_streaming_8m, dev)
+    big_launches += phase("11a", phase_sharded_8m, dev, s8m)
+    del s8m["index"], s8m["run"], s8m["select"], s8m["probe"], s8m["oracle"]
+    torch.cuda.empty_cache()
+    phase("11b", phase_born_sharded, dev, s8m)
+    del s8m
+    torch.cuda.empty_cache()
+    phase("9", phase_engine, dev)
+    phase("11c", phase_sharded_engine, dev)
+    phase("9s", phase_engine_cuda_vs_cpu, dev)
+    launches += phase("12a", phase_quality, dev)
+    launches += phase("12d", phase_tools, dev)
+    phase("12b", phase_sweep, dev)
+    launches += phase("12c", phase_plot_matching, dev)
+    print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s",
+          file=_STDOUT, flush=True)
+    kernels = []
+    for name, source, replaces, n, rec in (
+            ("shifted_dot_greedy", "shifted_dot.cu",
+             "ann_solo_tpu/ops/shifted_dot_pallas.py:35", launches, record),
+            ("ivf_probe_scan", "ivf_probe_scan.cu",
+             "ann_solo_tpu/ops/ivf_probe_pallas.py:105", big_launches,
+             probe_record),
+            ("ivf_chunked_scan", "ivf_chunked_scan.cu",
+             "ann_solo_tpu/ops/ivf_scan_pallas.py:146", b3_launches,
+             scan_record)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"ann_solo_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": n,
+            "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"],
+            "library_ms": None,
+        })
+    return kernels, smi
+
+
+def _report_failure():
+    """The failing phase, its traceback and the log's last lines on
+    standard output."""
+    seconds = time.perf_counter() - _PHASE["start"]
+    print(f"chip_smoke {_PHASE['label']}: FAILED after {seconds:.1f} s",
+          file=_STDOUT)
+    print(traceback.format_exc(), file=_STDOUT, end="")
+    if _LOG is not None:
+        _LOG.flush()
+        with open(LOG_PATH) as f:
+            tail = f.readlines()[-30:]
+        print(f"last lines of {os.path.relpath(LOG_PATH)}:", file=_STDOUT)
+        for line in tail:
+            print("  " + line.rstrip()[:400], file=_STDOUT)
+    _STDOUT.flush()
+
+
 def main():
+    global _LOG
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         sys.exit(2)
-    t_start = time.perf_counter()
-    dev = phase_device()
-    phase_build()
-    record = phase_kernel(dev)
-    probe_record = phase_probe_kernel(dev)
-    scan_record = phase_scan_kernel(dev)
-    launches, index, lib, lib_arrays, params = phase_slice(dev)
-    phase_preprocess(dev, index, lib, lib_arrays, params)
-    del index, lib
-    phase_cuda_vs_cpu(dev)
-    big = phase_big_slice(dev)
-    b3_launches = phase_b3_slice(dev, big)
-    phase_streaming_switch(dev, big)
-    big_launches = big["launches"]
-    del big  # phases 7 and 8's library, index and batches
-    torch.cuda.empty_cache()
-    s8m = phase_streaming_8m(dev)
-    big_launches += phase_sharded_8m(dev, s8m)
-    del s8m["index"], s8m["run"], s8m["select"], s8m["probe"], s8m["oracle"]
-    torch.cuda.empty_cache()
-    phase_born_sharded(dev, s8m)
-    del s8m
-    torch.cuda.empty_cache()
-    phase_engine(dev)
-    phase_sharded_engine(dev)
-    phase_engine_cuda_vs_cpu(dev)
-    launches += phase_quality(dev)
-    phase_sweep(dev)
-    launches += phase_plot_matching(dev)
-    log(f"total {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"kernels": [
-        {
-            "name": "shifted_dot_greedy",
-            "route": "cuda",
-            "source": "ann_solo_tpu_torch/csrc/shifted_dot.cu",
-            "replaces": "ann_solo_tpu/ops/shifted_dot_pallas.py:35",
-            "launches": launches,
-            "max_abs_err": record["max_abs_err"],
-            "ms": record["ms"],
-            "plain_ms": record["plain_ms"],
-            "bound_ms": record["bound_ms"],
-            "bound_by": record["bound_by"],
-            "library_ms": None,
-        },
-        {
-            "name": "ivf_probe_scan",
-            "route": "cuda",
-            "source": "ann_solo_tpu_torch/csrc/ivf_probe_scan.cu",
-            "replaces": "ann_solo_tpu/ops/ivf_probe_pallas.py:105",
-            "launches": big_launches,
-            "max_abs_err": probe_record["max_abs_err"],
-            "ms": probe_record["ms"],
-            "plain_ms": probe_record["plain_ms"],
-            "bound_ms": probe_record["bound_ms"],
-            "bound_by": probe_record["bound_by"],
-            "library_ms": None,
-        },
-        {
-            "name": "ivf_chunked_scan",
-            "route": "cuda",
-            "source": "ann_solo_tpu_torch/csrc/ivf_chunked_scan.cu",
-            "replaces": "ann_solo_tpu/ops/ivf_scan_pallas.py:146",
-            "launches": b3_launches,
-            "max_abs_err": scan_record["max_abs_err"],
-            "ms": scan_record["ms"],
-            "plain_ms": scan_record["plain_ms"],
-            "bound_ms": scan_record["bound_ms"],
-            "bound_by": scan_record["bound_by"],
-            "library_ms": None,
-        },
-    ]}), flush=True)
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+    _LOG = open(LOG_PATH, "w")
+    try:
+        kernels, smi = run_phases()
+    except BaseException:
+        _report_failure()
+        sys.exit(1)
+    finally:
+        _LOG.close()
+        _LOG = None
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

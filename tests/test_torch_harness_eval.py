@@ -162,6 +162,81 @@ def test_ssm_stats_missing_values_and_numeric_ids(tmp_path):
             jax_eval.ssm_stats(want_ssms, fdr)
 
 
+def _zero_padded_copy(results, tmp_path):
+    """The port's bf mzTab and its query file with every PSM_ID renamed to
+    a zero-padded number ("001", "002", ...): (mzTab path, old id -> new
+    id)."""
+    _, _, query_path, files = results
+    lines = open(files["bf"]["torch"]).read().splitlines(keepends=True)
+    header = next(line for line in lines if line.startswith("PSH"))
+    col = header.rstrip("\n").split("\t").index("PSM_ID")
+    renamed = {}
+    for line in lines:
+        if line.startswith("PSM\t"):
+            qid = line.split("\t")[col]
+            renamed.setdefault(qid, f"{len(renamed) + 1:03d}")
+    mgf = tmp_path / "queries_padded.mgf"
+    mgf.write_text("".join(
+        f"TITLE={renamed.get(line[6:].strip(), line[6:].strip())}\n"
+        if line.startswith("TITLE=") else line
+        for line in open(query_path)))
+    out = []
+    for line in lines:
+        if line.startswith("PSM\t"):
+            fields = line.split("\t")
+            fields[col] = renamed[fields[col]]
+            line = "\t".join(fields)
+        elif line.startswith("MTD\tms_run[1]-location"):
+            line = f"MTD\tms_run[1]-location\tfile://{mgf}\n"
+        out.append(line)
+    path = tmp_path / "padded.mztab"
+    path.write_text("".join(out))
+    return str(path), renamed
+
+
+def test_zero_padded_psm_ids(results, tmp_path, monkeypatch):
+    """PSM_IDs such as "007": the port keeps them as written, so its
+    mzTab reader, the QUALITY statistics and the mirror plot find each
+    query; the JAX package reads them through pandas as the numbers 7,
+    ... and misses them (a deliberate difference)."""
+    from types import SimpleNamespace
+
+    from ann_solo_tpu import quality as jax_quality
+    from ann_solo_tpu_torch import quality as torch_quality
+
+    path, renamed = _zero_padded_copy(results, tmp_path)
+    ssms = read_mztab_ssms(path)
+    assert ssms.index == [renamed[q] for q in
+                          read_mztab_ssms(results[3]["bf"]["torch"]).index]
+    assert [str(q) for q in jax_read_ssms(path).index] == \
+        [q.lstrip("0") for q in ssms.index]
+    # The truth of QUALITY's form: each target PSM's own sequence.
+    decoy = ssms["opt_ms_run[1]_cv_MS:1002217_decoy_peptide"]
+    truth = {q: seq for q, seq, d in zip(ssms.index, ssms["sequence"], decoy)
+             if not d}
+    parsed = SimpleNamespace(fdr=0.05)
+    got = torch_quality._mztab_stats(path, truth, parsed)
+    want = jax_quality._mztab_stats(path, truth, parsed)
+    assert got["n_confident"] == want["n_confident"] > 0
+    assert got["n_correct"] == got["n_confident"]
+    assert got["accuracy"] == 1.0
+    assert want["n_correct"] == 0
+
+    original = {new: old for old, new in renamed.items()}
+    qid = next(q for q in ssms.index if original[q].startswith("q_open"))
+    monkeypatch.setattr(jax_search.SpectralLibrary, "_make_library_mesh",
+                        staticmethod(lambda: None))
+    monkeypatch.setattr(jax_plot, "mirror_plot", lambda *args: None)
+    with pytest.raises(ValueError, match="not present"):
+        jax_plot.main([path, qid])
+    match, = torch_plot.ssm_matches(path, [qid], device="cpu")
+    ref, = torch_plot.ssm_matches(results[3]["bf"]["torch"],
+                                  [original[qid]], device="cpu")
+    np.testing.assert_array_equal(match.peak_matches, ref.peak_matches)
+    assert len(match.peak_matches) > 0
+    assert match.score == ref.score
+
+
 def test_eval_main_prints_the_same_json(results, capsys):
     for path in _all_files(results):
         for args in ([path], [path, "--fdr", "0.2"]):

@@ -9,7 +9,8 @@ anywhere in it (at top level or inside a function) may name
 `sklearn`, or a submodule of one; `matplotlib` only inside
 `plot.py::mirror_plot`.  Every module of `ann_solo_tpu/` has a module of
 the same path in `ann_solo_tpu_torch/` or is listed with the reason it
-has none.  The port's MurmurHash3 bin table and mass constants are held
+has none, and so does every root script and every `tools/*.py` of the
+JAX side.  The port's MurmurHash3 bin table and mass constants are held
 equal to the JAX package's here; the other copies in
 `test_torch_engine_*.py`.
 """
@@ -45,6 +46,33 @@ NO_COUNTERPART = {
                  "predicts FASTA spectra locally (io/fasta.py)",
     "utils/jax_cache.py": "XLA's compilation cache: the port's kernels are "
                           "cached by ops/_build.py in build/kernels/",
+}
+# The JAX side's root scripts and tools with their counterparts in the
+# port, and those without one with the reason.
+SCRIPT_COUNTERPARTS = {
+    "bench.py": "ann_solo_tpu_torch/bench.py",
+    "scale_demo.py": "ann_solo_tpu_torch/scale_demo.py",
+    "tools/bf_profile.py": "ann_solo_tpu_torch/tools/bf_profile.py",
+    "tools/probe_diag.py": "ann_solo_tpu_torch/tools/probe_diag.py",
+    "tools/fdr_leak_diag.py": "ann_solo_tpu_torch/tools/fdr_leak_diag.py",
+    "__graft_entry__.py": "chip_smoke.py",
+}
+_V5E_LADDER = ("a v5e ladder of XLA formulations and compiles; the H100 "
+               "counterpart is chip_smoke.py's phases")
+NO_SCRIPT_COUNTERPART = {
+    "tools/profile_fullscan.py": _V5E_LADDER,
+    "tools/profile_rescore.py": _V5E_LADDER,
+    "tools/profile_scale_select.py": _V5E_LADDER,
+    "tools/profile_vectorize.py": _V5E_LADDER,
+    "tools/microbench_select.py": _V5E_LADDER,
+    "tools/microbench_stage1.py": _V5E_LADDER,
+    "tools/exp_fullscan_fused.py": _V5E_LADDER,
+    "tools/exp_stage1_nodiff0.py": _V5E_LADDER,
+    "tools/warmup_census.py": "a census of XLA compile stalls on the TPU; "
+                              "the port compiles its kernels with nvcc "
+                              "once (ops/_build.py)",
+    "tools/assemble_scale_r05.py": "assembles a TPU record (SCALE_r05) from "
+                                   "TPU runs",
 }
 _NOT_ON_THE_GPU_MACHINE = ("ann_solo_tpu", "jax", "jaxlib", "ml_dtypes",
                            "pandas", "h5py", "sklearn")
@@ -108,6 +136,25 @@ def test_every_jax_module_has_a_counterpart():
     for name in ("csrc/shifted_dot.cu", "csrc/ivf_probe_scan.cu",
                  "csrc/ivf_chunked_scan.cu", "ops/_build.py"):
         assert os.path.isfile(os.path.join(REPO, "ann_solo_tpu_torch", name))
+
+
+def test_every_script_has_a_counterpart():
+    """Each root script and `tools/*.py` of the JAX side has an existing
+    counterpart or a reason in `NO_SCRIPT_COUNTERPART`; no entry is left
+    over for a script that no longer exists."""
+    scripts = {name for name in os.listdir(REPO) if name.endswith(".py")}
+    scripts.discard("chip_smoke.py")  # the port's own
+    scripts |= {f"tools/{name}"
+                for name in os.listdir(os.path.join(REPO, "tools"))
+                if name.endswith(".py")}
+    assert not set(SCRIPT_COUNTERPARTS) & set(NO_SCRIPT_COUNTERPART)
+    missing = scripts - set(SCRIPT_COUNTERPARTS) - set(NO_SCRIPT_COUNTERPART)
+    assert not missing, f"no counterpart and no reason: {sorted(missing)}"
+    left_over = (set(SCRIPT_COUNTERPARTS) | set(NO_SCRIPT_COUNTERPART)) \
+        - scripts
+    assert not left_over, f"entries for no script: {sorted(left_over)}"
+    for port in SCRIPT_COUNTERPARTS.values():
+        assert port in _SOURCES
 
 
 @pytest.mark.parametrize("n_bins,hash_len,seed", [
