@@ -7,9 +7,9 @@ defaults (auto num_list -> 4,096 lists here, num_probe 512, x2 SOAR, int8
 lists), and 4 batches of 4,096 charge-2 queries (noised copies of library
 rows) searched open at +-500 Da with 512 candidates: vectorize -> select
 (`IvfIndex.search_device`, the window fused) -> exact shifted-dot
-rescoring (`rescore_candidate_matrix`, kernel B1 on the card) -> best
-match.  A second leg keeps the reference's 1,024 candidates.  The library
-build (k-means and list packing) is timed apart, cold and again.
+rescoring (`rescore_candidate_matrix`, kernels B4 and B1 on the card)
+-> best match.  A second leg keeps the reference's 1,024 candidates.  The
+library build (k-means and list packing) is timed apart, cold and again.
 
     python -m ann_solo_tpu_torch.bench [--no_gpu]
 

@@ -73,6 +73,24 @@ def ensure_built(name: str) -> Path:
     return out
 
 
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled symbol
+    (`_Z[N]<len><name>...`): the length-prefixed name that ends in
+    "kernel", then its integer template arguments, e.g.
+    "stage1_bounds_kernelILi16ELi2EE"."""
+    m = re.match(r"_ZN?", mangled)
+    at = m.end() if m else len(mangled)
+    while at < len(mangled) and mangled[at].isdigit():
+        digits = re.match(r"\d+", mangled[at:]).group()
+        at += len(digits)
+        ident = mangled[at:at + int(digits)]
+        at += int(digits)
+        if ident.endswith("kernel"):
+            args = re.match(r"I(?:L[^E]*E)+E", mangled[at:])
+            return ident + (args.group() if args else "")
+    return mangled
+
+
 def ptxas_report(name: str) -> list:
     """One line per kernel of the last build of `csrc/<name>.cu`: its
     registers and spills as `ptxas -v` reported them (empty if the
@@ -84,9 +102,7 @@ def ptxas_report(name: str) -> list:
     for line in path.read_text().splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            short = re.search(r"([A-Za-z_]*kernel)(I\w*?E)?", entry.group(1))
-            kernel = short.group(1) + (short.group(2) or "") if short else (
-                entry.group(1))
+            kernel = _kernel_name(entry.group(1))
             spills = ""
         elif kernel and "spill" in line:
             spills = line.strip()

@@ -1,12 +1,16 @@
 """Exact per-query best candidate under greedy shifted-dot scoring.
 
 Port of `ann_solo_tpu/ops/rescore.py`: a cheap upper bound on every
-(query, candidate) pair's greedy score (stage 1, plain PyTorch), then the
-greedy kernel on each query's top-t candidates by bound with an optimality
-certificate (stage 2), escalating t0 -> top_t -> all C candidates for the
-queries whose certificate fails.  The certificate keeps the result exact:
-the winner is always the true greedy argmax over the candidate row; among
-exact score ties the first candidate in bound order wins.
+(query, candidate) pair's greedy score (stage 1: kernel B4 on the card,
+`ops/stage1_cuda.py`, its plain PyTorch version `stage1_bounds_plain` on
+the CPU), then the greedy kernel on each query's top-t candidates by
+bound with an optimality certificate (stage 2), escalating t0 -> top_t ->
+all C candidates for the queries whose certificate fails.  The
+certificate keeps the result exact: the winner is always the true greedy
+argmax over the candidate row; among exact score ties the first
+candidate in bound order wins.  The bounds' sum over query peaks runs in
+one stated order on both devices, so that order is the same on the card
+and on the CPU.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ann_solo_tpu_torch.ops import stage1_cuda
 from ann_solo_tpu_torch.ops.shifted_dot import TWO_THIRDS
 from ann_solo_tpu_torch.ops.shifted_dot_cuda import (
     PAIR_BLOCK,
@@ -31,19 +36,21 @@ _GREEDY_CHUNK = 8192  # pairs per full-C greedy call
 
 
 @torch.no_grad()
-def _stage1_bounds(
+def stage1_bounds_plain(
     q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec,
     cand_ids,  # (B, C) int, -1 = invalid
     fragment_mz_tolerance: float, num_shifts: int, allow_shift: bool,
     c_chunk: int,
 ):
     """Per-pair upper bound ub = sum_i max_j score(i, j) for the (B, C)
-    matrix (-inf for invalid candidates).  The row max factorizes (score =
-    mult * q_int[i] * c_int[j], q_int >= 0), so no (P, K, K) product is
-    formed: per shift one compare against the m/z differences and a row
-    max of the multiplier-weighted candidate intensities.  Only the valid
-    pairs are computed, B * `c_chunk` at a time: window rows are mostly
-    padding past their window's end."""
+    matrix (-inf for invalid candidates), the plain version of kernel B4.
+    The row max factorizes (score = mult * q_int[i] * c_int[j], q_int >=
+    0), so no (P, K, K) product is formed: per shift one compare against
+    the m/z differences and a row max of the multiplier-weighted candidate
+    intensities.  The sum over query peaks is taken in a stated order,
+    i = 0, 1, ..., K - 1 from +0.0, which the kernel follows.  Only the
+    valid pairs are computed, B * `c_chunk` at a time: window rows are
+    mostly padding past their window's end."""
     b, c = cand_ids.shape
     dev = q_mz.device
     f32 = torch.float32
@@ -81,8 +88,36 @@ def _stage1_bounds(
                 vmax = torch.maximum(
                     vmax, torch.where(within, cterm, zero).amax(2)
                 )
-        out[flat] = (qi * vmax).sum(1) * BOUND_INFLATION
+        terms = qi * vmax
+        ub = torch.zeros(terms.shape[0], dtype=f32, device=dev)
+        for i in range(terms.shape[1]):
+            ub = ub + terms[:, i]
+        out[flat] = ub * BOUND_INFLATION
     return out.view(b, c)
+
+
+def _stage1_bounds(
+    q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec,
+    cand_ids,  # (B, C) int64, -1 = invalid
+    fragment_mz_tolerance: float, num_shifts: int, allow_shift: bool,
+    c_chunk: int,
+):
+    """Stage 1 routed by the tensors' device: CUDA tensors launch kernel B4
+    on the whole matrix at once (`c_chunk` unused) or raise, CPU tensors
+    take `stage1_bounds_plain`."""
+    if q_mz.device.type == "cuda":
+        return stage1_cuda.stage1_bounds(
+            *(t.contiguous() for t in (
+                q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec,
+                cand_ids)),
+            fragment_mz_tolerance, num_shifts, allow_shift,
+        )
+    if q_mz.device.type != "cpu":
+        raise ValueError(f"stage 1: unsupported device {q_mz.device}")
+    return stage1_bounds_plain(
+        q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec, cand_ids,
+        fragment_mz_tolerance, num_shifts, allow_shift, c_chunk,
+    )
 
 
 @torch.no_grad()

@@ -20,9 +20,10 @@ control, on one device:
   4.  extract the greedy peak matches of each query's best pair.
 
 Both kinds of level rescore with `ops/rescore.py::rescore_candidate_matrix`
-and extract matches with `best_pair_matches`, which run the greedy
-shifted-dot kernel (B1) on the card.  Batches are cut for memory only: a
-query's result never depends on the other queries of its batch.
+(the stage-1 bound kernel B4, then the greedy shifted-dot kernel B1 on
+the card) and extract matches with `best_pair_matches` (B1).  Batches
+are cut for memory only: a query's result never depends on the other
+queries of its batch.
 
 With ``--num_shards`` and more than one CUDA device the engine builds the
 JAX engine's (dp, lib) mesh (`_make_library_mesh`): each charge's index is

@@ -14,10 +14,10 @@ first N queries of a workdir that `quality.py` wrote (`library.splib`,
 With ``--trace DIR`` the search runs a second time with every rescoring
 call under `utils.profiling.device_trace` (one Chrome trace a call in
 DIR), and the device time of the traces is summed by kernel: the greedy
-shifted-dot kernel B1 against every other kernel inside rescoring (the
-stage-1 bounds and stage 2's selection, plain PyTorch).  The profiler
-slows what it traces: take shares from the traced run, seconds from the
-untraced one.
+shifted-dot kernel B1 and the stage-1 bound kernel B4 against every
+other kernel inside rescoring (stage 2's selection, plain PyTorch).  The
+profiler slows what it traces: take shares from the traced run, seconds
+from the untraced one.
 
     python -m ann_solo_tpu_torch.tools.bf_profile <workdir> [n_queries]
         [--trace DIR] [--no_gpu]
@@ -41,6 +41,7 @@ from typing import Dict, Optional
 import numpy as np
 
 B1_KERNEL = "shifted_dot_greedy_kernel"  # csrc/shifted_dot.cu
+B4_KERNEL = "stage1_bounds_kernel"  # csrc/stage1_bounds.cu
 # Chrome-trace categories of device activity.
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -162,8 +163,8 @@ def kernel_seconds(trace_dir: str) -> Dict[str, float]:
 def profile(workdir: str, n_queries: int = 2048, no_gpu: bool = False,
             trace_dir: Optional[str] = None) -> dict:
     """The breakdown as a dict (on the GPU, or the CPU with `no_gpu`);
-    with `trace_dir`, also the traced run's device seconds of B1 and of
-    the other kernels inside rescoring."""
+    with `trace_dir`, also the traced run's device seconds of B1, of B4
+    and of the other kernels inside rescoring."""
     from ann_solo_tpu_torch.config import config
     from ann_solo_tpu_torch.quality import _cli_args
 
@@ -205,6 +206,7 @@ def profile(workdir: str, n_queries: int = 2048, no_gpu: bool = False,
                 os.environ["ANN_SOLO_TORCH_TRACE_DIR"] = previous
         by_name = kernel_seconds(trace_dir)
         b1 = sum(v for k, v in by_name.items() if B1_KERNEL in k)
+        b4 = sum(v for k, v in by_name.items() if B4_KERNEL in k)
         total = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
         out["trace"] = {
@@ -214,8 +216,10 @@ def profile(workdir: str, n_queries: int = 2048, no_gpu: bool = False,
             "search_sec_traced": t_traced,
             "device_sec": total,
             "b1_sec": b1,
-            "other_kernels_sec": total - b1,
+            "b4_sec": b4,
+            "other_kernels_sec": total - b1 - b4,
             "b1_share": b1 / total if total else None,
+            "b4_share": b4 / total if total else None,
             "top_kernels_sec": [[k[:90], v] for k, v in top],
         }
     return out
@@ -236,7 +240,8 @@ def print_table(out: dict) -> None:
         tr = out["trace"]
         print(f"traced rescoring ({tr['n_traces']} traces): device "
               f"{tr['device_sec']:.3f}s, B1 {tr['b1_sec']:.3f}s "
-              f"({100 * (tr['b1_share'] or 0):.3g}%), other kernels "
+              f"({100 * (tr['b1_share'] or 0):.3g}%), B4 {tr['b4_sec']:.3f}s "
+              f"({100 * (tr['b4_share'] or 0):.3g}%), other kernels "
               f"{tr['other_kernels_sec']:.3f}s")
 
 

@@ -11,12 +11,12 @@ with a non-zero exit and no final line, after printing the phase, its
 traceback and the log's last lines.  The engine's logging goes to
 standard error.
 
-Phases, in the order they run (1-6, 7, 8, 7b, 10a, 10b, 11a, 11b, 9,
-11c, 9s, 12a, 12d, 12b, 12c), each raising on failure:
+Phases, in the order they run (1-3c, 3d, 4-6, 7, 8, 7b, 10a, 10b, 11a,
+11b, 9, 11c, 9s, 12a, 12d, 12b, 12c), each raising on failure:
 
 1. device: needs CUDA; prints torch/CUDA versions and the card's name and
    power limit as nvidia-smi reports them;
-2. build: compiles the three CUDA kernels from `ann_solo_tpu_torch/csrc/`
+2. build: compiles the four CUDA kernels from `ann_solo_tpu_torch/csrc/`
    and the three native C++ library parsers from `csrc/native/` (into
    `build/native/`), one nvcc or g++ per source, all started together;
    a parser that does not build or load fails the run;
@@ -51,19 +51,30 @@ Phases, in the order they run (1-6, 7, 8, 7b, 10a, 10b, 11a, 11b, 9,
    chunk) rows identical (another float32 summation order can move a
    score across a bf16 rounding boundary), and over the queries neither
    side flags, >= 99.9% of (position, score) lanes equal with every
-   16-bit key within one step.  Phases 3-3c log each kernel's time
+   16-bit key within one step;
+3d. kernel B4 vs plain: rescore stage 1's bounds, through its routing
+   (`ops/rescore.py::_stage1_bounds`), against `stage1_bounds_plain` on
+   the card: the bench's 4,096 x 512 matrix and its 1,024-candidate leg
+   (131,072 library spectra, K = 50, charge 2), a narrow (C = 256) and a
+   wide (C = 16,384, mostly -1) window matrix of 1,024 rows, one and five
+   and six shifts, shifts off, Kq = 56 against Kc = 70 and Kq = 32
+   against Kc = 20.  Bounds must be equal bit for bit (rtol 0: the same
+   float32 operations, the sum over query peaks in the stated order),
+   -inf cells included.  Phases 3-3d log each kernel's time
    beside its bound: the larger of its bytes (each input read once, each
    output written once; for B2 and B3 only the lists and chunks this
-   run's probes touch) over 3.35 TB/s and its operations over the peak
-   rate of their type (bf16 tensor cores for B2 and B3, f32 for B1: the
-   matrix build alone, since the greedy walks only positive entries);
+   run's probes touch, for B4 the library rows its ids name) over 3.35
+   TB/s and its operations over the peak rate of their type (bf16 tensor
+   cores for B2 and B3, f32 for B1 and B4: B1's matrix build alone, since
+   the greedy walks only positive entries; B4's per valid pair);
 4. the bench (`ann_solo_tpu_torch.bench.run`, what ``python -m
    ann_solo_tpu_torch.bench`` prints): a 131,072-spectrum library (K = 50
    peaks, hash_len 800), auto num_list, num_probe 512, x2 SOAR
    redundancy, int8 storage, built twice; 4 batches of 4,096 charge-2
    queries, +-500 Da, 512 candidates, fragment tolerance 0.04,
    vectorize -> select -> certificate rescoring, then the 1,024-candidate
-   leg.  Gates: self-match hit rate >= 0.95 per batch; B1 launched;
+   leg.  Gates: self-match hit rate >= 0.95 per batch; B1 and B4
+   launched;
 5. preprocess: a raw 4,096-spectrum block through `preprocess_batch`
    (CUDA vs CPU identical) and one more search batch;
 6. CUDA vs CPU: the same slice on a 16,384-spectrum index with 256 queries
@@ -73,8 +84,8 @@ Phases, in the order they run (1-6, 7, 8, 7b, 10a, 10b, 11a, 11b, 9,
    2,097,152-spectrum library made and vectorized on the card, an int8
    index of 4,096 lists, num_probe 64, no redundancy (the f32 vectors are
    freed after the build); 4 timed batches of 1,024 queries with 1,024
-   candidates through the probe path.  Gates: B2's launch count grows
-   during the timed batches; on one batch the probe path agrees with the
+   candidates through the probe path.  Gates: B2's and B4's launch counts
+   grow during the timed batches; on one batch the probe path agrees with the
    per-query oracle run on the card (>= 99.9% of (id, score) lanes equal,
    every 16-bit key within one step, no duplicate ids); best-match hit
    rate >= 0.95 per batch, or, for a batch below it, no lower than the
@@ -121,9 +132,9 @@ Phases, in the order they run (1-6, 7, 8, 7b, 10a, 10b, 11a, 11b, 9,
    at each boundary; store and index load or write seconds, FDR feature
    and model seconds apart for each level), each file's bytes, the
    forest's grid winners per fold, queries/s of the search, peak device
-   memory, B1's launches and the identification counts from the mzTab
-   beside the JAX package's (QUALITY_r05.json).  Gates, every run: the
-   CLI returns 0; B1 launched; each charge's open level went through
+   memory, B1's and B4's launches and the identification counts from the
+   mzTab beside the JAX package's (QUALITY_r05.json).  Gates, every run:
+   the CLI returns 0; B1 and B4 launched; each charge's open level went through
    `IvfIndex.search_device` and its std level through window rescoring;
    accuracy among confident PSMs >= 0.95; confident PSMs >= 0.9 x the
    9,500 non-foreign queries.  Runs B and C besides: the store and both
@@ -211,7 +222,8 @@ Phases, in the order they run (1-6, 7, 8, 7b, 10a, 10b, 11a, 11b, 9,
    truth.json) and QUALITY r05's settings (100,000 peptides, 10,000
    queries, seed 42, --model none, num_probe 256, 1,024 candidates, int8;
    run A's settings hash), both legs and the recall curve, each leg
-   timed with its peak device memory, B1's launches and the regimes.
+   timed with its peak device memory, B1's and B4's launches and the
+   regimes (each leg must launch both).
    Gates: the ann leg loads the store and both indexes (no library read,
    decoy, preprocess or index build seconds) and writes run A's PSM
    lines; the bf leg loads the store and runs every level of both charges
@@ -223,11 +235,12 @@ Phases, in the order they run (1-6, 7, 8, 7b, 10a, 10b, 11a, 11b, 9,
 12d. the diagnostics on 12a's workdir (`ann_solo_tpu_torch.tools`):
    `bf_profile` on its first 2,048 queries, untraced, then traced
    (`device_trace` around each rescoring call, the traces' device time
-   summed by kernel: B1 against the rest, stage 1 mostly); `probe_diag`
+   summed by kernel: B1 and B4 against the rest); `probe_diag`
    (probed-list recall of bf's SSMs by depth and ordering, on bf16
    indexes built and written beside the library); `fdr_leak_diag`
    (calibration and foreign leak of both legs).  Gates: both levels
-   rescored windows, B1 launched and holds device time in the traces; SSMs
+   rescored windows, B1 and B4 launched and hold device time in the
+   traces; SSMs
    checked, no recall falls as the depth grows; both legs diagnosed;
 12b. the SWEEP harness at its defaults (`sweep.main`: 131,072 Gaussian
    unit vectors of width 800, 1,024 queries, num_list {1,024, 2,048,
@@ -245,8 +258,10 @@ Phases, in the order they run (1-6, 7, 8, 7b, 10a, 10b, 11a, 11b, 9,
 
 The line before the last is the kernels' JSON record (B1's launches:
 phase 4's bench run and phases 12a, 12d and 12c; B2's: phase 7's and
-phase 11a's timed batches and phase 7b's run); the last line is ``{"ok":
-true, "device": {...}}``.
+phase 11a's timed batches and phase 7b's run; B3's: phase 8's; B4's:
+phase 4's bench run, phase 7's timed batches, phase 9's three CLI runs
+and phases 12a and 12d); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -326,6 +341,28 @@ SCAN_CASES = (
      False, False),
     ("exact_ragged_bf16", 200, 128, 24, 8, 256, 100, "bf16", 50.0, "Da", 512,
      True, False),
+)
+
+# Kernel B4 cases: (name, B, C, library rows, query peaks, library peaks,
+# charge, allow_shift, candidate rows).  "bench": the bench's rescoring
+# matrix (4,096 x 512, then its 1,024-candidate leg); "window": contiguous
+# library rows from a random start, -1 past a random width (at most
+# C / 8 wide, so a wide row is mostly padding), one row in 16 all -1, as
+# the window levels build them (`search._window_cand_matrix`).  Query
+# tiles (`ops.stage1_cuda.i_tile`): 10 peaks at K = 50, 8 at Kq = 56, 16
+# at Kq = 32; Kc = 70 stages the candidate peaks in two chunks; six shifts
+# take the kernel's loop over any shift count.
+STAGE1_CASES = (
+    ("bench_chunk", 4096, 512, 131072, 50, 50, 2, True, "bench"),
+    ("bench_1024", 4096, 1024, 131072, 50, 50, 2, True, "bench"),
+    ("window_narrow", 1024, 256, 100_000, 50, 50, 2, True, "window"),
+    ("window_wide", 1024, 16384, 100_000, 50, 50, 2, True, "window"),
+    ("shifts_1", 4096, 512, 131072, 50, 50, 0, True, "bench"),
+    ("shifts_5", 1024, 512, 131072, 50, 50, 4, True, "bench"),
+    ("noshift", 1024, 512, 131072, 50, 50, 2, False, "bench"),
+    ("shifts_6", 256, 512, 131072, 50, 50, 5, True, "bench"),
+    ("kq_ne_kc", 1024, 512, 131072, 56, 70, 3, True, "bench"),
+    ("k32_k20", 1024, 512, 131072, 32, 20, 2, True, "window"),
 )
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, 700 W) for the
@@ -541,6 +578,47 @@ def synth_pairs(rng, p, kq, kc, charge, ties):
     )
 
 
+def synth_stage1(rng, b, c, n_lib, kq, kc, charge, cand_rows="bench",
+                 close_prec=0.25):
+    """Kernel B4 inputs in NumPy: a library of `n_lib` spectra (`kc` peaks,
+    annotations 0..charge) and `b` queries, each made from a library row
+    with direct, shifted (by mod / s, s = 1..charge, as a precursor
+    shift of mod makes them) and random peaks, a quarter with the row's
+    own precursor (|delta prec| < tol: no shifted terms).  Candidate rows
+    are `cand_rows`: "bench" (random ids with the source row among them,
+    about 1 in 10 slots -1) or "window" (see STAGE1_CASES)."""
+    f32 = np.float32
+    lib_mz = np.sort(rng.uniform(100, 1500, (n_lib, kc)), 1).astype(f32)
+    lib_int = rng.uniform(0.05, 1.0, (n_lib, kc)).astype(f32)
+    lib_ann = rng.integers(0, charge + 1, (n_lib, kc)).astype(np.int32)
+    lib_prec = rng.uniform(400, 1200, n_lib).astype(f32)
+    src = rng.integers(0, n_lib, b)
+    mod = rng.choice([0.0, 16.0, 79.97], b).astype(f32)
+    mod[rng.random(b) < close_prec] = 0.0
+    q_mz = rng.uniform(100, 1500, (b, kq)).astype(f32)
+    m = min(kq, kc)
+    a, d = min(12, m), min(20, m)
+    q_mz[:, :a] = lib_mz[src, :a] + rng.uniform(-0.03, 0.03, (b, a))
+    s = rng.integers(1, max(charge, 1) + 1, (b, d - a))
+    q_mz[:, a:d] = lib_mz[src, a:d] + mod[:, None] / s
+    q_mz = np.sort(q_mz, 1)
+    q_int = rng.uniform(0.05, 1.0, (b, kq)).astype(f32)
+    q_prec = (lib_prec[src] + mod / max(charge, 1)).astype(f32)
+    if cand_rows == "bench":
+        cand = rng.integers(0, n_lib, (b, c))
+        cand[rng.random((b, c)) < 0.1] = -1
+        cand[np.arange(b), rng.integers(0, c, b)] = src
+    else:
+        lo = rng.integers(0, n_lib, b)
+        width = rng.integers(0, c // 8 + 1, b)
+        width[rng.random(b) < 1 / 16] = 0
+        cand = lo[:, None] + np.arange(c)[None]
+        cand = np.where((np.arange(c)[None] < width[:, None])
+                        & (cand < n_lib), cand, -1)
+    return (q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec,
+            cand.astype(np.int64))
+
+
 def phase_device():
     import torch
 
@@ -563,7 +641,8 @@ def phase_device():
 PARSERS = ("splib_parser", "sptxt_parser", "mgf_parser")
 
 
-def phase_build(names=("shifted_dot", "ivf_probe_scan", "ivf_chunked_scan"),
+def phase_build(names=("shifted_dot", "ivf_probe_scan", "ivf_chunked_scan",
+                       "stage1_bounds"),
                 parsers=PARSERS):
     """Build every kernel source (one nvcc each) and every native parser
     (one g++ each) at once, then load them; a build that fails raises."""
@@ -677,6 +756,75 @@ def phase_kernel(dev, cases=KERNEL_CASES, kernel_reps=20, plain_reps=3):
             f"shift={shift} ties={ties} tol={tol}: identical ({n_match} "
             f"matches, {n_pos:.1f} positive entries a pair); kernel "
             f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return record
+
+
+def phase_stage1_kernel(dev, cases=STAGE1_CASES, kernel_reps=20,
+                        plain_reps=2):
+    """Phase 3d: kernel B4, through stage 1's routing
+    (`rescore._stage1_bounds`: the kernel on the card, the plain version on
+    the CPU), against its plain version on the same tensors: bounds equal
+    bit for bit, -inf cells included.  Returns the record of the bench
+    chunk (times) and the largest difference (0)."""
+    import torch
+
+    from ann_solo_tpu_torch.ops.rescore import (
+        _stage1_bounds,
+        stage1_bounds_plain,
+    )
+
+    rng = np.random.default_rng(3)
+    record = {"max_abs_err": 0.0}
+    for name, b, c, n_lib, kq, kc, charge, shift, rows in cases:
+        arrays = [torch.from_numpy(a).to(dev) for a in synth_stage1(
+            rng, b, c, n_lib, kq, kc, charge, rows)]
+        n_shifts = charge + 1
+        # The engine's chunk of the plain version
+        # (`rescore_candidate_matrix`); the kernel takes the whole matrix.
+        args = (*arrays, FRAG_TOL, n_shifts, shift,
+                max(8, min(c, 65536 // b)))
+        got = _stage1_bounds(*args)
+        want = stage1_bounds_plain(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        if not torch.equal(torch.isinf(got), torch.isinf(want)):
+            raise AssertionError(f"B4 {name}: the -inf cells differ")
+        finite = torch.isfinite(want)
+        err = float((got[finite] - want[finite]).abs().max()) \
+            if bool(finite.any()) else 0.0
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"B4 {name}: kernel != plain, max |d| {err}, "
+                f"{int((got != want).sum())} cells differ")
+        ms = time_ms(lambda: _stage1_bounds(*args), dev, kernel_reps)
+        plain_ms = time_ms(lambda: stage1_bounds_plain(*args), dev,
+                           plain_reps)
+        # The function's least work, on this run's valid pairs only (an
+        # invalid slot reads no peaks): B1's count at :662, per shift a
+        # difference, a second difference, |.|, a compare and a max for
+        # each of the Kq x Kc entries, then the product and the sum.
+        # Bytes: the queries, the ids, the library rows referenced and the
+        # output, each once.
+        valid = arrays[7] >= 0
+        n_valid = int(valid.sum())
+        n_shift_terms = n_shifts if shift else 1
+        ops = n_valid * kq * kc * (5 * n_shift_terms + 2)
+        n_rows = int(torch.unique(arrays[7][valid]).numel())
+        n_bytes = (tensor_bytes(*arrays[:3], arrays[7], got)
+                   + n_rows * (kc * 12 + 4))
+        fields = bound("B4", name, ms, n_bytes, ops, F32_FLOPS)
+        if name == cases[0][0]:
+            record.update(ms=ms, plain_ms=plain_ms, **fields)
+            note(f"B4 {name} ({b} x {c}, K={kq}): {ms:.4f} ms, plain "
+                 f"{plain_ms:.2f} ms, {100 * fields['bound_ms'] / ms:.2f}% "
+                 f"of its {fields['bound_ms']:.4f} ms bound")
+        log(f"kernel B4 {name}: B={b} C={c} N={n_lib} Kq={kq} Kc={kc} "
+            f"shifts={n_shifts} shift={shift} rows={rows}: identical "
+            f"({n_valid} valid pairs, {int(finite.sum())} finite); kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+        del arrays, args, got, want
+    note(f"{len(cases)} cases bit-identical, -inf cells included")
     return record
 
 
@@ -971,19 +1119,22 @@ def phase_slice(dev, n_lib=N_LIBRARY, n_q=N_QUERIES, n_batches=N_BATCHES):
     import torch
 
     from ann_solo_tpu_torch import bench
-    from ann_solo_tpu_torch.ops import shifted_dot_cuda
+    from ann_solo_tpu_torch.ops import shifted_dot_cuda, stage1_cuda
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     shifted_dot_cuda.LAUNCHES = 0
+    stage1_cuda.LAUNCHES = 0
     out = bench.run(n_library=n_lib, n_queries=n_q, n_batches=n_batches,
                     device=dev)
     launches = shifted_dot_cuda.LAUNCHES
+    b4_launches = stage1_cuda.LAUNCHES
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     result, hit_rates = out["result"], out["hit_rates"]
     log("slice: " + json.dumps({
         "bench": result, "self_match_hit_rates": hit_rates,
-        "max_memory_allocated_bytes": peak, "b1_launches": launches}))
+        "max_memory_allocated_bytes": peak, "b1_launches": launches,
+        "b4_launches": b4_launches}))
     stages = result["stages_sec_per_batch"]
     note(f"{result['value']:.2f} q/s ({n_q} queries x {n_batches}, "
          f"{result['num_candidates']} candidates)",
@@ -994,13 +1145,13 @@ def phase_slice(dev, n_lib=N_LIBRARY, n_q=N_QUERIES, n_batches=N_BATCHES):
          f"hit rates {min(hit_rates):.4f}-{max(hit_rates):.4f}",
          f"build {result['ivf_build_sec_cold']:.2f} s cold, "
          f"{result['ivf_build_sec']:.2f} s again",
-         f"peak {peak} bytes", f"B1 launched {launches}")
+         f"peak {peak} bytes", f"B1 launched {launches}, B4 {b4_launches}")
     if min(hit_rates) < HIT_RATE_GATE or not result["hit_rate_gate_passed"]:
         raise AssertionError(f"self-match hit rate {hit_rates} < gate")
-    if launches <= 0 and dev.type == "cuda":
-        raise AssertionError("the greedy kernel was not launched")
-    return launches, out["index"], out["lib"], out["lib_arrays"], \
-        out["params"]
+    if (launches <= 0 or b4_launches <= 0) and dev.type == "cuda":
+        raise AssertionError(f"B1 launched {launches}, B4 {b4_launches}")
+    return launches, b4_launches, out["index"], out["lib"], \
+        out["lib_arrays"], out["params"]
 
 
 def synth_raw(rng, lib_arrays, n):
@@ -1286,7 +1437,7 @@ def big_library_search(dev, name, index, lib_arrays, params, gen, n_q,
         device_tables,
         vectorize_batch,
     )
-    from ann_solo_tpu_torch.ops import ivf_probe_cuda
+    from ann_solo_tpu_torch.ops import ivf_probe_cuda, stage1_cuda
     from ann_solo_tpu_torch.ops.rescore import rescore_candidate_matrix
     from ann_solo_tpu_torch.search import LibraryBlock, ann_open_search_batch
 
@@ -1311,11 +1462,13 @@ def big_library_search(dev, name, index, lib_arrays, params, gen, n_q,
     run(batches[0])  # warm-up
     synchronize(dev)
     ivf_probe_cuda.LAUNCHES = 0
+    stage1_cuda.LAUNCHES = 0
     t0 = time.perf_counter()
     outs = [run(batch) for batch in batches]
     synchronize(dev)
     elapsed = time.perf_counter() - t0
     launches = ivf_probe_cuda.LAUNCHES
+    b4_launches = stage1_cuda.LAUNCHES
     hit_rates = []
     for batch, (best, score, n_cands, matches) in zip(batches, outs):
         _check_outputs(best, score, n_cands, matches, n_lib, n_q,
@@ -1402,6 +1555,7 @@ def big_library_search(dev, name, index, lib_arrays, params, gen, n_q,
         "select_sec_probe_vs_oracle": [t_probe, t_oracle],
         "mean_candidates": float(np.mean(outs[-1][2])),
         "b2_launches": launches,
+        "b4_launches": b4_launches,
     })
     log(f"{name}: " + json.dumps(summary))
     oracle_worst = min(oracle_rates.values())
@@ -1413,9 +1567,10 @@ def big_library_search(dev, name, index, lib_arrays, params, gen, n_q,
          f"hit rates {min(hit_rates):.4f}-{max(hit_rates):.4f} (oracle's "
          f"lowest {oracle_worst:.4f})",
          f"lanes vs oracle {same_lane:.5f}", f"search peak {peak} bytes",
-         f"B2 launched {launches}")
-    if launches <= 0 and dev.type == "cuda":
-        raise AssertionError(f"{name}: kernel B2 was not launched")
+         f"B2 launched {launches}, B4 {b4_launches}")
+    if (launches <= 0 or b4_launches <= 0) and dev.type == "cuda":
+        raise AssertionError(f"{name}: kernel B2 launched {launches}, "
+                             f"B4 {b4_launches}")
     if same_lane < 0.999 or key_step > 1:
         raise AssertionError(
             f"{name}: probe path vs oracle: {same_lane} lanes equal, key16 "
@@ -1425,7 +1580,8 @@ def big_library_search(dev, name, index, lib_arrays, params, gen, n_q,
             raise AssertionError(
                 f"{name}, batch {i}: best-match hit rate {rate} below the "
                 f"gate and below the oracle's {oracle_rates[i]}")
-    return {"launches": launches, "index": index, "lib": lib,
+    return {"launches": launches, "b4_launches": b4_launches,
+            "index": index, "lib": lib,
             "batches": batches, "run": run, "embed": embed, "select": select,
             "best_match_rate": best_match_rate, "hit_rates": hit_rates,
             "queries_per_sec": summary["queries_per_sec"],
@@ -2237,20 +2393,23 @@ def engine_corpus(workdir, n_peptides, n_queries, seed):
 
 def run_engine_cli(dev, lib_path, query_path, out_path, extra=()):
     """`ann_solo_tpu_torch.cli.main` in this process on `dev`; returns
-    (the stage profile, the B1 launches of the run)."""
+    (the stage profile with B4's launches of the run under
+    "b4_launches", the B1 launches of the run)."""
     from ann_solo_tpu_torch import cli
-    from ann_solo_tpu_torch.ops import shifted_dot_cuda
+    from ann_solo_tpu_torch.ops import shifted_dot_cuda, stage1_cuda
     from ann_solo_tpu_torch.utils.profiling import profiler
 
     args = [lib_path, query_path, out_path] + ENGINE_ARGS + list(extra)
     if dev.type == "cpu":
         args.append("--no_gpu")
     shifted_dot_cuda.LAUNCHES = 0
+    stage1_cuda.LAUNCHES = 0
     rc = cli.main(args)
     if rc != 0:
         raise AssertionError(f"the CLI returned {rc}")
     return ({"totals": dict(profiler.totals), "counts": dict(profiler.counts),
-             "notes": dict(profiler.notes)}, shifted_dot_cuda.LAUNCHES)
+             "notes": dict(profiler.notes),
+             "b4_launches": stage1_cuda.LAUNCHES}, shifted_dot_cuda.LAUNCHES)
 
 
 def remove_library_files(workdir):
@@ -2269,7 +2428,7 @@ def engine_run(dev, name, lib_path, query_path, truth, n_queries, model,
     summary and holds its gates (see the module docstring); `loaded` says
     whether the store and index files must have been read, not built;
     `reference` holds the --model none statistics a model run must keep.
-    Returns (the identification statistics, B1's launches)."""
+    Returns (the identification statistics, B1's launches, B4's)."""
     import os
     from types import SimpleNamespace
 
@@ -2309,6 +2468,7 @@ def engine_run(dev, name, lib_path, query_path, truth, n_queries, model,
         "pr7_library_read_sec_python_reader": [25.91, 32.91],
         "max_memory_allocated_bytes": peak,
         "b1_launches": launches,
+        "b4_launches": profile["b4_launches"],
         "identifications": stats,
         "jax_quality_r05_ann": QUALITY_R05_ANN,
     }
@@ -2316,8 +2476,9 @@ def engine_run(dev, name, lib_path, query_path, truth, n_queries, model,
     note(f"{name} --model {model}: CLI {t_cli:.2f} s, search "
          f"{totals['search']:.2f} s, {stats['n_confident']} confident "
          f"(accuracy {stats['accuracy']:.5f})")
-    if launches <= 0 and dev.type == "cuda":
-        raise AssertionError(f"{name}: the engine launched no greedy kernel")
+    if (launches <= 0 or profile["b4_launches"] <= 0) and dev.type == "cuda":
+        raise AssertionError(f"{name}: the engine launched B1 {launches} "
+                             f"times, B4 {profile['b4_launches']}")
     for charge in (2, 3):
         if counts.get(f"open level charge {charge}: ivf select", 0) <= 0:
             raise AssertionError(f"{name}, charge {charge}: no open-level "
@@ -2358,7 +2519,7 @@ def engine_run(dev, name, lib_path, query_path, truth, n_queries, model,
         raise AssertionError(
             f"{name}: {stats['n_confident']} confident PSMs, fewer than "
             f"--model none's {reference['n_confident']} less 1%")
-    return stats, launches
+    return stats, launches, profile["b4_launches"]
 
 
 def phase_engine(dev, n_peptides=ENGINE_PEPTIDES, n_queries=ENGINE_QUERIES,
@@ -2367,7 +2528,7 @@ def phase_engine(dev, n_peptides=ENGINE_PEPTIDES, n_queries=ENGINE_QUERIES,
     CLI (std level by window rescoring, open level through the IVF
     index).  Run A builds and writes the store and index files with
     --model none; runs B (--model rf, the CLI's default) and C (--model
-    svm) read them.  Returns B1's launches summed over the runs."""
+    svm) read them.  Returns B4's launches summed over the runs."""
     import os
 
     workdir = workdir or os.path.join(os.path.dirname(
@@ -2380,11 +2541,11 @@ def phase_engine(dev, n_peptides=ENGINE_PEPTIDES, n_queries=ENGINE_QUERIES,
         "seed": ENGINE_SEED, "corpus_sec": time.perf_counter() - t0}))
     remove_library_files(workdir)
     args = (lib_path, query_path, truth, n_queries)
-    none, launches = engine_run(dev, "run A", *args, "none", False)
-    total = launches
+    none, _, total = engine_run(dev, "run A", *args, "none", False)
     for name, model in (("run B", "rf"), ("run C", "svm")):
-        _, launches = engine_run(dev, name, *args, model, True, none)
-        total += launches
+        _, _, b4_launches = engine_run(dev, name, *args, model, True, none)
+        total += b4_launches
+    note(f"B4 launched {total}")
     return total
 
 
@@ -2616,7 +2777,7 @@ def phase_quality(dev, args=QUALITY_ARGS, workdir=None, full_size=True):
     import torch
 
     from ann_solo_tpu_torch import cli, quality
-    from ann_solo_tpu_torch.ops import shifted_dot_cuda
+    from ann_solo_tpu_torch.ops import shifted_dot_cuda, stage1_cuda
     from ann_solo_tpu_torch.utils.profiling import profiler
 
     workdir = workdir or _workdir("engine")
@@ -2638,11 +2799,13 @@ def phase_quality(dev, args=QUALITY_ARGS, workdir=None, full_size=True):
         mode = cli_args[cli_args.index("--mode") + 1]
         peak_reset()
         shifted_dot_cuda.LAUNCHES = 0
+        stage1_cuda.LAUNCHES = 0
         t0 = time.perf_counter()
         rc = real_main(cli_args)
         legs[mode] = {
             "cli_sec": time.perf_counter() - t0,
             "b1_launches": shifted_dot_cuda.LAUNCHES,
+            "b4_launches": stage1_cuda.LAUNCHES,
             "max_memory_allocated_bytes": peak(),
             "totals": dict(profiler.totals),
             "counts": dict(profiler.counts), "notes": dict(profiler.notes),
@@ -2678,7 +2841,8 @@ def phase_quality(dev, args=QUALITY_ARGS, workdir=None, full_size=True):
             "queries_per_sec": results["corpus"]["n_queries"]
             / totals["search"],
             "max_memory_allocated_bytes": info["max_memory_allocated_bytes"],
-            "b1_launches": info["b1_launches"], "stages_sec": totals,
+            "b1_launches": info["b1_launches"],
+            "b4_launches": info["b4_launches"], "stages_sec": totals,
             "paths": {k: v for k, v in info["counts"].items()
                       if "level charge" in k},
             "files": {k: {f: v[f] for f in ("source", "file")}
@@ -2693,7 +2857,7 @@ def phase_quality(dev, args=QUALITY_ARGS, workdir=None, full_size=True):
         note(f"{mode} leg: CLI {info['cli_sec']:.2f} s, search "
              f"{info['totals']['search']:.2f} s, {stats['n_confident']} "
              f"confident (accuracy {stats['accuracy']:.5f}), B1 launched "
-             f"{info['b1_launches']}")
+             f"{info['b1_launches']}, B4 {info['b4_launches']}")
     note(f"ann/bf {results['ann_vs_bf_ids_ratio']}", "recall@1024 "
          f"{results['ann_candidate_recall']['recall@1024']}",
          f"recall curve {recall.get('sec', 0.0):.2f} s")
@@ -2723,8 +2887,12 @@ def phase_quality(dev, args=QUALITY_ARGS, workdir=None, full_size=True):
                     or bf["counts"].get(key + "ivf select", 0):
                 raise AssertionError(f"quality bf leg: {key} not by window "
                                      f"rescoring: {bf['counts']}")
-    if dev.type == "cuda" and bf["b1_launches"] <= 0:
-        raise AssertionError("quality bf leg: no greedy kernel launched")
+    for mode, info in legs.items():
+        if dev.type == "cuda" and (info["b1_launches"] <= 0
+                                   or info["b4_launches"] <= 0):
+            raise AssertionError(
+                f"quality {mode} leg: B1 launched {info['b1_launches']} "
+                f"times, B4 {info['b4_launches']}")
     checked = results["ann_candidate_recall"]["n_bf_ssms_checked"]
     if checked != results["bf"]["n_confident"]:
         raise AssertionError(f"quality: {checked} bf SSMs checked of "
@@ -2744,26 +2912,29 @@ def phase_quality(dev, args=QUALITY_ARGS, workdir=None, full_size=True):
         deep = results["ann_candidate_recall"]["recall@1024"]
         if deep < QUALITY_RECALL_GATE:
             raise AssertionError(f"quality: recall@1024 {deep}")
-    return ann["b1_launches"] + bf["b1_launches"]
+    return (ann["b1_launches"] + bf["b1_launches"],
+            ann["b4_launches"] + bf["b4_launches"])
 
 
 def phase_tools(dev, workdir=None, n_queries=2048):
     """Phase 12d: the diagnostics on phase 12a's workdir: `bf_profile` on
     its first `n_queries` queries, untraced and then traced
     (`device_trace`, kernel time summed by name), `probe_diag` and
-    `fdr_leak_diag`.  Gates: both levels rescored windows and B1
-    launched, the traces hold B1's and other kernels' time; SSMs were
-    checked and no recall falls as the probe depth grows; both legs'
-    calibration curves.  Returns B1's launches."""
-    from ann_solo_tpu_torch.ops import shifted_dot_cuda
+    `fdr_leak_diag`.  Gates: both levels rescored windows and B1 and B4
+    launched, the traces hold B1's, B4's and other kernels' time; SSMs
+    were checked and no recall falls as the probe depth grows; both legs'
+    calibration curves.  Returns B1's and B4's launches."""
+    from ann_solo_tpu_torch.ops import shifted_dot_cuda, stage1_cuda
     from ann_solo_tpu_torch.tools import bf_profile, fdr_leak_diag, probe_diag
 
     workdir = workdir or _workdir("engine")
     no_gpu = dev.type == "cpu"
     shifted_dot_cuda.LAUNCHES = 0
+    stage1_cuda.LAUNCHES = 0
     prof = bf_profile.profile(workdir, n_queries, no_gpu,
                               _workdir("bf_profile_trace"))
     launches = shifted_dot_cuda.LAUNCHES
+    b4_launches = stage1_cuda.LAUNCHES
     bf_profile.print_table(prof)
     log("bf_profile: " + json.dumps(prof))
     probe = probe_diag.diagnose(workdir, no_gpu)
@@ -2783,7 +2954,10 @@ def phase_tools(dev, workdir=None, n_queries=2048):
          f"{prof['search_sec']:.2f} s, traced {trace['search_sec_traced']:.2f}"
          " s", f"rescoring's device time {trace['device_sec']:.3f} s: B1 "
          f"{trace['b1_sec']:.4f} s ({100 * (trace['b1_share'] or 0):.3g}%), "
-         f"stage 1 and the rest {trace['other_kernels_sec']:.3f} s")
+         f"B4 {trace['b4_sec']:.4f} s "
+         f"({100 * (trace['b4_share'] or 0):.3g}%), the rest "
+         f"{trace['other_kernels_sec']:.3f} s",
+         f"B1 launched {launches}, B4 {b4_launches}")
     plain = probe["recall"]["plain"]
     note(f"probe_diag {probe['n_checked']} SSMs: probed-list recall "
          f"p<=256 {plain['p<=256']:.4f} (radius "
@@ -2791,10 +2965,12 @@ def phase_tools(dev, workdir=None, n_queries=2048):
     note("foreign leak at 1% FDR: " + ", ".join(
         f"{mode} {leak[mode]['calibration'][1]['foreign_leak_rate']}"
         for mode in ("bf", "ann")))
-    if dev.type == "cuda" and (launches <= 0 or trace["b1_sec"] <= 0
+    if dev.type == "cuda" and (launches <= 0 or b4_launches <= 0
+                               or trace["b1_sec"] <= 0
+                               or trace["b4_sec"] <= 0
                                or trace["other_kernels_sec"] <= 0):
-        raise AssertionError(f"bf_profile: B1 launched {launches}, trace "
-                             f"{trace}")
+        raise AssertionError(f"bf_profile: B1 launched {launches}, B4 "
+                             f"{b4_launches}, trace {trace}")
     if probe["n_checked"] <= 0:
         raise AssertionError("probe_diag checked no SSM")
     for row in probe["recall"].values():
@@ -2804,7 +2980,7 @@ def phase_tools(dev, workdir=None, n_queries=2048):
                                  f"{probe['recall']}")
     if set(leak) != {"bf", "ann"}:
         raise AssertionError(f"fdr_leak_diag: legs {sorted(leak)}")
-    return launches
+    return launches, b4_launches
 
 
 def phase_sweep(dev, n=131072, n_queries=1024, k=1024,
@@ -2932,11 +3108,14 @@ def run_phases():
     record = phase("3", phase_kernel, dev)
     probe_record = phase("3b", phase_probe_kernel, dev)
     scan_record = phase("3c", phase_scan_kernel, dev)
-    launches, index, lib, lib_arrays, params = phase("4", phase_slice, dev)
+    stage1_record = phase("3d", phase_stage1_kernel, dev)
+    launches, b4_launches, index, lib, lib_arrays, params = phase(
+        "4", phase_slice, dev)
     phase("5", phase_preprocess, dev, index, lib, lib_arrays, params)
     del index, lib
     phase("6", phase_cuda_vs_cpu, dev)
     big = phase("7", phase_big_slice, dev)
+    b4_launches += big["b4_launches"]
     b3_launches = phase("8", phase_b3_slice, dev, big)
     big_launches = big["launches"] + phase("7b", phase_scale_demo, dev)
     phase("10a", phase_streaming_switch, dev, big)
@@ -2949,11 +3128,13 @@ def run_phases():
     phase("11b", phase_born_sharded, dev, s8m)
     del s8m
     torch.cuda.empty_cache()
-    phase("9", phase_engine, dev)
+    b4_launches += phase("9", phase_engine, dev)
     phase("11c", phase_sharded_engine, dev)
     phase("9s", phase_engine_cuda_vs_cpu, dev)
-    launches += phase("12a", phase_quality, dev)
-    launches += phase("12d", phase_tools, dev)
+    for label, fn in (("12a", phase_quality), ("12d", phase_tools)):
+        b1, b4 = phase(label, fn, dev)
+        launches += b1
+        b4_launches += b4
     phase("12b", phase_sweep, dev)
     launches += phase("12c", phase_plot_matching, dev)
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s",
@@ -2967,7 +3148,9 @@ def run_phases():
              probe_record),
             ("ivf_chunked_scan", "ivf_chunked_scan.cu",
              "ann_solo_tpu/ops/ivf_scan_pallas.py:146", b3_launches,
-             scan_record)):
+             scan_record),
+            ("stage1_bounds", "stage1_bounds.cu",
+             "ann_solo_tpu/ops/rescore.py:60", b4_launches, stage1_record)):
         kernels.append({
             "name": name,
             "route": "cuda",
