@@ -6,248 +6,621 @@
 // valid (>= 0), the bound is
 //
 //   ub = (sum_i q_int[i] * vmax[i]) * (1 + 2^-20),
-//   vmax[i] = max(+0, max_j over library peaks j of the candidate of
-//                 c_int[j]              if |q_mz[i] - c_mz[j]| <= tol,
-//                 mult_s * c_int[j]     if |(q_mz[i] - c_mz[j]) - off_s|
-//                                          <= tol, s = 1..num_shifts-1),
-//   prec_diff = (q_prec - c_prec) * chg, chg = num_shifts - 1 with shifts
-//   on, else 1; off_s = prec_diff / s; mult_s = 1 if c_ann[j] == s, 2/3
-//   if c_ann[j] == 0, else 0; the shifted terms only with allow_shift,
-//   num_shifts > 1 and |prec_diff| >= tol.
+//   vmax[i] = max(+0, max over library peaks j of the candidate of
+//                 val_w[j] for every window w with |g_w(i, j)| <= tol),
+//   g_0 = q_mz[i] - c_mz[j] (direct), val_0 = c_int[j];
+//   g_s = (q_mz[i] - c_mz[j]) - off_s, val_s = mult_s * c_int[j],
+//   s = 1..num_shifts-1, only with allow_shift, num_shifts > 1 and
+//   |prec_diff| >= tol; prec_diff = (q_prec - c_prec) * chg, chg =
+//   num_shifts - 1 with shifts on, else 1; off_s = prec_diff / s;
+//   mult_s = 1 if c_ann[j] == s, 2/3 if c_ann[j] == 0, else 0.
 //
 // An invalid id writes -inf and reads no peaks; an id >= n_lib reads row
 // n_lib - 1, as the reference clips it.
 //
-// What bounds it on the H100: operations.  A pair needs about
-// Kq * Kc * (5 * n_shifts + 2) float operations (a bench batch of
-// 4,096 x 512 pairs at K = 50 and three shifts: 8.9e10, 1.3 ms at 67
-// TFLOP/s f32) and reads about 1 KB of peaks, most of it shared by the
-// query row.  The design keeps everything out of device memory but one
-// float a pair:
+// Why this design.  The first port compared all Kq x Kc peak pairs once
+// per window (7,500 entry-windows a pair at K = 50 and three windows) at
+// about a third of the card's FP32 issue rate, so the work itself had to
+// shrink.  On the main path every library row is m/z-ascending with a
+// zero tail, and at tol 0.02-0.04 Da almost every compare fails:
 //
-// * one block takes one query row and kThreads candidate slots, one
-//   thread a candidate; a tile whose slots are all invalid writes -inf
-//   and leaves (a wide window row is mostly padding);
-// * the block stages its candidates' peaks (m/z, intensity, annotation)
-//   in shared memory, transposed to [peak][thread] so that each thread's
-//   reads and the block's coalesced stores are free of bank conflicts:
-//   once when Kc <= kMaxChunk, else in chunks again for each query tile;
-// * query peaks are the same for the whole block (uniform loads); a
-//   thread holds a tile of IT of them and their running maxima in
-//   registers and walks the candidate peaks j, with each peak's shifted
-//   multiplier products in registers;
-// * the row max is exact in any order; the sum over i is taken in the
-//   order the plain version states, i = 0, 1, ..., Kq - 1 from +0.0, one
-//   product and one add at a time.
+// * the branch rule (ops/stage1_cuda.py::ascending_rows): a row whose
+//   peaks of positive intensity are a prefix of it, with finite,
+//   non-decreasing m/z, takes the range search over that prefix; any
+//   other row the dense loop over all its peaks, as a
+//   per-thread branch of the same kernel, so the kernel has no
+//   precondition on its caller.  A peak of intensity <= 0 (or NaN) never
+//   raises a maximum that starts at +0, so leaving it out is exact: the
+//   staged m/z of such a peak is +inf, which no test passes;
+// * the range search: for an ascending prefix the peaks that pass window
+//   w for query peak i are one contiguous range, because fl(q - c) does
+//   not increase as c grows and fl(y - off) does not decrease as y grows,
+//   so g_w does not increase along the row and {j : |g_w| <= tol} is
+//   {g_w <= tol} (a suffix) within {g_w >= -tol} (a prefix).  The range's
+//   first peak is found with the plain version's own f32 expression,
+//   never a rearranged one: by a branchless binary search over the row
+//   padded with +inf to a power of two (kcp; g = -inf there) for a
+//   thread's first query peak, and, while its query peaks ascend, from the
+//   previous peak's edge (which cannot lie above the new one) over the
+//   next kReach peaks, with the full search for a lane whose edge lies
+//   past them.  The exact test at the edge is branchless, and a walk
+//   takes the max while it passes; the max is exact in any order.  With
+//   q, off or tol non-finite nothing passes, and the exact test finds
+//   that too.  About Kq * (log2(kReach) + 1) loads a window instead of
+//   Kq * Kc compares;
+// * staging with cp.async, overlapped: a block copies the next work
+//   item's gathered rows (lanes on consecutive peaks of one row, so a copy
+//   reads contiguous bytes, into a raw stage of 33-word rows: no bank
+//   conflicts) while it searches the current item, whose rows a staging
+//   pass has moved to the searched layout ([peak][slot], 32-word rows: a
+//   warp's lanes read their own slot columns, so the search's loads are
+//   free of bank conflicts) and checked against the branch rule;
+// * a persistent grid (as many blocks as fit on the SMs) whose blocks
+//   walk work items of (query row, 32 candidate slots); eight warps scan
+//   eight items at once for one with a valid id, with the ids loaded one
+//   item ahead, and write -inf for the empty ones, which stage nothing;
+// * eight warps on one item: lane = candidate slot, warp = a block of
+//   i_tile = ceil(Kq / 8) query peaks (at most kMaxBlock a pass).  At
+//   K = 50 a block holds 53,244 bytes of dynamic shared memory, and the
+//   launch bounds cap registers at 64 a thread, so four blocks, 32 warps,
+//   fit on an SM.
+//
+// What bounds it now (PERF.md, from builds of this file with parts cut
+// out): neither the gather nor the operations the inputs need, but the
+// issue of the search's dependent shared-memory loads and the block's
+// barriers; the search is about three fifths of the time at the bench's
+// shapes.
+//
+// The sum over i is taken in the order the plain version states, i = 0,
+// 1, ..., Kq - 1 from +0.0, one product and one add at a time: each warp
+// leaves its block's vmax in shared memory and a bit mask of its terms
+// that can differ from +-0 (vmax != 0, or a non-finite q_int); warp 0 then
+// adds those terms in i order.  Adding +-0 to a sum that starts at +0
+// changes nothing, so the skipped terms are exact.
 //
 // Arithmetic matches the plain PyTorch version (ops/rescore.py::
 // stage1_bounds_plain) bit for bit: IEEE division for prec_diff / s
 // (built without fast-math), -fmad=false so that no product is fused into
 // an add, the product order q_int * (mult * c_int), and the sequential sum.
-// Padded peaks of the plain version (zero intensity, annotation -1) add
-// +0 to the sum and 0 to a maximum, so the kernel reads the unpadded
-// widths.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int kThreads = 64;              // candidate slots a block
-constexpr int kStride = kThreads + 1;     // words a staged peak row
-constexpr int kMaxChunk = 64;             // candidate peaks staged at once
-constexpr size_t kSmemDefault = 48 * 1024;
+constexpr int kSlots = 32;                 // candidate slots a work item
+constexpr int kRawStride = kSlots + 1;     // words a raw peak row
+constexpr int kWarps = 8;                  // query blocks a work item
+constexpr int kThreads = kSlots * kWarps;  // 256
+constexpr int kMaxBlock = 32;              // query peaks a thread a pass
+constexpr int kTile = 8;                   // query peaks a dense step
+constexpr int kMaxSteps = 8;               // binary search: kcp <= 256
+constexpr int kReach = 8;                  // peaks a step from the last edge
+constexpr int kMinBlocks = 4;              // launch bounds: <= 64 registers
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kTwoThirds = (float)(2.0 / 3.0);
 constexpr float kInflation = 1.0f + 1.0f / 1048576.0f;  // 1 + 2^-20, exact
 
-__host__ __device__ inline size_t smem_bytes(int chunk) {
-  return 3 * (size_t)chunk * kStride * sizeof(float);
+struct Params {
+  const float* q_mz;
+  const float* q_int;
+  const float* q_prec;
+  const float* lib_mz;
+  const float* lib_int;
+  const int* lib_ann;
+  const float* lib_prec;
+  const long long* cand;
+  float* out;
+  long long items;  // b * tiles
+  int c, tiles, kq, kc, kcp, qb, n_lib, n_shift;
+  float tol, chg;
+};
+
+// Widths: kcp = the row padded to a power of two (the binary search's
+// range), qb = query peaks a thread a pass.
+struct Widths {
+  int kcp, qb;
+};
+
+__host__ __device__ inline Widths widths(int kq, int kc) {
+  Widths w;
+  w.kcp = 1;
+  while (w.kcp < kc) w.kcp <<= 1;
+  const int qb = (kq + kWarps - 1) / kWarps;
+  w.qb = qb < 1 ? 1 : (qb > kMaxBlock ? kMaxBlock : qb);
+  return w;
+}
+
+// Dynamic shared memory of a block, in 4-byte words: the raw stage (the
+// m/z, intensity and annotation of 32 candidate rows, [peak][slot] with
+// rows of kRawStride words, and the slots' and the query's precursors);
+// the query row twice (m/z and intensity, by the item's parity); and per
+// slot the staged m/z (kcp + kReach, +inf past the positive peaks),
+// intensity and annotation (kc each), the warps' vmax (8 * qb) and masks
+// (8), the row's flag and its precursor difference (1 each) and the
+// scan's rows (2 * 8).
+__host__ __device__ inline size_t smem_bytes(int kq, int kc) {
+  const Widths w = widths(kq, kc);
+  return (size_t)4 *
+         ((size_t)3 * kc * kRawStride + kSlots + 1 + 4 * (size_t)kq +
+          (size_t)kSlots * (w.kcp + kReach + 2 * (size_t)kc +
+                            kWarps * (size_t)w.qb +
+                            kWarps + 2 + 2 * kWarps));
 }
 
 __device__ __forceinline__ float shift_mult(int ann, int s) {
   return ann == s ? 1.0f : (ann == 0 ? kTwoThirds : 0.0f);
 }
 
-// Copies peaks [j0, j0 + jn) of the block's candidate rows into shared
-// memory, peak-major: consecutive threads read consecutive peaks of a row.
-__device__ __forceinline__ void stage_peaks(
-    const float* __restrict__ lib_mz, const float* __restrict__ lib_int,
-    const int* __restrict__ lib_ann, const int* s_row, int kc, int j0,
-    int jn, float* s_mz, float* s_int, int* s_ann) {
-  const int total = kThreads * jn;
-  for (int e = threadIdx.x; e < total; e += kThreads) {
-    const int r = e / jn;
-    const int j = e - r * jn;
-    const int row = s_row[r];
-    if (row >= 0) {
-      const size_t at = (size_t)row * kc + j0 + j;
-      s_mz[j * kStride + r] = lib_mz[at];
-      s_int[j * kStride + r] = lib_int[at];
-      s_ann[j * kStride + r] = lib_ann[at];
+__device__ __forceinline__ float window_val(int s, int ann, float x) {
+  return s == 0 ? x : shift_mult(ann, s) * x;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(at),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The library row of a slot of work item `item` (-1: invalid, past C or
+// past the last item).
+__device__ __forceinline__ int slot_row(const Params& p, long long item,
+                                        int lane) {
+  if (item >= p.items) return -1;
+  const long long b = item / p.tiles;
+  const int slot = (int)(item - b * p.tiles) * kSlots + lane;
+  if (slot >= p.c) return -1;
+  const long long id = p.cand[b * p.c + slot];
+  if (id < 0) return -1;
+  return id >= p.n_lib ? p.n_lib - 1 : (int)id;
+}
+
+// Lower edges of the windows (off[0] = 0: x - 0 is x) for query peak q
+// in a column `cm` (stride kSlots) whose positive prefix's m/z ascend and
+// whose other entries up to kcp (<= 2^kMaxSteps) are +inf: for each, the number
+// of peaks with g = (q - c) - off > tol (false at +inf), or kcp - 1 when
+// all of the first kcp - 1 are, in which case none passes.  Branchless:
+// the NS + 1 searches are interleaved, one load and one compare each a
+// step.
+template <int NS>
+__device__ __forceinline__ void lower_edges(float q, const float* off,
+                                            float tol, const float* cm,
+                                            int kcp, int (&at)[NS + 1]) {
+#pragma unroll
+  for (int w = 0; w <= NS; ++w) at[w] = 0;
+#pragma unroll
+  for (int t = kMaxSteps - 1; t >= 0; --t) {
+    const int step = 1 << t;
+    if (step >= kcp) continue;
+#pragma unroll
+    for (int w = 0; w <= NS; ++w) {
+      const float c = cm[(at[w] + step - 1) * kSlots];
+      at[w] += (q - c) - off[w] > tol ? step : 0;
     }
   }
 }
 
-// IT: query peaks a thread holds at once.  NS >= 0: the number of active
-// shifts, unrolled with their offsets and products in registers; NS < 0
-// takes any count `n_shift` (offsets recomputed a candidate peak at a
-// time: the same IEEE quotients).
-template <int IT, int NS>
-__global__ void __launch_bounds__(kThreads) stage1_bounds_kernel(
-    const float* __restrict__ q_mz, const float* __restrict__ q_int,
-    const float* __restrict__ q_prec, const float* __restrict__ lib_mz,
-    const float* __restrict__ lib_int, const int* __restrict__ lib_ann,
-    const float* __restrict__ lib_prec, const long long* __restrict__ cand,
-    float* __restrict__ out, int c, int tiles, int kq, int kc, int n_lib,
-    float tol, float chg, int n_shift) {
-  extern __shared__ float smem[];
-  __shared__ int s_row[kThreads];
-  const int chunk = kc < kMaxChunk ? kc : kMaxChunk;
-  float* s_mz = smem;
-  float* s_int = s_mz + chunk * kStride;
-  int* s_ann = reinterpret_cast<int*>(s_int + chunk * kStride);
-
-  const int b = blockIdx.x / tiles;
-  const int slot = (blockIdx.x - b * tiles) * kThreads + threadIdx.x;
-  const size_t at = (size_t)b * c + slot;
-  long long id = slot < c ? cand[at] : -1;
-  const bool valid = id >= 0;
-  if (id >= n_lib) id = n_lib - 1;
-  s_row[threadIdx.x] = valid ? (int)id : -1;
-  if (!__syncthreads_or(valid)) {
-    if (slot < c) out[at] = -CUDART_INF_F;
-    return;
+// The max of window s's values over the peaks from `at` on (below kc)
+// while the plain version's test passes.  Past the positive prefix the
+// staged m/z is +inf, which passes no test but at tol = +inf, and then the
+// value (<= 0 or NaN) raises no maximum.
+__device__ __forceinline__ float walk(float q, float off, float tol, int s,
+                                      const float* cm, const float* ci,
+                                      const int* ca, int at, int kc, float v) {
+  for (int k = at; k < kc; ++k) {
+    if (!(fabsf((q - cm[k * kSlots]) - off) <= tol)) break;
+    v = fmaxf(v, window_val(s, ca[k * kSlots], ci[k * kSlots]));
   }
+  return v;
+}
 
-  const float* qm_row = q_mz + (size_t)b * kq;
-  const float* qi_row = q_int + (size_t)b * kq;
-  float pd = 0.0f;
-  bool shifted = false;
-  if (valid) {
-    pd = (q_prec[b] - lib_prec[id]) * chg;
-    shifted = fabsf(pd) >= tol;
-  }
-  constexpr int kNS = NS > 0 ? NS : 1;
-  float off[kNS];
+// The vmax of each query peak i0..i1-1 of a thread's block over a column
+// whose positive peaks are a prefix, ascending, with +inf for the m/z of
+// every other entry up to kcp + kReach, handed to `keep(i, v)`.  Per
+// window (the direct one, and NS shift windows; NS = 0 in a warp without
+// a shifted pair) the lower edge is searched: from 0 over log2(kcp)
+// steps (`lower_edges`) for the block's first peak and after any peak
+// whose m/z does not ascend (the query row is the same for the whole
+// warp, so this branch is uniform); else from the previous peak's edge,
+// which cannot lie above the new one, over the next kReach peaks in
+// three steps, and from 0 again for a lane whose edge lies past them.
+// The plain test at each edge is branchless; a walk runs only from an
+// edge that passes (the shift windows only for a shifted pair).
+template <int NS, typename Keep>
+__device__ __forceinline__ void range_block(const float* qm, int i0, int i1,
+                                            const float* off, float tol,
+                                            bool shifted, const float* cm,
+                                            const float* ci, const int* ca,
+                                            int kc, int kcp, Keep keep) {
+  int edge[NS + 1];
+  float q_prev = CUDART_NAN_F;
+  for (int i = i0; i < i1; ++i) {
+    const float q = qm[i];
+    if (q >= q_prev) {
 #pragma unroll
-  for (int s = 0; s < kNS; ++s) off[s] = NS > 0 ? pd / (float)(s + 1) : 0.0f;
-
-  const bool resident = kc <= kMaxChunk;
-  if (resident) {
-    stage_peaks(lib_mz, lib_int, lib_ann, s_row, kc, 0, kc, s_mz, s_int,
-                s_ann);
-    __syncthreads();
-  }
-  float acc = 0.0f;
-  for (int i0 = 0; i0 < kq; i0 += IT) {
-    float qm[IT], vmax[IT];
+      for (int w = 0; w <= NS; ++w) {
+        const float* at = cm + edge[w] * kSlots;
 #pragma unroll
-    for (int ii = 0; ii < IT; ++ii) {
-      qm[ii] = i0 + ii < kq ? __ldg(qm_row + i0 + ii) : 0.0f;
-      vmax[ii] = 0.0f;
-    }
-    for (int j0 = 0; j0 < kc; j0 += chunk) {
-      const int jn = kc - j0 < chunk ? kc - j0 : chunk;
-      if (!resident) {
-        __syncthreads();
-        stage_peaks(lib_mz, lib_int, lib_ann, s_row, kc, j0, jn, s_mz,
-                    s_int, s_ann);
-        __syncthreads();
+        for (int step = kReach / 2; step > 0; step >>= 1) {
+          at += (q - at[(step - 1) * kSlots]) - off[w] > tol ? step * kSlots
+                                                            : 0;
+        }
+        edge[w] = (int)(at - cm) / kSlots;
       }
-      if (!valid) continue;
-      for (int j = 0; j < jn; ++j) {
-        const float cm = s_mz[j * kStride + threadIdx.x];
-        const float ci = s_int[j * kStride + threadIdx.x];
-        const int ca = s_ann[j * kStride + threadIdx.x];
-        if (NS >= 0) {
-          // A pair outside the shift condition gets products 0, which
-          // leave every maximum as it is.
-          float ct[kNS];
 #pragma unroll
-          for (int s = 0; s < NS; ++s)
-            ct[s] = shifted ? shift_mult(ca, s + 1) * ci : 0.0f;
+      for (int w = 0; w <= NS; ++w) {
+        if ((q - cm[edge[w] * kSlots]) - off[w] > tol) {
+          int at[1];
+          lower_edges<0>(q, off + w, tol, cm, kcp, at);
+          edge[w] = at[0];
+        }
+      }
+    } else {
+      lower_edges<NS>(q, off, tol, cm, kcp, edge);
+    }
+    q_prev = q;
+    bool hit[NS + 1];
+    bool any = false;
 #pragma unroll
-          for (int ii = 0; ii < IT; ++ii) {
-            const float d = qm[ii] - cm;
-            float v = vmax[ii];
-            if (fabsf(d) <= tol) v = fmaxf(v, ci);
+    for (int w = 0; w <= NS; ++w) {
+      hit[w] = (w == 0 || shifted) && edge[w] < kc &&
+               fabsf((q - cm[edge[w] * kSlots]) - off[w]) <= tol;
+      any = any || hit[w];
+    }
+    float v = 0.0f;
+    if (any) {
 #pragma unroll
-            for (int s = 0; s < NS; ++s) {
-              if (fabsf(d - off[s]) <= tol) v = fmaxf(v, ct[s]);
-            }
-            vmax[ii] = v;
+      for (int w = 0; w <= NS; ++w) {
+        if (hit[w]) v = walk(q, off[w], tol, w, cm, ci, ca, edge[w], kc, v);
+      }
+    }
+    keep(i, v);
+  }
+}
+
+// vmax of a tile of kTile query peaks (NaN past the thread's block: no
+// test passes) over any column: every one of its kc peaks against every
+// query peak of the tile, the peak's shifted products computed once.  A
+// peak of intensity <= 0 (or NaN) never raises a maximum that starts at
+// +0, so the column needs no compaction.
+template <int NS>
+__device__ __forceinline__ void dense_vmax(const float (&q)[kTile],
+                                           const float* off, float tol,
+                                           bool shifted, const float* cm,
+                                           const float* ci, const int* ca,
+                                           int kc, float (&v)[kTile]) {
+#pragma unroll
+  for (int u = 0; u < kTile; ++u) v[u] = 0.0f;
+  for (int k = 0; k < kc; ++k) {
+    const float c = cm[k * kSlots];
+    const float x = ci[k * kSlots];
+    float ct[NS > 0 ? NS : 1];
+    if (NS > 0) {
+      const int a = ca[k * kSlots];
+#pragma unroll
+      for (int w = 1; w <= NS; ++w) ct[w - 1] = shift_mult(a, w) * x;
+    }
+#pragma unroll
+    for (int u = 0; u < kTile; ++u) {
+      const float d = q[u] - c;
+      if (fabsf(d) <= tol) v[u] = fmaxf(v[u], x);
+      if (shifted) {
+#pragma unroll
+        for (int w = 1; w <= NS; ++w) {
+          if (fabsf(d - off[w]) <= tol) v[u] = fmaxf(v[u], ct[w - 1]);
+        }
+      }
+    }
+  }
+}
+
+// Any shift count: the windows one after another, each offset the same
+// IEEE quotient prec_diff / s, recomputed.
+__device__ float loop_vmax(float q, float pd, int n_shift, float tol,
+                           bool shifted, bool fast, const float* cm,
+                           const float* ci, const int* ca, int kc, int kcp) {
+  float v = 0.0f;
+  for (int s = 0; s <= (shifted ? n_shift : 0); ++s) {
+    const float off = s == 0 ? 0.0f : pd / (float)s;
+    if (fast) {
+      int at[1];
+      lower_edges<0>(q, &off, tol, cm, kcp, at);
+      v = walk(q, off, tol, s, cm, ci, ca, at[0], kc, v);
+    } else {
+      for (int k = 0; k < kc; ++k) {
+        if (fabsf((q - cm[k * kSlots]) - off) <= tol) {
+          v = fmaxf(v, window_val(s, ca[k * kSlots], ci[k * kSlots]));
+        }
+      }
+    }
+  }
+  return v;
+}
+
+// NS >= 0: the number of shift windows, unrolled; NS < 0: any count
+// p.n_shift, in a loop.
+template <int NS>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    stage1_bounds_kernel(const Params p) {
+  extern __shared__ float smem[];
+  __shared__ int flags[2][kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int kc = p.kc, kcp = p.kcp, qb = p.qb, kq = p.kq;
+  const long long stride = gridDim.x;
+
+  // The raw stage, written by cp.async: [peak][slot] m/z, intensity and
+  // annotation, then the slots' library precursors and the query's.
+  float* raw_mz = smem;
+  float* raw_int = raw_mz + kc * kRawStride;
+  int* raw_ann = reinterpret_cast<int*>(raw_int + kc * kRawStride);
+  float* raw_prec = reinterpret_cast<float*>(raw_ann + kc * kRawStride);
+  // The query rows: [2][m/z kq, intensity kq], by the item's parity.
+  float* qrows = raw_prec + kSlots + 1;
+  // The staged rows that the search reads ([peak][slot]; a thread reads
+  // column `lane`), then the per-slot state.
+  float* cmz = qrows + 4 * kq;
+  float* cint = cmz + (kcp + kReach) * kSlots;
+  int* cann = reinterpret_cast<int*>(cint + kc * kSlots);
+  float* vmaxes = reinterpret_cast<float*>(cann + kc * kSlots);
+  unsigned* masks = reinterpret_cast<unsigned*>(vmaxes + kWarps * qb * kSlots);
+  int* bad = reinterpret_cast<int*>(masks + kWarps * kSlots);
+  float* pds = reinterpret_cast<float*>(bad + kSlots);
+  int* scan_rows = reinterpret_cast<int*>(pds + kSlots);  // [2][8][32]
+
+  // This warp's share of each row for staging and the check.
+  const int jper = (kc + kWarps - 1) / kWarps;
+  const int j0 = warp * jper;
+  const int j1 = min(kc, j0 + jper);
+
+  if (warp == 0) bad[lane] = 0;
+  // The padding of the staged m/z past Kc: +inf, for every item.
+  for (int k = kc + warp; k < kcp + kReach; k += kWarps) {
+    cmz[k * kSlots + lane] = CUDART_INF_F;
+  }
+
+  // The scan for work items with a valid id walks the block's items
+  // (blockIdx.x, + gridDim.x, ...) eight at a time, one a warp; the ids
+  // of its next step are loaded one item ahead (`ahead`), so that their
+  // latency hides behind a search.
+  long long scan = blockIdx.x;
+  int parity = 0;
+  int ahead = slot_row(p, scan + warp * stride, lane);
+  // The next item with a valid id (p.items if none) and the lane's slot's
+  // row in it; an empty item examined on the way gets its -inf row.
+  auto pick = [&](int& row) -> long long {
+    while (scan < p.items) {
+      const long long mine = scan + warp * stride;
+      int busy = 0;
+      if (mine < p.items) {
+        busy = __any_sync(kFull, ahead >= 0);
+        if (!busy) {
+          const long long b = mine / p.tiles;
+          const int slot = (int)(mine - b * p.tiles) * kSlots + lane;
+          if (slot < p.c) p.out[b * p.c + slot] = -CUDART_INF_F;
+        }
+      }
+      scan_rows[(parity * kWarps + warp) * kSlots + lane] = ahead;
+      if (lane == 0) flags[parity][warp] = busy;
+      __syncthreads();
+      int first = -1;
+#pragma unroll
+      for (int w = kWarps - 1; w >= 0; --w) {
+        if (flags[parity][w]) first = w;
+      }
+      const long long base = scan;
+      scan = base + (first >= 0 ? first + 1 : kWarps) * stride;
+      ahead = slot_row(p, scan + warp * stride, lane);
+      if (first >= 0) {
+        row = scan_rows[(parity * kWarps + first) * kSlots + lane];
+        parity ^= 1;
+        return base + first * stride;
+      }
+      parity ^= 1;
+    }
+    row = -1;
+    return p.items;
+  };
+
+  // The copies of an item into the raw stage: warp w takes slots w,
+  // w + 8, ... and its lanes consecutive peaks of each row, so an
+  // instruction reads one row's contiguous bytes, and the raw stride of 33
+  // words keeps these stores free of bank conflicts; the slots'
+  // precursors (warp 0), and the query row (warp 1) into `qrows` half
+  // `half` and its precursor.  `row` is the lane's own slot's row.
+  auto issue = [&](long long item, int row, int half) {
+    if (item < p.items) {
+      for (int slot = warp; slot < kSlots; slot += kWarps) {
+        const int r = __shfl_sync(kFull, row, slot);
+        if (r < 0) continue;
+        const size_t base = (size_t)r * kc;
+        for (int j = lane; j < kc; j += 32) {
+          cp_async4(raw_mz + j * kRawStride + slot, p.lib_mz + base + j);
+          cp_async4(raw_int + j * kRawStride + slot, p.lib_int + base + j);
+          cp_async4(raw_ann + j * kRawStride + slot, p.lib_ann + base + j);
+        }
+      }
+      if (warp == 0 && row >= 0) cp_async4(raw_prec + lane, p.lib_prec + row);
+      if (warp == 1) {
+        const long long b = item / p.tiles;
+        float* q = qrows + half * 2 * kq;
+        for (int i = lane; i < kq; i += 32) {
+          cp_async4(q + i, p.q_mz + b * kq + i);
+          cp_async4(q + kq + i, p.q_int + b * kq + i);
+        }
+        if (lane == 0) cp_async4(raw_prec + kSlots, p.q_prec + b);
+      }
+    }
+    cp_async_commit();
+  };
+
+  int row;
+  long long item = pick(row);
+  int half = 0;
+  issue(item, row, half);
+
+  while (item < p.items) {
+    cp_async_wait_all();
+    __syncthreads();  // this item's copies are in; the last item is done
+
+    // Staging from the raw stage to the searched layout (lane = slot on
+    // both sides: no bank conflicts), with the branch rule checked on
+    // neighbouring peaks: the range search when the positive peaks are a
+    // prefix of the row (none after a peak of intensity <= 0) whose m/z
+    // are finite and non-decreasing; any other row: the dense loop.
+    if (row >= 0 && j0 < j1) {
+      float m_prev = 0.0f;
+      bool pos_prev = true;
+      if (j0 > 0) {
+        m_prev = raw_mz[(j0 - 1) * kRawStride + lane];
+        pos_prev = raw_int[(j0 - 1) * kRawStride + lane] > 0.0f;
+      }
+      bool ok = true;
+      for (int j = j0; j < j1; ++j) {
+        const float m = raw_mz[j * kRawStride + lane];
+        const float x = raw_int[j * kRawStride + lane];
+        cmz[j * kSlots + lane] = x > 0.0f ? m : CUDART_INF_F;
+        cint[j * kSlots + lane] = x;
+        cann[j * kSlots + lane] = raw_ann[j * kRawStride + lane];
+        const bool here = x > 0.0f;
+        if (here) {
+          ok = ok && pos_prev && fabsf(m) < CUDART_INF_F &&
+               (j == 0 || m_prev <= m);
+        }
+        m_prev = m;
+        pos_prev = here;
+      }
+      if (!ok) bad[lane] = 1;
+    }
+    if (warp == 0 && row >= 0) {
+      pds[lane] = (raw_prec[kSlots] - raw_prec[lane]) * p.chg;
+    }
+    __syncthreads();  // staged; the raw stage is free
+
+    // The next item's copies overlap this item's search.
+    int next_row;
+    const long long next = pick(next_row);
+    issue(next, next_row, half ^ 1);
+
+    const long long b = item / p.tiles;
+    const bool valid = row >= 0;
+    float pd = 0.0f;
+    bool shifted = false;
+    if (valid) {
+      pd = pds[lane];
+      shifted = p.n_shift > 0 && fabsf(pd) >= p.tol;
+    }
+    const bool any_shift = __any_sync(kFull, shifted);
+    const bool fast = bad[lane] == 0;
+    constexpr int kNS = NS > 0 ? NS : 0;
+    float off[kNS + 1];
+    off[0] = 0.0f;
+#pragma unroll
+    for (int s = 1; s <= kNS; ++s) off[s] = pd / (float)s;
+    const float* qm = qrows + half * 2 * kq;
+    const float* qi = qm + kq;
+    const float* cm = cmz + lane;
+    const float* ci = cint + lane;
+    const int* ca = cann + lane;
+
+    float acc = 0.0f;
+    for (int pass = 0; pass < kq; pass += kWarps * qb) {
+      const int i0 = pass + warp * qb;
+      const int i1 = min(kq, i0 + qb);
+      unsigned mask = 0;
+      // Keeps query peak i's vmax when its term can differ from +-0.
+      auto keep_term = [&](int i, float v) {
+        if (v != 0.0f || !(fabsf(qi[i]) < CUDART_INF_F)) {
+          mask |= 1u << (i - i0);
+          vmaxes[(i - pass) * kSlots + lane] = v;
+        }
+      };
+      if (valid) {
+        if (NS < 0) {
+          for (int i = i0; i < i1; ++i) {
+            keep_term(i, loop_vmax(qm[i], pd, p.n_shift, p.tol, shifted,
+                                   fast, cm, ci, ca, kc, kcp));
+          }
+        } else if (fast) {
+          if (any_shift) {
+            range_block<kNS>(qm, i0, i1, off, p.tol, shifted, cm, ci, ca, kc,
+                             kcp, keep_term);
+          } else {
+            range_block<0>(qm, i0, i1, off, p.tol, false, cm, ci, ca, kc,
+                           kcp, keep_term);
           }
         } else {
+          for (int t = i0; t < i1; t += kTile) {
+            float q[kTile], v[kTile];
 #pragma unroll
-          for (int ii = 0; ii < IT; ++ii) {
-            if (fabsf(qm[ii] - cm) <= tol) vmax[ii] = fmaxf(vmax[ii], ci);
-          }
-          if (shifted) {
-            for (int s = 1; s <= n_shift; ++s) {
-              const float o = pd / (float)s;
-              const float ct = shift_mult(ca, s) * ci;
+            for (int u = 0; u < kTile; ++u) {
+              q[u] = t + u < i1 ? qm[t + u] : CUDART_NAN_F;
+            }
+            dense_vmax<kNS>(q, off, p.tol, shifted, cm, ci, ca, kc, v);
 #pragma unroll
-              for (int ii = 0; ii < IT; ++ii) {
-                if (fabsf((qm[ii] - cm) - o) <= tol)
-                  vmax[ii] = fmaxf(vmax[ii], ct);
-              }
+            for (int u = 0; u < kTile; ++u) {
+              if (t + u < i1) keep_term(t + u, v[u]);
             }
           }
         }
       }
-    }
-    if (valid) {
-#pragma unroll
-      for (int ii = 0; ii < IT; ++ii) {
-        if (i0 + ii < kq) acc = acc + __ldg(qi_row + i0 + ii) * vmax[ii];
+      masks[warp * kSlots + lane] = mask;
+      __syncthreads();
+      if (warp == 0 && valid) {
+        // The terms in i order; the skipped ones are +-0.
+        for (int g = 0; g < kWarps; ++g) {
+          unsigned m = masks[g * kSlots + lane];
+          while (m) {
+            const int k = __ffs(m) - 1;
+            m &= m - 1u;
+            const int at = g * qb + k;
+            acc = acc + qi[pass + at] * vmaxes[at * kSlots + lane];
+          }
+        }
       }
+      if (pass + kWarps * qb < kq) __syncthreads();
     }
+    if (warp == 0) {
+      const int slot = (int)(item - b * p.tiles) * kSlots + lane;
+      if (slot < p.c) {
+        p.out[b * p.c + slot] = valid ? acc * kInflation : -CUDART_INF_F;
+      }
+      bad[lane] = 0;
+    }
+    item = next;
+    row = next_row;
+    half ^= 1;
   }
-  if (slot < c) out[at] = valid ? acc * kInflation : -CUDART_INF_F;
+  cp_async_wait_all();
 }
 
-template <int IT, int NS>
-cudaError_t launch(int blocks, size_t smem, cudaStream_t stream,
-                   const float* q_mz, const float* q_int,
-                   const float* q_prec, const float* lib_mz,
-                   const float* lib_int, const int* lib_ann,
-                   const float* lib_prec, const long long* cand, float* out,
-                   int c, int tiles, int kq, int kc, int n_lib, float tol,
-                   float chg, int n_shift) {
-  if (smem > kSmemDefault) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        stage1_bounds_kernel<IT, NS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  stage1_bounds_kernel<IT, NS><<<blocks, kThreads, smem, stream>>>(
-      q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec, cand, out, c,
-      tiles, kq, kc, n_lib, tol, chg, n_shift);
+template <int NS>
+cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
+  const auto kernel = stage1_bounds_kernel<NS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long fit = (long long)sms * per_sm;
+  const int blocks = (int)(p.items < fit ? p.items : fit);
+  kernel<<<blocks, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
-}
-
-template <int IT>
-cudaError_t launch_shifts(int n_shift, int blocks, size_t smem,
-                          cudaStream_t stream, const float* q_mz,
-                          const float* q_int, const float* q_prec,
-                          const float* lib_mz, const float* lib_int,
-                          const int* lib_ann, const float* lib_prec,
-                          const long long* cand, float* out, int c,
-                          int tiles, int kq, int kc, int n_lib, float tol,
-                          float chg) {
-#define STAGE1_LAUNCH(NS)                                                   \
-  launch<IT, NS>(blocks, smem, stream, q_mz, q_int, q_prec, lib_mz,       \
-                 lib_int, lib_ann, lib_prec, cand, out, c, tiles, kq, kc, \
-                 n_lib, tol, chg, n_shift)
-  switch (n_shift) {
-    case 0: return STAGE1_LAUNCH(0);
-    case 1: return STAGE1_LAUNCH(1);
-    case 2: return STAGE1_LAUNCH(2);
-    case 3: return STAGE1_LAUNCH(3);
-    case 4: return STAGE1_LAUNCH(4);
-    default: return STAGE1_LAUNCH(-1);
-  }
-#undef STAGE1_LAUNCH
 }
 
 }  // namespace
@@ -257,44 +630,64 @@ extern "C" {
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
 // All pointers are device pointers to contiguous arrays: q_mz, q_int
 // (b, kq); q_prec (b,); lib_mz, lib_int, lib_ann (n_lib, kc); lib_prec
-// (n_lib,); cand (b, c) int64, -1 = invalid; out (b, c).  i_tile is the
-// number of query peaks a thread holds at once: 8, 10 or 16.
+// (n_lib,); cand (b, c) int64, -1 = invalid; out (b, c).
 int stage1_bounds(const float* q_mz, const float* q_int, const float* q_prec,
                   const float* lib_mz, const float* lib_int,
                   const int* lib_ann, const float* lib_prec,
                   const long long* cand, float* out, int b, int c, int kq,
                   int kc, int n_lib, float tol, int num_shifts,
-                  int allow_shift, int i_tile, void* stream) {
+                  int allow_shift, void* stream) {
   if (b < 0 || c < 0 || kq < 0 || kc < 0 || n_lib < 1) {
     return (int)cudaErrorInvalidValue;
   }
   if (b == 0 || c == 0) return (int)cudaSuccess;
-  const int tiles = (c + kThreads - 1) / kThreads;
-  if ((long long)b * tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int blocks = b * tiles;
-  const int n_shift = allow_shift && num_shifts > 1 ? num_shifts - 1 : 0;
-  const float chg = allow_shift ? (float)(num_shifts - 1) : 1.0f;
-  const size_t smem = smem_bytes(kc < kMaxChunk ? kc : kMaxChunk);
+  const Widths w = widths(kq, kc);
+  if (w.kcp > (1 << kMaxSteps)) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(kq, kc);
+  Params p;
+  p.q_mz = q_mz;
+  p.q_int = q_int;
+  p.q_prec = q_prec;
+  p.lib_mz = lib_mz;
+  p.lib_int = lib_int;
+  p.lib_ann = lib_ann;
+  p.lib_prec = lib_prec;
+  p.cand = cand;
+  p.out = out;
+  p.c = c;
+  p.tiles = (c + kSlots - 1) / kSlots;
+  p.items = (long long)b * p.tiles;
+  p.kq = kq;
+  p.kc = kc;
+  p.kcp = w.kcp;
+  p.qb = w.qb;
+  p.n_lib = n_lib;
+  p.n_shift = allow_shift && num_shifts > 1 ? num_shifts - 1 : 0;
+  p.tol = tol;
+  p.chg = allow_shift ? (float)(num_shifts - 1) : 1.0f;
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (i_tile) {
-    case 8:
-      return (int)launch_shifts<8>(n_shift, blocks, smem, st, q_mz, q_int,
-                                   q_prec, lib_mz, lib_int, lib_ann,
-                                   lib_prec, cand, out, c, tiles, kq, kc,
-                                   n_lib, tol, chg);
-    case 10:
-      return (int)launch_shifts<10>(n_shift, blocks, smem, st, q_mz, q_int,
-                                    q_prec, lib_mz, lib_int, lib_ann,
-                                    lib_prec, cand, out, c, tiles, kq, kc,
-                                    n_lib, tol, chg);
-    case 16:
-      return (int)launch_shifts<16>(n_shift, blocks, smem, st, q_mz, q_int,
-                                    q_prec, lib_mz, lib_int, lib_ann,
-                                    lib_prec, cand, out, c, tiles, kq, kc,
-                                    n_lib, tol, chg);
-    default:
-      return (int)cudaErrorInvalidValue;
+  switch (p.n_shift) {
+    case 0: return (int)launch<0>(p, smem, st);
+    case 1: return (int)launch<1>(p, smem, st);
+    case 2: return (int)launch<2>(p, smem, st);
+    case 3: return (int)launch<3>(p, smem, st);
+    case 4: return (int)launch<4>(p, smem, st);
+    default: return (int)launch<-1>(p, smem, st);
   }
+}
+
+// Dynamic shared memory of a launch at these widths, and the blocks of the
+// two-shift instance that fit on one SM with it (0 if none): for logs.
+int stage1_bounds_occupancy(int kq, int kc, int* smem, int* blocks_per_sm) {
+  const size_t bytes = smem_bytes(kq, kc);
+  *smem = (int)bytes;
+  *blocks_per_sm = 0;
+  const auto kernel = stage1_bounds_kernel<2>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, kThreads, bytes);
 }
 
 const char* stage1_bounds_error_string(int code) {

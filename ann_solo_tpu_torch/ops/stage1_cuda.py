@@ -1,4 +1,5 @@
-"""The rescore stage-1 CUDA kernel (B4): wrapper and launch count.
+"""The rescore stage-1 CUDA kernel (B4): wrapper, launch count and the
+plain helpers that mirror its work split.
 
 Replaces `ann_solo_tpu/ops/rescore.py::_stage1_bounds`, XLA code of the
 reference (no Pallas kernel): the certificate's upper bound on the greedy
@@ -6,14 +7,35 @@ score of every (query, candidate) pair of a (B, C) candidate matrix.  The
 kernel source is `ann_solo_tpu_torch/csrc/stage1_bounds.cu`, its plain
 PyTorch version `ops/rescore.py::stage1_bounds_plain`.
 
-On the H100 the function is bound by float operations: Kq * Kc compares
-a pair for each shift.  The kernel takes the whole matrix in one launch,
-one block per query row and `THREADS` candidate slots, one thread a
-candidate, with the candidates' peaks staged in shared memory and the
-query peaks in registers, `i_tile(kq)` of them at a time.  Nothing but
-one float a pair reaches device memory, and invalid slots (-1) read no
-peaks.  The sum over query peaks runs in the order the plain version
-states, so the two agree bit for bit.
+The first port compared all Kq x Kc peak pairs for each window and
+already issued at about a third of the card's FP32 rate, so the work had
+to shrink.  The kernel searches instead:
+
+* the branch rule (`ascending_rows`): a row whose peaks of positive
+  intensity are a prefix of it, with finite, non-decreasing m/z, takes
+  the range search over that prefix; any other row the dense loop over
+  all its peaks, as a per-thread branch of the same kernel.  Leaving out
+  a peak of intensity <= 0 is exact: it never raises a maximum that
+  starts at +0.  The rows the main path builds (`preprocess_batch`, the
+  store, the bench's library) all take the range search;
+* the range search: for query peak i and window w (direct, or shift s
+  when |prec_diff| >= tol) the passing peaks of an ascending row are one
+  contiguous range, because fl(q - c) does not increase as c grows and
+  fl(y - off) does not decrease as y grows.  The range's first peak is
+  found with the plain version's own f32 expression: a branchless binary
+  search over the row padded with +inf to `padded_width(Kc)` (at most
+  `MAX_PADDED`), or, while a thread's query peaks ascend, three steps
+  from the previous peak's edge over the next `REACH` peaks.  A walk
+  takes the max while that test passes; the max is exact in any order;
+* a persistent grid walks work items of (query row, `SLOTS` candidate
+  slots): lane = slot, each of the `WARPS` warps a block of `i_tile(Kq)`
+  query peaks (at most `MAX_BLOCK` a pass).  cp.async copies the next
+  item's rows while the current one is searched; an item without a
+  valid id writes -inf and stages nothing.  `smem_bytes` is a block's
+  shared memory (at most `SMEM_LIMIT`);
+* the sum over query peaks runs i = 0, 1, ..., Kq - 1 from +0.0, the
+  order the plain version states: warp 0 adds the terms the warps marked
+  as possibly non-zero, in order; the others are +-0 and change nothing.
 
 Routing is decided by the tensors, never by a fallback: `_stage1_bounds`
 sends CPU tensors to the plain version and CUDA tensors here, where the
@@ -30,20 +52,53 @@ import torch
 from ann_solo_tpu_torch.ops import _build
 
 # The kernel's work split, as in `csrc/stage1_bounds.cu`: candidate slots
-# a block, candidate peaks staged in shared memory at once, and the query
-# peak tiles a thread may hold.
-THREADS = 64
-MAX_CHUNK = 64
-I_TILES = (16, 10, 8)
+# a work item (one a lane), warps a block (one query block each), query
+# peaks a thread at most a pass (bits of its mask), and the shared memory
+# one block may use on the H100.
+SLOTS = 32
+WARPS = 8
+MAX_BLOCK = 32
+SMEM_LIMIT = 232_448
+MAX_PADDED = 256  # the binary search's steps: 8
+REACH = 8  # peaks searched from the previous query peak's edge
 
 # Kernel launches in this process; reset by whoever wants to count.
 LAUNCHES = 0
 
 
 def i_tile(kq: int) -> int:
-    """Query peaks a thread holds at once: the tile of `I_TILES` that
-    wastes the fewest lanes on the ragged last tile (ties to the larger)."""
-    return min(I_TILES, key=lambda t: (-(-kq // t) * t, -t))
+    """Query peaks a thread holds a pass: Kq split over the warps, at
+    least 1 and at most `MAX_BLOCK` (more peaks take more passes)."""
+    return min(MAX_BLOCK, max(1, -(-kq // WARPS)))
+
+
+def padded_width(kc: int) -> int:
+    """The staged row's width for the binary search: the least power of
+    two >= Kc (and >= 1), +inf past the row's kept peaks."""
+    return 1 << max(0, kc - 1).bit_length()
+
+
+def smem_bytes(kq: int, kc: int) -> int:
+    """Dynamic shared memory of one block, as the kernel computes it: the
+    raw stage (3 Kc peak rows of SLOTS + 1 words, the slots' and the
+    query's precursors), the query row twice, and per slot the staged row
+    (padded width + REACH + 2 Kc words), the warps' vmax and masks, the
+    row's flag and precursor difference, and the scan's rows."""
+    per_slot = (padded_width(kc) + REACH + 2 * kc + WARPS * i_tile(kq)
+                + WARPS + 2 + 2 * WARPS)
+    return 4 * (3 * kc * (SLOTS + 1) + SLOTS + 1 + 4 * kq + SLOTS * per_slot)
+
+
+def ascending_rows(lib_mz: torch.Tensor, lib_int: torch.Tensor):
+    """(N,) bool: the kernel's branch rule for each library row.  True
+    (range search) when its peaks of positive intensity are a prefix of
+    the row (none follows a peak of intensity <= 0 or NaN) and their m/z
+    are finite and non-decreasing; False (dense loop) else."""
+    pos = lib_int > 0
+    after_gap = pos[:, 1:] & ~pos[:, :-1]
+    descent = pos[:, 1:] & ~(lib_mz[:, :-1] <= lib_mz[:, 1:])
+    return (~after_gap.any(1) & ~descent.any(1)
+            & (~pos | torch.isfinite(lib_mz)).all(1))
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,8 +107,12 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("stage1_bounds")
     lib.stage1_bounds.restype = ctypes.c_int
     lib.stage1_bounds.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.stage1_bounds_occupancy.restype = ctypes.c_int
+    lib.stage1_bounds_occupancy.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int),
     ]
     lib.stage1_bounds_error_string.restype = ctypes.c_char_p
     lib.stage1_bounds_error_string.argtypes = [ctypes.c_int]
@@ -95,6 +154,14 @@ def _check(q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec,
             or lib_prec.shape != (n,) or n < 1:
         raise ValueError("stage1_bounds: library arrays must be (N, Kc) "
                          "x 3 and (N,), N >= 1")
+    if n > 2 ** 31 - 1:
+        raise ValueError("stage1_bounds: at most 2^31 - 1 library rows")
+    kq, kc = q_mz.shape[1], lib_mz.shape[1]
+    if padded_width(kc) > MAX_PADDED or smem_bytes(kq, kc) > SMEM_LIMIT:
+        raise ValueError(
+            f"stage1_bounds: Kq={kq}, Kc={kc} take {smem_bytes(kq, kc)} "
+            f"bytes of shared memory a block (at most {SMEM_LIMIT}) and a "
+            f"row padded to {padded_width(kc)} peaks (at most {MAX_PADDED})")
 
 
 @torch.no_grad()
@@ -120,10 +187,23 @@ def stage1_bounds(q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec,
         lib_mz.data_ptr(), lib_int.data_ptr(), lib_ann.data_ptr(),
         lib_prec.data_ptr(), cand_ids.data_ptr(), out.data_ptr(),
         b, c, kq, kc, lib_mz.shape[0], float(fragment_mz_tolerance),
-        int(num_shifts), int(bool(allow_shift)), i_tile(kq), stream,
+        int(num_shifts), int(bool(allow_shift)), stream,
     )
     if err != 0:
         msg = lib.stage1_bounds_error_string(err).decode()
         raise RuntimeError(f"stage1_bounds launch failed: {msg} ({err})")
     LAUNCHES += 1
     return out
+
+
+def occupancy(kq: int, kc: int):
+    """(dynamic shared memory bytes, blocks of the two-shift instance an
+    SM) of a launch at these widths, as the runtime reports them: for
+    logs.  Needs the card."""
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    err = _library().stage1_bounds_occupancy(kq, kc, ctypes.byref(smem),
+                                             ctypes.byref(blocks))
+    if err != 0:
+        msg = _library().stage1_bounds_error_string(err).decode()
+        raise RuntimeError(f"stage1_bounds occupancy: {msg} ({err})")
+    return smem.value, blocks.value

@@ -58,15 +58,23 @@ Phases, in the order they run (1-3c, 3d, 4-6, 7, 8, 7b, 10a, 10b, 11a,
    (131,072 library spectra, K = 50, charge 2), a narrow (C = 256) and a
    wide (C = 16,384, mostly -1) window matrix of 1,024 rows, one and five
    and six shifts, shifts off, Kq = 56 against Kc = 70 and Kq = 32
-   against Kc = 20.  Bounds must be equal bit for bit (rtol 0: the same
-   float32 operations, the sum over query peaks in the stated order),
-   -inf cells included.  Phases 3-3d log each kernel's time
+   against Kc = 20; then the rows the main path has and the kernel's
+   edges: preprocess's zero tail (bench and window rows), peaks at the
+   float32 edges of the windows with duplicated m/z (at tol 2^-5 and at
+   0.04 with charge 3), a quarter of the rows shuffled, and non-finite
+   m/z and precursors.  Bounds must be equal bit for bit (rtol 0: the
+   same float32 operations, the sum over query peaks in the stated
+   order), -inf cells included; the rows and pairs on each of the
+   kernel's branches (range search, dense loop) are logged and both must
+   be taken.  Phases 3-3d log each kernel's time
    beside its bound: the larger of its bytes (each input read once, each
    output written once; for B2 and B3 only the lists and chunks this
    run's probes touch, for B4 the library rows its ids name) over 3.35
    TB/s and its operations over the peak rate of their type (bf16 tensor
-   cores for B2 and B3, f32 for B1 and B4: B1's matrix build alone, since
-   the greedy walks only positive entries; B4's per valid pair);
+   cores for B2 and B3, f32 for B1: B1's matrix build alone, since
+   the greedy walks only positive entries; for B4 the f32 instruction
+   rate, 33.5 T/s, and the merge of each pair's sorted peaks that these
+   inputs need, beside the old dense count at 67 TFLOP/s);
 4. the bench (`ann_solo_tpu_torch.bench.run`, what ``python -m
    ann_solo_tpu_torch.bench`` prints): a 131,072-spectrum library (K = 50
    peaks, hash_len 800), auto num_list, num_probe 512, x2 SOAR
@@ -344,14 +352,20 @@ SCAN_CASES = (
 )
 
 # Kernel B4 cases: (name, B, C, library rows, query peaks, library peaks,
-# charge, allow_shift, candidate rows).  "bench": the bench's rescoring
-# matrix (4,096 x 512, then its 1,024-candidate leg); "window": contiguous
-# library rows from a random start, -1 past a random width (at most
-# C / 8 wide, so a wide row is mostly padding), one row in 16 all -1, as
-# the window levels build them (`search._window_cand_matrix`).  Query
-# tiles (`ops.stage1_cuda.i_tile`): 10 peaks at K = 50, 8 at Kq = 56, 16
-# at Kq = 32; Kc = 70 stages the candidate peaks in two chunks; six shifts
-# take the kernel's loop over any shift count.
+# charge, allow_shift, candidate rows[, options]).  "bench": the bench's
+# rescoring matrix (4,096 x 512, then its 1,024-candidate leg); "window":
+# contiguous library rows from a random start, -1 past a random width (at
+# most C / 8 wide, so a wide row is mostly padding), one row in 16 all -1,
+# as the window levels build them (`search._window_cand_matrix`).  Query
+# blocks (`ops.stage1_cuda.i_tile`): 7 peaks a thread at K = 50 and 56, 4
+# at Kq = 32; Kc = 70 pads the staged row to 128, Kc = 20 to 32; six
+# shifts take the kernel's loop over any shift count.  The options (a
+# dict of `synth_stage1` keywords, plus "tol" for the fragment tolerance;
+# the first ten cases take none, so their inputs are those of earlier
+# runs) give the rows the main path really has and the kernel's edges:
+# preprocess's zero tail, peaks at the float32 edges of the windows with
+# duplicated m/z (at tol = 2^-5 some sit exactly on them), a quarter of
+# the rows shuffled (the dense branch), and non-finite m/z and precursors.
 STAGE1_CASES = (
     ("bench_chunk", 4096, 512, 131072, 50, 50, 2, True, "bench"),
     ("bench_1024", 4096, 1024, 131072, 50, 50, 2, True, "bench"),
@@ -363,14 +377,30 @@ STAGE1_CASES = (
     ("shifts_6", 256, 512, 131072, 50, 50, 5, True, "bench"),
     ("kq_ne_kc", 1024, 512, 131072, 56, 70, 3, True, "bench"),
     ("k32_k20", 1024, 512, 131072, 32, 20, 2, True, "window"),
+    ("bench_tail", 1024, 512, 131072, 50, 50, 2, True, "bench",
+     {"tail": True}),
+    ("window_tail", 1024, 256, 100_000, 50, 50, 2, True, "window",
+     {"tail": True}),
+    ("edges_exact", 1024, 512, 16384, 50, 50, 2, True, "bench",
+     {"edges": 0.03125, "tol": 0.03125}),
+    ("edges_c3", 1024, 512, 16384, 50, 50, 3, True, "bench",
+     {"edges": FRAG_TOL}),
+    ("shuffled", 1024, 512, 131072, 50, 50, 2, True, "bench",
+     {"shuffle": 0.25}),
+    ("nonfinite", 512, 512, 131072, 50, 50, 2, True, "bench",
+     {"nonfinite": True}),
 )
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, 700 W) for the
 # kernels' bounds: HBM bytes/s, bf16 tensor-core FLOP/s, f32 FLOP/s
-# outside the tensor cores.
+# outside the tensor cores (an FMA counted as two), and the f32
+# instruction rate that a subtraction, a compare or a max issues at: one
+# instruction a lane, 128 lanes an SM x 132 SMs x 1.98 GHz, half the
+# FLOP rate.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+F32_INSTR_PER_S = F32_FLOPS / 2
 
 # The big-library slice (SCALE r04's single-chip point, scale_demo.py).
 N_BIG = 2_097_152
@@ -579,14 +609,30 @@ def synth_pairs(rng, p, kq, kc, charge, ties):
 
 
 def synth_stage1(rng, b, c, n_lib, kq, kc, charge, cand_rows="bench",
-                 close_prec=0.25):
+                 close_prec=0.25, tail=False, edges=None, shuffle=0.0,
+                 nonfinite=False):
     """Kernel B4 inputs in NumPy: a library of `n_lib` spectra (`kc` peaks,
     annotations 0..charge) and `b` queries, each made from a library row
     with direct, shifted (by mod / s, s = 1..charge, as a precursor
     shift of mod makes them) and random peaks, a quarter with the row's
     own precursor (|delta prec| < tol: no shifted terms).  Candidate rows
     are `cand_rows`: "bench" (random ids with the source row among them,
-    about 1 in 10 slots -1) or "window" (see STAGE1_CASES)."""
+    about 1 in 10 slots -1) or "window" (see STAGE1_CASES).
+
+    Options, off by default (the arrays and the draws from `rng` are then
+    those of the call without them):
+    * `tail`: every library row and query keeps a random count (1..K) of
+      its ascending peaks, then m/z 0, intensity 0, annotation 0, the
+      layout of `preprocess_batch`;
+    * `edges`: a fragment tolerance; each query's source row gets, for
+      one matched query peak, peaks within two ulps of q - off_w +- tol
+      for the direct window and one shift window (float32, so some pass
+      the plain test exactly at the edge and their neighbours fail it),
+      and two duplicated m/z, then is sorted again;
+    * `shuffle`: the share of library rows whose peaks are permuted
+      (unsorted: the kernel's dense branch);
+    * `nonfinite`: NaN and +-inf m/z in about 2% of the library rows and
+      an eighth of the queries, and an infinite precursor in a few rows."""
     f32 = np.float32
     lib_mz = np.sort(rng.uniform(100, 1500, (n_lib, kc)), 1).astype(f32)
     lib_int = rng.uniform(0.05, 1.0, (n_lib, kc)).astype(f32)
@@ -615,8 +661,69 @@ def synth_stage1(rng, b, c, n_lib, kq, kc, charge, cand_rows="bench",
         cand = lo[:, None] + np.arange(c)[None]
         cand = np.where((np.arange(c)[None] < width[:, None])
                         & (cand < n_lib), cand, -1)
+    if edges is not None:
+        _place_edges(rng, f32(edges), charge, q_mz, q_prec, lib_mz, lib_int,
+                     lib_ann, lib_prec, src)
+    if tail:
+        for mz, inten, ann in ((lib_mz, lib_int, lib_ann),
+                               (q_mz, q_int, None)):
+            n = mz.shape[1]
+            pad = np.arange(n)[None] >= rng.integers(1, n + 1, len(mz))[:, None]
+            mz[pad] = 0.0
+            inten[pad] = 0.0
+            if ann is not None:
+                ann[pad] = 0
+    if shuffle:
+        rows = np.nonzero(rng.random(n_lib) < shuffle)[0]
+        perm = rng.permuted(np.tile(np.arange(kc), (len(rows), 1)), axis=1)
+        for arr in (lib_mz, lib_int, lib_ann):
+            arr[rows] = np.take_along_axis(arr[rows], perm, 1)
+    if nonfinite:
+        bad = np.array([np.nan, np.inf, -np.inf], f32)
+        rows = rng.choice(n_lib, max(1, n_lib // 50), replace=False)
+        lib_mz[rows, rng.integers(0, kc, len(rows))] = rng.choice(
+            bad, len(rows))
+        rows = rng.choice(b, max(1, b // 8), replace=False)
+        q_mz[rows, rng.integers(0, kq, len(rows))] = rng.choice(bad, len(rows))
+        lib_prec[rng.choice(n_lib, max(1, n_lib // 200), replace=False)] = \
+            np.inf
     return (q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec,
             cand.astype(np.int64))
+
+
+def _place_edges(rng, tol, charge, q_mz, q_prec, lib_mz, lib_int, lib_ann,
+                 lib_prec, src):
+    """`synth_stage1`'s `edges` option, in place: for each query, 12 peaks
+    of its source row at the float32 edges of one query peak's direct
+    window and of one shift window (q - off +- tol and two ulps either
+    side), 2 duplicated m/z, then the row sorted again."""
+    f32 = np.float32
+    kc = lib_mz.shape[1]
+    if kc < 14:
+        return
+    chg = f32(max(charge, 1))
+    for r in range(len(q_mz)):
+        row = src[r]
+        q = q_mz[r, rng.integers(0, min(12, q_mz.shape[1]))]
+        pd = f32((q_prec[r] - lib_prec[row]) * chg)
+        shift = rng.integers(1, max(charge, 1) + 1)
+        placed = []
+        for off in (f32(0.0), f32(pd / f32(shift))):
+            for sign in (f32(1.0), f32(-1.0)):
+                c0 = f32(f32(q - off) - sign * tol)
+                for step in (-2, -1, 0, 1, 2):
+                    cv = c0
+                    for _ in range(abs(step)):
+                        cv = np.nextafter(cv, f32(np.inf if step > 0
+                                                  else -np.inf))
+                    placed.append(cv)
+        at = rng.choice(kc, 14, replace=False)
+        picked = rng.choice(len(placed), 12, replace=False)
+        lib_mz[row, at[:12]] = np.asarray(placed, f32)[picked]
+        lib_mz[row, at[12:]] = lib_mz[row, at[:2]]
+        order = np.argsort(lib_mz[row], kind="stable")
+        for arr in (lib_mz, lib_int, lib_ann):
+            arr[row] = arr[row, order]
 
 
 def phase_device():
@@ -759,30 +866,83 @@ def phase_kernel(dev, cases=KERNEL_CASES, kernel_reps=20, plain_reps=3):
     return record
 
 
+def stage1_work(arrays, n_shifts, shift, tol):
+    """What B4's inputs need, from this run's arrays: (operations of the
+    search design, operations of the old dense count, rows and pairs on
+    each branch).  Operations: for a pair whose row ascends, a merge of
+    its Kq query peaks with its n kept peaks in each window it has (the
+    direct one; each shift when |prec_diff| >= tol): per step a
+    subtraction and a compare, one subtraction more for a shift window;
+    for any other row every query peak against every kept peak, per entry
+    a subtraction and a compare a window; then Kq products and Kq adds.
+    The maxima of passing entries are left out (data-dependent and few).
+    The old count: Kq x Kc entries a pair, 5 operations an entry and
+    window plus 2 (B1's matrix build)."""
+    import torch
+
+    from ann_solo_tpu_torch.ops import stage1_cuda
+
+    q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec, cand = arrays
+    kq, kc = q_mz.shape[1], lib_mz.shape[1]
+    valid = cand >= 0
+    rows = torch.nonzero(valid)[:, 0]
+    ids = cand[valid].clamp(max=lib_mz.shape[0] - 1)
+    ascending = stage1_cuda.ascending_rows(lib_mz, lib_int)
+    kept = (lib_int > 0).sum(1).to(torch.float64)[ids]
+    n_shift = n_shifts - 1 if shift and n_shifts > 1 else 0
+    chg = float(n_shifts - 1 if shift else 1)
+    pd = (q_prec[rows] - lib_prec[ids]) * chg
+    extra = n_shift * (pd.abs() >= torch.tensor(
+        tol, dtype=torch.float32, device=pd.device)).to(torch.float64)
+    fast = ascending[ids]
+    ops = torch.where(fast, (kq + kept) * (2 + 3 * extra),
+                      kq * kept * (2 + 2 * extra)).sum() + 2 * kq * len(ids)
+    n_terms = n_shifts if shift else 1
+    old = len(ids) * kq * kc * (5 * n_terms + 2)
+    used = torch.unique(ids)
+    n_fast_rows = int(ascending[used].sum())
+    n_fast_pairs = int(fast.sum())
+    return (float(ops), float(old), n_fast_rows, len(used) - n_fast_rows,
+            n_fast_pairs, len(ids) - n_fast_pairs)
+
+
 def phase_stage1_kernel(dev, cases=STAGE1_CASES, kernel_reps=20,
                         plain_reps=2):
     """Phase 3d: kernel B4, through stage 1's routing
     (`rescore._stage1_bounds`: the kernel on the card, the plain version on
     the CPU), against its plain version on the same tensors: bounds equal
-    bit for bit, -inf cells included.  Returns the record of the bench
-    chunk (times) and the largest difference (0)."""
+    bit for bit, -inf cells included.  Logs the rows and pairs on each of
+    the kernel's branches (`stage1_cuda.ascending_rows`) and gates on both
+    being taken over the phase.  Returns the record of the bench chunk
+    (times) and the largest difference (0)."""
     import torch
 
+    from ann_solo_tpu_torch.ops import stage1_cuda
     from ann_solo_tpu_torch.ops.rescore import (
         _stage1_bounds,
         stage1_bounds_plain,
     )
 
+    if dev.type == "cuda":
+        smem, per_sm = stage1_cuda.occupancy(K_PEAKS, K_PEAKS)
+        log(f"B4 occupancy at Kq = Kc = {K_PEAKS}: {smem} bytes of dynamic "
+            f"shared memory a block, {per_sm} blocks of "
+            f"{stage1_cuda.SLOTS * stage1_cuda.WARPS // 32} warps an SM")
+        note(f"B4 at K = {K_PEAKS}: {smem} B of shared memory a block, "
+             f"{per_sm * stage1_cuda.SLOTS * stage1_cuda.WARPS // 32} warps "
+             "an SM")
     rng = np.random.default_rng(3)
     record = {"max_abs_err": 0.0}
-    for name, b, c, n_lib, kq, kc, charge, shift, rows in cases:
+    branches = np.zeros(2, np.int64)  # rows on the range search, dense
+    for name, b, c, n_lib, kq, kc, charge, shift, rows, *rest in cases:
+        opts = dict(rest[0]) if rest else {}
+        tol = opts.pop("tol", FRAG_TOL)
         arrays = [torch.from_numpy(a).to(dev) for a in synth_stage1(
-            rng, b, c, n_lib, kq, kc, charge, rows)]
+            rng, b, c, n_lib, kq, kc, charge, rows, **opts)]
         n_shifts = charge + 1
         # The engine's chunk of the plain version
         # (`rescore_candidate_matrix`); the kernel takes the whole matrix.
-        args = (*arrays, FRAG_TOL, n_shifts, shift,
-                max(8, min(c, 65536 // b)))
+        args = (*arrays, tol, n_shifts, shift, max(8, min(c, 65536 // b)))
         got = _stage1_bounds(*args)
         want = stage1_bounds_plain(*args)
         if dev.type == "cuda":
@@ -800,31 +960,42 @@ def phase_stage1_kernel(dev, cases=STAGE1_CASES, kernel_reps=20,
         ms = time_ms(lambda: _stage1_bounds(*args), dev, kernel_reps)
         plain_ms = time_ms(lambda: stage1_bounds_plain(*args), dev,
                            plain_reps)
-        # The function's least work, on this run's valid pairs only (an
-        # invalid slot reads no peaks): B1's count at :662, per shift a
-        # difference, a second difference, |.|, a compare and a max for
-        # each of the Kq x Kc entries, then the product and the sum.
         # Bytes: the queries, the ids, the library rows referenced and the
-        # output, each once.
-        valid = arrays[7] >= 0
-        n_valid = int(valid.sum())
-        n_shift_terms = n_shifts if shift else 1
-        ops = n_valid * kq * kc * (5 * n_shift_terms + 2)
-        n_rows = int(torch.unique(arrays[7][valid]).numel())
+        # output, each once.  Operations: what these inputs need
+        # (`stage1_work`), at the f32 instruction rate.
+        ops, old, fast_rows, dense_rows, fast_pairs, dense_pairs = \
+            stage1_work(arrays, n_shifts, shift, tol)
+        branches += (fast_rows, dense_rows)
+        n_rows = fast_rows + dense_rows
         n_bytes = (tensor_bytes(*arrays[:3], arrays[7], got)
                    + n_rows * (kc * 12 + 4))
-        fields = bound("B4", name, ms, n_bytes, ops, F32_FLOPS)
+        fields = bound("B4", name, ms, n_bytes, ops, F32_INSTR_PER_S)
+        old_ms = max(n_bytes / HBM_BYTES_PER_S, old / F32_FLOPS) * 1e3
+        log(f"bound B4 {name}, the old dense count: {old:.4g} ops at "
+            f"{F32_FLOPS:.3g} FLOP/s -> {old_ms:.4f} ms, "
+            f"{100.0 * old_ms / ms:.2f}% of it")
         if name == cases[0][0]:
             record.update(ms=ms, plain_ms=plain_ms, **fields)
             note(f"B4 {name} ({b} x {c}, K={kq}): {ms:.4f} ms, plain "
                  f"{plain_ms:.2f} ms, {100 * fields['bound_ms'] / ms:.2f}% "
-                 f"of its {fields['bound_ms']:.4f} ms bound")
+                 f"of its {fields['bound_ms']:.4f} ms bound, "
+                 f"{100 * old_ms / ms:.2f}% of the old dense count's "
+                 f"{old_ms:.4f} ms")
         log(f"kernel B4 {name}: B={b} C={c} N={n_lib} Kq={kq} Kc={kc} "
-            f"shifts={n_shifts} shift={shift} rows={rows}: identical "
-            f"({n_valid} valid pairs, {int(finite.sum())} finite); kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+            f"shifts={n_shifts} shift={shift} rows={rows} tol={tol} "
+            f"options={opts or 'none'}: identical "
+            f"({fast_pairs + dense_pairs} valid pairs, {int(finite.sum())} "
+            f"finite; branches: range search {fast_rows} rows / "
+            f"{fast_pairs} pairs, dense {dense_rows} rows / {dense_pairs} "
+            f"pairs); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
         del arrays, args, got, want
-    note(f"{len(cases)} cases bit-identical, -inf cells included")
+    if not (branches > 0).all():
+        raise AssertionError(f"B4: rows on the range search and the dense "
+                             f"branch {branches.tolist()}: both must be "
+                             "taken")
+    note(f"{len(cases)} cases bit-identical, -inf cells included; rows on "
+         f"the range search {branches[0]}, on the dense branch "
+         f"{branches[1]}")
     return record
 
 

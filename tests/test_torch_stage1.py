@@ -10,12 +10,18 @@ packages.  The plain version must:
 * be sound: every valid pair's bound >= its greedy score;
 * equal, bit for bit, a NumPy float32 computation that sums the terms
   sequentially, i = 0, 1, ..., K - 1 from +0.0 (the stated order);
-* equal, bit for bit, a NumPy emulation of the kernel's own work split
-  (blocks of `THREADS` candidate slots, staged chunks of candidate peaks,
-  query tiles of `i_tile(Kq)` peaks, unpadded widths).
+* equal, bit for bit, a NumPy emulation of the kernel's own work split:
+  the branch rule (positive peaks a prefix of the row, finite and
+  non-decreasing m/z), the range search with the plain version's float32
+  expression over that prefix, the dense loop over every peak for other
+  rows, and the sum of the terms that can differ from +-0 in query-peak
+  order, on the main path's layouts (a zero tail), peaks at the windows'
+  float32 edges, duplicated m/z, shuffled rows and non-finite m/z.
 
-CPU tensors never reach the kernel's wrapper, and the wrapper module
-imports and refuses CPU tensors without CUDA.
+The rows the main path builds (`preprocess_batch`, `build_store`, the
+bench's library) all take the kernel's range search.  CPU tensors never
+reach the kernel's wrapper, and the wrapper module imports and refuses
+CPU tensors without CUDA.
 """
 
 import importlib.util
@@ -27,6 +33,14 @@ import pytest
 import torch
 
 from ann_solo_tpu.ops.rescore import _stage1_bounds as jax_stage1
+from ann_solo_tpu_torch import bench, synthdata
+from ann_solo_tpu_torch.config import config as torch_config
+from ann_solo_tpu_torch.io import store
+from ann_solo_tpu_torch.models.preprocess import (
+    PreprocessParams,
+    preprocess_batch,
+)
+from ann_solo_tpu_torch.models.spectrum import pack_spectra
 from ann_solo_tpu_torch.ops import rescore as pt_rescore
 from ann_solo_tpu_torch.ops import stage1_cuda
 from ann_solo_tpu_torch.ops.shifted_dot import shifted_dot_scores
@@ -64,18 +78,51 @@ CASES = {
 }
 
 
+# Cases of the kernel's split alone, as CASES plus the options of
+# `synth_stage1`: preprocess's zero tail, peaks at the windows' float32
+# edges (at tol = 2^-5 some exactly on them) with duplicated m/z, shuffled
+# rows (the dense branch), non-finite m/z and precursors, more query peaks
+# than one pass takes (300 > WARPS * MAX_BLOCK), and a row whose width is
+# a power of two (no +inf padding).
+SPLIT_CASES = {
+    "padded_tail": (16, 64, 128, 50, 50, 2, True, "bench", 0.25, 16, 0.04,
+                    {"tail": True}),
+    "window_tail": (16, 256, 400, 24, 24, 2, True, "window", 0.25, 64, 0.5,
+                    {"tail": True}),
+    "edge_at_tol": (16, 40, 64, 50, 50, 2, True, "bench", 0.25, 16, 0.03125,
+                    {"edges": 0.03125}),
+    "edge_c3": (16, 40, 64, 50, 50, 3, True, "bench", 0.25, 16, 0.04,
+                {"edges": 0.04}),
+    "duplicates": (16, 40, 64, 50, 50, 2, True, "bench", 0.25, 16, 0.5,
+                   {"edges": 0.5}),
+    "shuffled": (16, 64, 128, 20, 20, 2, True, "bench", 0.25, 16, 0.5,
+                 {"shuffle": 0.3}),
+    "nonfinite": (16, 64, 128, 20, 20, 2, True, "bench", 0.25, 16, 0.5,
+                  {"nonfinite": True}),
+    "many_query_peaks": (4, 16, 32, 300, 40, 2, True, "bench", 0.25, 16,
+                         0.5, {}),
+    "full_pow2_row": (8, 32, 64, 40, 64, 2, True, "bench", 0.25, 16, 0.5,
+                      {}),
+}
+
+
+def _case(name):
+    case = CASES[name] if name in CASES else SPLIT_CASES[name]
+    return case[:11], (case[11] if len(case) > 11 else {})
+
+
 def _inputs(name, all_invalid_rows=()):
-    b, c, n_lib, kq, kc, charge, _, rows, close, _, _ = CASES[name]
+    (b, c, n_lib, kq, kc, charge, _, rows, close, _, _), opts = _case(name)
     rng = np.random.default_rng(sum(map(ord, name)))
     arrays = list(_chip_smoke().synth_stage1(
-        rng, b, c, n_lib, kq, kc, charge, rows, close_prec=close))
+        rng, b, c, n_lib, kq, kc, charge, rows, close_prec=close, **opts))
     for r in all_invalid_rows:
         arrays[7][r] = -1
     return arrays
 
 
 def _settings(name):
-    _, _, _, _, _, charge, shift, _, _, c_chunk, tol = CASES[name]
+    (_, _, _, _, _, charge, shift, _, _, c_chunk, tol), _ = _case(name)
     return charge + 1, shift, c_chunk, tol
 
 
@@ -179,69 +226,196 @@ def test_sum_order_is_sequential(name):
 
 def _emulate_kernel(q_mz, q_int, q_prec, l_mz, l_int, l_ann, l_prec, cand,
                     num_shifts, shift, tol):
-    """Kernel B4's work split in NumPy: a block per (query row, tile of
-    THREADS slots), leaving at once when the tile holds no valid id; the
-    candidates' peaks staged in chunks of MAX_CHUNK; a thread's query
-    peaks in tiles of i_tile(Kq), their maxima over every staged chunk,
-    then the tile's terms added to the running sum in order; products 0
-    for the shifted terms of a pair outside the shift condition."""
+    """Kernel B4's work split in NumPy, all valid pairs at once.  The
+    row is staged with +inf for the m/z of its peaks of intensity <= 0
+    (or NaN) and past Kc up to `padded_width(Kc)`.  The branch rule: a
+    row whose positive peaks are a prefix of it, with finite,
+    non-decreasing m/z, takes the range search: per query peak and window
+    a branchless binary search over log2(padded_width(Kc)) steps for the
+    first staged peak with (q - c) - off <= tol, then, if that peak is
+    below Kc and passes |(q - c) - off| <= tol, a walk taking the max
+    while the test passes, stopping at the first failure or at Kc; any
+    other row the dense loop over its Kc staged peaks (fmax: a NaN value
+    is ignored).  The shift windows only for pairs with
+    |prec_diff| >= tol; the query peaks in passes of WARPS blocks of
+    i_tile(Kq), each term q_int * vmax added in query-peak order unless
+    vmax is 0 and q_int finite (a +-0 term)."""
     b, c = cand.shape
     kq, kc = q_mz.shape[1], l_mz.shape[1]
-    it = stage1_cuda.i_tile(kq)
-    chunk = min(kc, stage1_cuda.MAX_CHUNK)
+    tol = F32(tol)
+    kcp = stage1_cuda.padded_width(kc)
+    qb = stage1_cuda.i_tile(kq)
     n_shift = num_shifts - 1 if shift and num_shifts > 1 else 0
     chg = F32(num_shifts - 1 if shift else 1)
+    rows, cols = np.nonzero(cand >= 0)
+    ids = np.minimum(cand[rows, cols], len(l_mz) - 1)
+    pairs = np.arange(len(ids))
+
+    ci, ca = l_int[ids], l_ann[ids]
+    pos = ci > 0
+    with np.errstate(invalid="ignore"):
+        fast = (~(pos[:, 1:] & ~pos[:, :-1]).any(1)
+                & ~(pos[:, 1:] & ~(l_mz[ids][:, :-1] <= l_mz[ids][:, 1:]))
+                .any(1) & (~pos | np.isfinite(l_mz[ids])).all(1))
+    cm = np.full((len(ids), kcp), np.inf, F32)
+    cm[:, :kc] = np.where(pos, l_mz[ids], F32(np.inf))
+    assert np.array_equal(fast, stage1_cuda.ascending_rows(
+        torch.from_numpy(l_mz), torch.from_numpy(l_int)).numpy()[ids])
+
+    pd = (q_prec[rows] - l_prec[ids]) * chg
+    shifted = (n_shift > 0) & (np.abs(pd) >= tol)
+    windows = [(np.zeros(len(ids), F32), np.ones(len(ids), bool), ci)]
+    for s in range(1, n_shift + 1):
+        mult = np.where(ca == s, F32(1), np.where(ca == 0, F32(2 / 3),
+                                                  F32(0)))
+        windows.append((pd / F32(s), shifted, mult * ci))
+    acc = np.zeros(len(ids), F32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for i0 in range(0, kq, stage1_cuda.WARPS * qb):
+            for g in range(stage1_cuda.WARPS):
+                for i in range(i0 + g * qb, min(kq, i0 + (g + 1) * qb)):
+                    q = q_mz[rows, i]
+                    v = np.zeros(len(ids), F32)
+                    for off, active, val in windows:
+                        at = np.zeros(len(ids), np.int64)
+                        step = kcp // 2
+                        while step:
+                            cc = cm[pairs, at + step - 1]
+                            at += np.where((q - cc) - off > tol, step, 0)
+                            step //= 2
+                        walk = np.zeros(len(ids), F32)
+                        alive = np.ones(len(ids), bool)
+                        for k in range(kc):
+                            j = np.minimum(at + k, kcp - 1)
+                            alive &= (at + k < kc) & (
+                                np.abs((q - cm[pairs, j]) - off) <= tol)
+                            walk = np.where(alive, np.fmax(
+                                walk, val[pairs, np.minimum(j, kc - 1)]),
+                                walk)
+                        hit = (np.abs((q[:, None] - cm[:, :kc])
+                                      - off[:, None]) <= tol)
+                        dense = np.fmax.reduce(
+                            np.where(hit, val, F32(0)), axis=1,
+                            initial=F32(0))
+                        v = np.where(active, np.fmax(
+                            v, np.where(fast, walk, dense)), v)
+                    w = q_int[rows, i]
+                    term = v != 0
+                    term |= ~np.isfinite(w)
+                    acc = np.where(term, acc + w * v, acc)
     out = np.full((b, c), -np.inf, F32)
-    for row in range(b):
-        for t0 in range(0, c, stage1_cuda.THREADS):
-            ids = cand[row, t0:t0 + stage1_cuda.THREADS]
-            valid = ids >= 0
-            if not valid.any():
-                continue
-            ids = np.minimum(ids[valid], len(l_mz) - 1)
-            pd = (q_prec[row] - l_prec[ids]) * chg
-            shifted = np.abs(pd) >= F32(tol)
-            offs = [pd / F32(s) for s in range(1, n_shift + 1)]
-            acc = np.zeros(len(ids), F32)
-            for i0 in range(0, kq, it):
-                qm = q_mz[row, i0:i0 + it]
-                vmax = np.zeros((len(ids), len(qm)), F32)
-                for j0 in range(0, kc, chunk):
-                    for j in range(j0, min(j0 + chunk, kc)):
-                        cm, ci, ca = (l_mz[ids, j], l_int[ids, j],
-                                      l_ann[ids, j])
-                        d = qm[None, :] - cm[:, None]
-                        hit = np.abs(d) <= F32(tol)
-                        vmax = np.where(hit, np.maximum(vmax, ci[:, None]),
-                                        vmax)
-                        for s, off in enumerate(offs, start=1):
-                            mult = np.where(ca == s, F32(1), np.where(
-                                ca == 0, F32(2 / 3), F32(0)))
-                            ct = np.where(shifted, mult * ci, F32(0))
-                            hit = np.abs(d - off[:, None]) <= F32(tol)
-                            vmax = np.where(
-                                hit, np.maximum(vmax, ct[:, None]), vmax)
-                for ii in range(len(qm)):
-                    acc = acc + q_int[row, i0 + ii] * vmax[:, ii]
-            slots = t0 + np.nonzero(valid)[0]
-            out[row, slots] = acc * F32(pt_rescore.BOUND_INFLATION)
-    return out
+    out[rows, cols] = acc * F32(pt_rescore.BOUND_INFLATION)
+    return out, fast
 
 
 @pytest.mark.parametrize("name", ["shifts_1", "shifts_3", "shifts_6",
                                   "no_allow_shift", "prec_within_tol",
                                   "kq_lt_kc", "window", "bench_k50",
-                                  "k56_ragged_tile"])
+                                  "k56_ragged_tile", *SPLIT_CASES])
 def test_kernel_split_emulation_equals_plain(name):
     num_shifts, shift, c_chunk, tol = _settings(name)
     arrays = _inputs(name, all_invalid_rows=(0,))
-    got = _emulate_kernel(*arrays, num_shifts, shift, tol)
+    got, fast = _emulate_kernel(*arrays, num_shifts, shift, tol)
     np.testing.assert_array_equal(
         got, _plain(arrays, num_shifts, shift, c_chunk, tol))
+    # Each case takes the branch it was made for.
+    if name in ("shuffled", "nonfinite"):
+        assert 0 < fast.sum() < len(fast)
+    else:
+        assert fast.all()
 
 
-@pytest.mark.parametrize("kq,tile", [(50, 10), (20, 10), (32, 16),
-                                     (56, 8), (128, 16), (7, 8), (1, 8)])
+def test_edge_case_has_peaks_on_the_edges():
+    """`edge_at_tol` really places candidate peaks whose direct difference
+    is exactly +-tol in float32 (and others one ulp past it)."""
+    arrays = _inputs("edge_at_tol")
+    q_mz, l_mz, cand = arrays[0], arrays[3], arrays[7]
+    tol = F32(_settings("edge_at_tol")[3])
+    rows, cols = np.nonzero(cand >= 0)
+    d = np.abs(q_mz[rows][:, :, None] - l_mz[cand[rows, cols]][:, None, :])
+    assert (d == tol).sum() > 0
+    assert ((d > tol) & (d < tol + F32(1e-3))).sum() > 0
+
+
+@pytest.fixture
+def torch_config_set():
+    """The port's config singleton parsed with the CLI's defaults (the
+    decoys read the fragment tolerance), restored afterwards."""
+    saved = torch_config._namespace
+    torch_config.parse(["lib.mgf", "queries.mgf", "out.mztab",
+                        "--precursor_tolerance_mass", "20",
+                        "--precursor_tolerance_mode", "ppm",
+                        "--fragment_mz_tolerance", "0.02"])
+    yield
+    torch_config._namespace = saved
+
+
+def test_main_path_rows_take_the_range_search(torch_config_set):
+    """The library rows the main path builds are m/z-ascending with a zero
+    tail: `preprocess_batch` on raw spectra, `build_store` on a small
+    synthetic library (decoys included), and the bench's library."""
+    rng = np.random.default_rng(7)
+    _, spectra = synthdata.make_library(rng, n_peptides=40)
+    params = PreprocessParams()  # the defaults: up to 50 peaks
+    packed = pack_spectra(spectra)
+    out = preprocess_batch(params, *(torch.from_numpy(a) for a in (
+        packed.mz, packed.intensity, packed.ann_charge, packed.n_peaks,
+        packed.precursor_mz, packed.precursor_charge)))
+    assert bool((out.n_peaks < out.mz.shape[1]).any())  # a real zero tail
+    assert bool(stage1_cuda.ascending_rows(out.mz, out.intensity).all())
+    built = store.build_store(iter(spectra), "0" * 16, "lib.mgf", params,
+                              torch.device("cpu"), add_decoys=True)
+    assert built.n_spectra == 2 * len(spectra)
+    assert bool(stage1_cuda.ascending_rows(
+        torch.from_numpy(built.proc_mz),
+        torch.from_numpy(built.proc_intensity)).all())
+    lib_mz, lib_int, _, _ = bench.synth_library(rng, 512)
+    assert bool(stage1_cuda.ascending_rows(
+        torch.from_numpy(lib_mz), torch.from_numpy(lib_int)).all())
+
+
+@pytest.mark.parametrize("mz,intensity,want", [
+    ([1.0, 2.0, 2.0, 3.0], [1.0, 1.0, 1.0, 1.0], True),
+    ([1.0, 3.0, 2.0, 0.0], [1.0, 1.0, 1.0, 0.0], False),
+    ([1.0, 9.0, 2.0, 0.0], [1.0, 0.0, 1.0, 0.0], False),
+    ([1.0, 2.0, 0.0, 0.0], [1.0, 1.0, 0.0, -1.0], True),
+    ([1.0, np.nan, 3.0, 4.0], [1.0, 1.0, 1.0, 1.0], False),
+    ([1.0, 2.0, np.nan, -5.0], [1.0, 1.0, 0.0, 0.0], True),
+    ([1.0, 2.0, np.inf, 0.0], [1.0, 1.0, 1.0, 0.0], False),
+    ([-np.inf, 2.0, 3.0, 0.0], [1.0, 1.0, 1.0, 0.0], False),
+    ([5.0, 2.0, 3.0, 4.0], [np.nan, 1.0, 1.0, 1.0], False),
+    ([0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0], True),
+])
+def test_ascending_rows(mz, intensity, want):
+    """The branch rule: the peaks of positive intensity must be a prefix
+    of the row (the zero tail after them is ignored) with finite,
+    non-decreasing m/z."""
+    got = stage1_cuda.ascending_rows(
+        torch.tensor([mz], dtype=torch.float32),
+        torch.tensor([intensity], dtype=torch.float32))
+    assert got.tolist() == [want]
+
+
+@pytest.mark.parametrize("kc,width", [(1, 1), (20, 32), (50, 64), (64, 64),
+                                      (70, 128), (0, 1)])
+def test_padded_width(kc, width):
+    assert stage1_cuda.padded_width(kc) == width
+
+
+def test_smem_bytes_and_limit():
+    """The wrapper's shared-memory count is the kernel's (53,244 bytes at
+    K = 50: four blocks of eight warps fit an SM), and widths past the
+    limits raise before anything is built."""
+    assert stage1_cuda.smem_bytes(50, 50) == 53_244
+    assert 4 * (stage1_cuda.smem_bytes(50, 50) + 1024) <= 233_472
+    assert stage1_cuda.smem_bytes(50, 256) <= stage1_cuda.SMEM_LIMIT
+    assert stage1_cuda.smem_bytes(300, 256) > stage1_cuda.SMEM_LIMIT
+    assert stage1_cuda.padded_width(257) > stage1_cuda.MAX_PADDED
+
+
+@pytest.mark.parametrize("kq,tile", [(50, 7), (20, 3), (32, 4), (56, 7),
+                                     (128, 16), (7, 1), (1, 1), (300, 32),
+                                     (0, 1)])
 def test_i_tile(kq, tile):
     assert stage1_cuda.i_tile(kq) == tile
 
