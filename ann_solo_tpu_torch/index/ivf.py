@@ -15,14 +15,20 @@ the voting budget:
 * **Search** (`IvfIndex.search_device`), every regime ranking by the same
   canonical order (16-bit bf16 key desc, global position asc; exact f32
   scores for f32 storage) and deduplicating redundant copies:
-  - full scan (`_ivf_search_fullscan`): a 128-query tile's probed-list
-    union covers the library and the (T, L, cap) f32 score block fits
-    512 MB; every list is scanned and the probe set is a selection mask;
+  - full scan: a 128-query tile's probed-list union covers the library
+    and the (T, L, cap) f32 score block fits 512 MB.  On the card with
+    int8/bf16 storage it runs as the probe path below (each query's
+    probed lists through kernel B2, the selection through kernel B5);
+    CPU tensors and f32 storage run `_ivf_search_fullscan`, which scores
+    every list and uses the probe set as a selection mask
+    (`_fullscan_scans_probed_lists`);
   - chunked regimes (`IvfIndex._search_chunked`), in super-tiles of up
     to 1,024 queries:
     - probe path (`_ivf_probe_scan_tile`): int8/bf16 storage within B2's
       lane bound; each query scans only its own probed lists through
-      kernel B2 (`ops/ivf_probe_cuda.py`); exact, no certificates;
+      kernel B2 (`ops/ivf_probe_cuda.py`), then the canonical top-k, ids
+      and dedup through kernel B5 (`ops/select_cuda.py`); exact, no
+      certificates;
     - fused chunked scan (`_ivf_chunked_scan_tile`): int8/bf16 shapes
       beyond that bound where `chunked_pallas_supported` holds; each
       query's 8 best lists scanned exactly (B2), the cold tail through
@@ -70,6 +76,11 @@ from ann_solo_tpu_torch.models.vectorize import (
     VectorizeParams,
     device_tables,
     vectorize_batch,
+)
+from ann_solo_tpu_torch.ops.canonical_select import (
+    canonical_select,
+    dedup_topk as _dedup_topk,
+    pad_topk as _pad_topk,
 )
 from ann_solo_tpu_torch.ops.ivf_probe import probe_scan_supported
 from ann_solo_tpu_torch.ops.ivf_probe import window_mask as _window_mask
@@ -510,37 +521,6 @@ def soar_round_choices(vectors, centroids, choices, r_eff, soar_lambda):
 # Search
 
 
-def _dedup_topk(scores, ids, k: int):
-    """Unique-id top-k over lanes in canonical order ((B, K') -> (B, k)):
-    each id keeps its first lane, lane order preserved."""
-    q, ks = ids.shape
-    ids_s, rank_s = torch.sort(ids, dim=1, stable=True)
-    first = torch.cat(
-        [torch.ones_like(ids_s[:, :1], dtype=torch.bool),
-         ids_s[:, 1:] != ids_s[:, :-1]],
-        dim=1,
-    ) & (ids_s >= 0)
-    kept = torch.where(first, rank_s, ks)  # ks sorts last
-    kept = torch.sort(kept, dim=1).values[:, :min(k, ks)]
-    valid = kept < ks
-    safe = torch.where(valid, kept, 0)
-    out_s = torch.where(valid, scores.gather(1, safe), float("-inf"))
-    out_i = torch.where(valid, ids.gather(1, safe), -1)
-    return out_s, out_i
-
-
-def _pad_topk(scores, ids, k: int):
-    """Right-pad (B, K') top-k outputs to width k with -inf / -1."""
-    k_eff = scores.shape[1]
-    if k_eff >= k:
-        return scores[:, :k], ids[:, :k]
-    pad = (0, k - k_eff)
-    return (
-        F.pad(scores, pad, value=float("-inf")),
-        F.pad(ids, pad, value=-1),
-    )
-
-
 def _canonical_topk_keys(keys: torch.Tensor, k_sel: int):
     """Canonical top-k (key desc, position asc) over (T, n) 16-bit keys:
     the bf16-rounded scores and their lane positions."""
@@ -554,6 +534,20 @@ def _probe_lists(queries, centroids, p: int) -> torch.Tensor:
     this order are in global position order, the canonical tie-break."""
     coarse = queries @ centroids.T
     return torch.sort(stable_topk_desc(coarse, p)[1], dim=1).values
+
+
+def _fullscan_scans_probed_lists(device: torch.device,
+                                 dtype: torch.dtype) -> bool:
+    """The full-scan regime's route, by device and storage (a rule, not a
+    fallback): on the card, int8/bf16 storage scans each query's probed
+    lists only, through `IvfIndex._search_probe` (kernels B2 and B5; no
+    (L * cap, D) f32 copy of the lists and no product over the lists a
+    query does not probe);
+    CPU tensors, and f32 storage, which ranks exact f32 scores and which
+    B2 does not take, run `_ivf_search_fullscan`.  Both compute the same
+    function; the f32 sums run in other orders, so a score can differ by
+    one 16-bit key step at a bf16 rounding edge."""
+    return device.type == "cuda" and dtype != torch.float32
 
 
 @torch.no_grad()
@@ -574,7 +568,8 @@ def _ivf_search_fullscan(
     redundant: bool,
     cast: bool,  # bf16/int8 storage: bf16 queries, 16-bit keys
 ):
-    """Full-library tile scan (JAX `_ivf_search_fullscan`).
+    """Full-library tile scan (JAX `_ivf_search_fullscan`): the full-scan
+    regime on CPU tensors and for f32 storage.
 
     Each 128-query tile scores every list as one matrix product; per-query
     ``nprobe`` semantics are purely the selection mask (the query's top
@@ -707,13 +702,14 @@ def _ivf_probe_scan_tile(
     redundant: bool,
 ):
     """Exact probe-gather scan of one super-tile (JAX
-    `_ivf_probe_scan_tile`), the big-library select path.
+    `_ivf_probe_scan_tile`): the big-library select path, and the full
+    scan's route on the card.
 
     Kernel B2 writes every probed slot's masked score in (probe rank,
     slot) lane order, which with ascending probe ids is the oracle's lane
-    order; the same canonical top-k and dedup then run on it, so the
-    results are `_ivf_search_perquery`'s with no certificates and no
-    repair."""
+    order; the same canonical top-k, id map and dedup then run on it
+    (`canonical_select`: kernel B5 on the card), so the results are
+    `_ivf_search_perquery`'s with no certificates and no repair."""
     l, cap, _ = padded_vectors.shape
     p = min(num_probe, l)
     k_eff = min(k_scan, p * cap)
@@ -722,15 +718,7 @@ def _ivf_probe_scan_tile(
         padded_vectors, padded_ids, padded_prec, padded_scales, queries,
         q_prec, charge, probe_ids, tol_val, tol_mode,
     )  # (B, P * cap) f32, -inf masked
-    top_s, pos = _canonical_topk_keys(_key16(flat), k_eff)
-    del flat
-    rank = pos // cap
-    lists = probe_ids.gather(1, rank)
-    top_i = padded_ids[lists, pos - rank * cap]
-    top_i = torch.where(top_s > float("-inf"), top_i, -1)
-    if redundant or k_eff > k:
-        top_s, top_i = _dedup_topk(top_s, top_i, k)
-    return _pad_topk(top_s, top_i, k)
+    return canonical_select(flat, probe_ids, padded_ids, k_eff, k, redundant)
 
 
 @torch.no_grad()
@@ -1338,7 +1326,9 @@ class IvfIndex(HostSearch):
         padded; (B, k) float32 scores), as tensors on the index device.
 
         Regimes, in the JAX package's order: the full scan where a tile's
-        probe union covers the library and its score block fits; else the
+        probe union covers the library and its score block fits (on the
+        card with int8/bf16 storage computed as the probe path computes
+        it: `_fullscan_scans_probed_lists`); else the
         chunked regimes of `_search_chunked` (kernel B2's probe path, kernel
         B3, or the plain chunked scan) where the union covers the library;
         where it does not (the JAX package's voting regime, not ported),
@@ -1364,6 +1354,9 @@ class IvfIndex(HostSearch):
         args = (float(charge), num_probe, k, self.redundancy * k,
                 float(tol_val), tol_mode, self.redundancy > 1)
         regime = self.regime(k, num_probe)
+        if regime == "fullscan" and _fullscan_scans_probed_lists(dev, dtype):
+            scores, ids = self._search_probe(queries, q_prec, *args)
+            return ids.to(torch.int32), scores
         if regime == "fullscan":
             b_pad = -(-b // _TILE_Q) * _TILE_Q
             if b_pad != b:
@@ -1405,6 +1398,26 @@ class IvfIndex(HostSearch):
         return (self.padded_vectors, self.padded_ids, self.padded_prec,
                 self.padded_scales, self.centroids)
 
+    def _search_probe(self, queries, q_prec, charge: float, num_probe: int,
+                      k: int, k_scan: int, tol_val: float, tol_mode: str,
+                      redundant: bool):
+        """The probe path (`_ivf_probe_scan_tile`: coarse probe, kernel B2,
+        kernel B5) over super-tiles of up to `_CHUNK_TQ` queries whose
+        (tq, P * cap) f32 block fits `_PROBE_BLOCK_BYTES`."""
+        l, cap, _ = self.padded_vectors.shape
+        lanes = min(num_probe, l) * cap
+        tq = min(_CHUNK_TQ, max(1, _PROBE_BLOCK_BYTES // (lanes * 4)))
+        out_s, out_i = [], []
+        for start in range(0, queries.shape[0], tq):
+            s, i = _ivf_probe_scan_tile(
+                *self._blocks(), queries[start:start + tq],
+                q_prec[start:start + tq], charge, num_probe, k, k_scan,
+                tol_val, tol_mode, redundant,
+            )
+            out_s.append(s)
+            out_i.append(i)
+        return torch.cat(out_s), torch.cat(out_i)
+
     def _search_chunked(self, queries, q_prec, charge: float,
                         num_probe: int, k: int, k_scan: int, tol_val: float,
                         tol_mode: str, redundant: bool):
@@ -1428,9 +1441,10 @@ class IvfIndex(HostSearch):
         use_fused = not use_probe and chunked_pallas_supported(
             l, cap, d, num_probe, k_scan, dtype)
         if use_probe:
-            lanes = min(num_probe, l) * cap
-            tq = min(_CHUNK_TQ, max(1, _PROBE_BLOCK_BYTES // (lanes * 4)))
-        elif use_fused:
+            self._last_chunked_flagged = 0
+            return self._search_probe(queries, q_prec, charge, num_probe, k,
+                                      k_scan, tol_val, tol_mode, redundant)
+        if use_fused:
             tq = _CHUNK_TQ
         else:
             score_bytes = 4 if dtype == torch.float32 else 2
@@ -1441,12 +1455,7 @@ class IvfIndex(HostSearch):
         for start in range(0, b, tq):
             qt = queries[start:start + tq]
             qpt = q_prec[start:start + tq]
-            if use_probe:
-                s, i = _ivf_probe_scan_tile(
-                    *self._blocks(), qt, qpt, charge, num_probe, k, k_scan,
-                    tol_val, tol_mode, redundant,
-                )
-            elif use_fused:
+            if use_fused:
                 s, i, f = _ivf_chunked_scan_tile(
                     *self._blocks(), qt, qpt, charge, num_probe, k, k_scan,
                     tol_val, tol_mode, redundant,
@@ -1463,9 +1472,6 @@ class IvfIndex(HostSearch):
             out_s.append(s)
             out_i.append(i)
         out_s, out_i = torch.cat(out_s), torch.cat(out_i)
-        if use_probe:
-            self._last_chunked_flagged = 0
-            return out_s, out_i
         rows = torch.nonzero(torch.cat(flags).cpu()).flatten()  # one download
         self._last_chunked_flagged = len(rows)
         if len(rows):

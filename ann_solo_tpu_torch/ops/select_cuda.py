@@ -1,0 +1,138 @@
+"""The canonical select CUDA kernel (B5): wrapper, limits and launch count.
+
+Replaces the XLA selection that follows the probe-gather scan in the
+reference (`ann_solo_tpu/index/ivf.py::_canonical_topk`, `:779`, and the
+tail of `_ivf_probe_scan_tile`, `:1211`; no Pallas kernel): the canonical
+top-k on 16-bit keys, the lane-to-id map and the unique-id dedup, in one
+launch of one block a row.  The kernel source is
+`ann_solo_tpu_torch/csrc/canonical_select.cu`, its plain PyTorch version
+`ops/canonical_select.py::canonical_select_plain`, which it equals bit for
+bit.
+
+The kernel is bound by device-memory bytes: the (B, n) float32 lanes read
+once and the (B, k) outputs written.  It reads each row four times (two
+8-bit radix histograms, a count of the ties at the threshold key, the
+compaction), then sorts the selected lanes in shared memory.
+
+Routing is decided by the tensors, never by a fallback:
+`ops/canonical_select.py::canonical_select` sends CPU tensors to the plain
+version and CUDA tensors here, where the kernel launches or the call
+raises; this wrapper refuses CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ann_solo_tpu_torch.ops import _build
+
+# The kernel's limits, as in `csrc/canonical_select.cu`: threads a block
+# (one block a row), lanes selected before dedup (the shared-memory sort)
+# and lanes a row (`ops/ivf_probe.py::MAX_PROBE_LANES`).
+THREADS = 512
+MAX_SEL = 4096
+MAX_LANES = 1 << 22
+
+# Kernel launches in this process; reset by whoever wants to count.
+LAUNCHES = 0
+
+
+def sort_width(k_eff: int) -> int:
+    """The bitonic sort's width: the least power of two >= k_eff (>= 1)."""
+    return 1 << max(0, k_eff - 1).bit_length()
+
+
+def smem_bytes(k_eff: int) -> int:
+    """Dynamic shared memory of one block: 8-byte packed words, then the
+    decoded scores, ids and dedup marks, `sort_width(k_eff)` of each."""
+    return sort_width(k_eff) * 20
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared."""
+    lib = _build.load("canonical_select")
+    lib.canonical_select.restype = ctypes.c_int
+    lib.canonical_select.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.canonical_select_error_string.restype = ctypes.c_char_p
+    lib.canonical_select_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def check_limits(n: int, k_sel: int, k: int) -> int:
+    """k_eff = min(k_sel, n) after checking the kernel's limits: 1 <= n <=
+    `MAX_LANES`, 1 <= k_eff <= `MAX_SEL`, k >= 0."""
+    if not 1 <= n <= MAX_LANES:
+        raise ValueError(f"canonical_select: {n} lanes a row; the kernel "
+                         f"takes 1 to MAX_LANES = {MAX_LANES}")
+    k_eff = min(k_sel, n)
+    if not 1 <= k_eff <= MAX_SEL:
+        raise ValueError(f"canonical_select: k_sel = {k_sel} lanes before "
+                         f"dedup; the kernel takes 1 to MAX_SEL = "
+                         f"{MAX_SEL}")
+    if k < 0:
+        raise ValueError(f"canonical_select: k = {k} < 0")
+    return k_eff
+
+
+def _check(flat, probe_ids, padded_ids):
+    device = flat.device
+    if device.type != "cuda":
+        raise ValueError(f"canonical_select: the kernel takes CUDA tensors, "
+                         f"not {device}")
+    if probe_ids.device != device or padded_ids.device != device:
+        raise ValueError("canonical_select: tensors on different devices")
+    for name, t, dtypes in (
+        ("flat", flat, (torch.float32,)),
+        ("probe_ids", probe_ids, (torch.int32, torch.int64)),
+        ("padded_ids", padded_ids, (torch.int32,)),
+    ):
+        if t.dtype not in dtypes:
+            raise TypeError(f"canonical_select: {name} must be {dtypes}")
+        if t.dim() != 2:
+            raise ValueError(f"canonical_select: {name} must have 2 dims")
+    b, n = flat.shape
+    l, cap = padded_ids.shape
+    if probe_ids.shape[0] != b or n != probe_ids.shape[1] * cap:
+        raise ValueError("canonical_select: flat must be (B, P * cap) for "
+                         "probe_ids (B, P) and padded_ids (L, cap)")
+    if l < 1 or l >= 1 << 31 or b >= 1 << 31:
+        raise ValueError("canonical_select: 1 <= L < 2^31 and B < 2^31")
+
+
+@torch.no_grad()
+def canonical_select(flat, probe_ids, padded_ids, k_sel: int, k: int,
+                     redundant: bool):
+    """((B, k) float32 scores, (B, k) int32 ids): kernel B5 on CUDA
+    tensors in one launch, `canonical_select_plain`'s result bit for bit.
+    `flat` (B, P * cap) float32, `probe_ids` (B, P) int32/int64,
+    `padded_ids` (L, cap) int32, all on one CUDA device."""
+    global LAUNCHES
+    _check(flat, probe_ids, padded_ids)
+    b, n = flat.shape
+    l, cap = padded_ids.shape
+    k_eff = check_limits(n, k_sel, k)
+    dedup = bool(redundant) or k_eff > k
+    out_s = torch.empty((b, k), dtype=torch.float32, device=flat.device)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=flat.device)
+    if b == 0 or k == 0:
+        return out_s, out_i
+    flat = flat.contiguous()
+    probe = probe_ids.to(torch.int64).contiguous()
+    ids = padded_ids.contiguous()
+    lib = _library()
+    stream = torch.cuda.current_stream(flat.device).cuda_stream
+    err = lib.canonical_select(
+        flat.data_ptr(), probe.data_ptr(), ids.data_ptr(), out_s.data_ptr(),
+        out_i.data_ptr(), b, probe.shape[1], l, cap, k_eff, k, int(dedup),
+        stream,
+    )
+    if err != 0:
+        msg = lib.canonical_select_error_string(err).decode()
+        raise RuntimeError(f"canonical_select launch failed: {msg} ({err})")
+    LAUNCHES += 1
+    return out_s, out_i

@@ -11,12 +11,12 @@ with a non-zero exit and no final line, after printing the phase, its
 traceback and the log's last lines.  The engine's logging goes to
 standard error.
 
-Phases, in the order they run (1-3c, 3d, 4-6, 7, 8, 7b, 10a, 10b, 11a,
-11b, 9, 11c, 9s, 12a, 12d, 12b, 12c), each raising on failure:
+Phases, in the order they run (1-3c, 3d, 3e, 4-6, 7, 8, 7b, 10a, 10b,
+11a, 11b, 9, 11c, 9s, 12a, 12d, 12b, 12c), each raising on failure:
 
 1. device: needs CUDA; prints torch/CUDA versions and the card's name and
    power limit as nvidia-smi reports them;
-2. build: compiles the four CUDA kernels from `ann_solo_tpu_torch/csrc/`
+2. build: compiles the five CUDA kernels from `ann_solo_tpu_torch/csrc/`
    and the three native C++ library parsers from `csrc/native/` (into
    `build/native/`), one nvcc or g++ per source, all started together;
    a parser that does not build or load fails the run;
@@ -31,8 +31,11 @@ Phases, in the order they run (1-3c, 3d, 4-6, 7, 8, 7b, 10a, 10b, 11a,
    the 2.1M-spectrum tile shape (B = 1,024, P = 64, cap = 768, D = 800,
    int8, +-500 Da), bf16 storage with a ppm window, a ragged shape
    (B = 7, cap = 200, D = 100), exact tie-heavy data, exact ragged bf16,
-   the tile with every query probing the same 64 lists, and phase 8's
-   hot-list shape (P = 8); the two ragged cases carry probe ids -1 and L,
+   the tile with every query probing the same 64 lists, phase 8's
+   hot-list shape (P = 8), the bench's full scan on the card (a
+   1,024-query super-tile, L = 4,096, P = 512, cap = 96, D = 800 int8)
+   and phase 9's open level (P = 256, cap = 80, +-300 Da); the two ragged
+   cases carry probe ids -1 and L,
    whose slots must be -inf.  The -inf masks must be identical; scores
    bit-identical on exact data, elsewhere within
    2 * D * 2^-24 * max|bf16(q)| * max|v * scale| (two float32 summation
@@ -74,15 +77,37 @@ Phases, in the order they run (1-3c, 3d, 4-6, 7, 8, 7b, 10a, 10b, 11a,
    cores for B2 and B3, f32 for B1: B1's matrix build alone, since
    the greedy walks only positive entries; for B4 the f32 instruction
    rate, 33.5 T/s, and the merge of each pair's sorted peaks that these
-   inputs need, beside the old dense count at 67 TFLOP/s);
+   inputs need, beside the old dense count at 67 TFLOP/s; for B5 the
+   lanes, the probe table, an id a selected lane and the outputs, and
+   about 8 integer instructions a lane at 16.7 T/s);
+3e. kernel B5 vs plain: the canonical select (top-k on 16-bit keys, the
+   lane-to-id map and the dedup), through its routing
+   (`ops/canonical_select.py::canonical_select`), against
+   `canonical_select_plain` on the card: the bench's 4,096 x 49,152 lanes
+   at k_sel 1,024 (512 candidates, x2) and 2,048 (1,024), phase 7's 2.1M
+   tile (1,024 x 49,152) at k_sel 2,048 and at phase 7's own 1,024 (x1),
+   phase 10b's 98,304 lanes (P 128 x cap 768), phase 9's open level
+   (4,096 lists x cap 80, num_probe 256, k_sel 2,048), every finite lane
+   at one score (ties across the threshold), and rows with every lane
+   masked or fewer finite lanes than k_sel.  Scores (as bits) and ids
+   must be identical.  Logs each case's time beside its bound, the plain
+   chain's time and that of `torch.topk` on the packed int64 keys (the
+   kernels record's `library_ms`; the port never calls it on the card);
 4. the bench (`ann_solo_tpu_torch.bench.run`, what ``python -m
    ann_solo_tpu_torch.bench`` prints): a 131,072-spectrum library (K = 50
    peaks, hash_len 800), auto num_list, num_probe 512, x2 SOAR
    redundancy, int8 storage, built twice; 4 batches of 4,096 charge-2
    queries, +-500 Da, 512 candidates, fragment tolerance 0.04,
    vectorize -> select -> certificate rescoring, then the 1,024-candidate
-   leg.  Gates: self-match hit rate >= 0.95 per batch; B1 and B4
+   leg; the select is the full-scan regime, on the card each query's 512
+   probed lists through B2 and the selection through B5 (no f32 copy of
+   the lists, no product over every list).  Then batch 0's select against
+   the plain full scan (`_ivf_search_fullscan`) on the card, with the
+   select's split on one super-tile (coarse product, probe sort, B2, B5).
+   Gates: self-match hit rate >= 0.95 per batch; B1, B2, B4 and B5
    launched;
+   >= 99.9% of (id, score) lanes equal to the plain full scan's, every
+   16-bit key within one step, no duplicate ids;
 5. preprocess: a raw 4,096-spectrum block through `preprocess_batch`
    (CUDA vs CPU identical) and one more search batch;
 6. CUDA vs CPU: the same slice on a 16,384-spectrum index with 256 queries
@@ -92,8 +117,8 @@ Phases, in the order they run (1-3c, 3d, 4-6, 7, 8, 7b, 10a, 10b, 11a,
    2,097,152-spectrum library made and vectorized on the card, an int8
    index of 4,096 lists, num_probe 64, no redundancy (the f32 vectors are
    freed after the build); 4 timed batches of 1,024 queries with 1,024
-   candidates through the probe path.  Gates: B2's and B4's launch counts
-   grow during the timed batches; on one batch the probe path agrees with the
+   candidates through the probe path.  Gates: B2's, B4's and B5's launch
+   counts grow during the timed batches; on one batch the probe path agrees with the
    per-query oracle run on the card (>= 99.9% of (id, score) lanes equal,
    every 16-bit key within one step, no duplicate ids); best-match hit
    rate >= 0.95 per batch, or, for a batch below it, no lower than the
@@ -140,9 +165,10 @@ Phases, in the order they run (1-3c, 3d, 4-6, 7, 8, 7b, 10a, 10b, 11a,
    at each boundary; store and index load or write seconds, FDR feature
    and model seconds apart for each level), each file's bytes, the
    forest's grid winners per fold, queries/s of the search, peak device
-   memory, B1's and B4's launches and the identification counts from the
-   mzTab beside the JAX package's (QUALITY_r05.json).  Gates, every run:
-   the CLI returns 0; B1 and B4 launched; each charge's open level went through
+   memory, B1's, B4's and B5's launches and the identification counts
+   from the mzTab beside the JAX package's (QUALITY_r05.json).  Gates,
+   every run: the CLI returns 0; B1, B4 and B5 launched (each open level
+   is the full-scan regime: B2 then B5); each charge's open level went through
    `IvfIndex.search_device` and its std level through window rescoring;
    accuracy among confident PSMs >= 0.95; confident PSMs >= 0.9 x the
    9,500 non-foreign queries.  Runs B and C besides: the store and both
@@ -230,8 +256,8 @@ Phases, in the order they run (1-3c, 3d, 4-6, 7, 8, 7b, 10a, 10b, 11a,
    truth.json) and QUALITY r05's settings (100,000 peptides, 10,000
    queries, seed 42, --model none, num_probe 256, 1,024 candidates, int8;
    run A's settings hash), both legs and the recall curve, each leg
-   timed with its peak device memory, B1's and B4's launches and the
-   regimes (each leg must launch both).
+   timed with its peak device memory, B1's, B4's and B5's launches and
+   the regimes (each leg must launch B1 and B4, the ann leg B5).
    Gates: the ann leg loads the store and both indexes (no library read,
    decoy, preprocess or index build seconds) and writes run A's PSM
    lines; the bf leg loads the store and runs every level of both charges
@@ -265,11 +291,13 @@ Phases, in the order they run (1-3c, 3d, 4-6, 7, 8, 7b, 10a, 10b, 11a,
    the mzTab's.  No render: the card's machine has no matplotlib.
 
 The line before the last is the kernels' JSON record (B1's launches:
-phase 4's bench run and phases 12a, 12d and 12c; B2's: phase 7's and
-phase 11a's timed batches and phase 7b's run; B3's: phase 8's; B4's:
+phase 4's bench run and phases 12a, 12d and 12c; B2's: phase 4's bench
+run, phase 7's and phase 11a's timed batches and phase 7b's run; B3's:
+phase 8's; B4's:
 phase 4's bench run, phase 7's timed batches, phase 9's three CLI runs
-and phases 12a and 12d); the last line is ``{"ok": true, "device":
-{...}}``.
+and phases 12a and 12d; B5's: phase 4's bench run, phase 7's and 10b's
+timed batches, phase 9's three CLI runs and 12a's ann leg); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -329,6 +357,31 @@ PROBE_CASES = (
      "clustered"),
     ("hot", 1024, 4096, 8, 768, 800, "int8", OPEN_TOL_DA, "Da", False,
      "random"),
+    ("bench", 1024, 4096, NUM_PROBE, 96, 800, "int8", OPEN_TOL_DA, "Da",
+     False, "random"),
+    ("engine", 1024, 4096, 256, 80, 800, "int8", 300.0, "Da", False,
+     "random"),
+)
+
+# Kernel B5 cases: (name, B, L, P, cap, k_sel, k, redundant, kind).  The
+# bench's full scan on the card (4,096 queries, P 512 x cap 96 = 49,152
+# lanes, k_sel = R * k for its 512 and 1,024 candidates), phase 7's 2.1M
+# tile (P 64 x cap 768) at k_sel 2,048 and as phase 7 runs it (x1, 1,024),
+# phase 10b's 8.4M shape (P 128 x cap 768 = 98,304 lanes), phase 9's open
+# level (4,096 lists x cap 80 at num_probe 256, k 1,024 of x2 storage, as
+# its regime log line reports it), every finite lane at one score, and
+# rows with every lane masked or fewer finite lanes than k_sel.  Kinds
+# (`synth_select_case`): "copies" (each id in two slots, one score),
+# "unique", "ties", "masked".
+SELECT_CASES = (
+    ("bench_k512", 4096, 4096, NUM_PROBE, 96, 1024, 512, True, "copies"),
+    ("bench_k1024", 4096, 4096, NUM_PROBE, 96, 2048, 1024, True, "copies"),
+    ("tile_2m", 1024, 4096, 64, 768, 2048, 1024, True, "copies"),
+    ("tile_2m_x1", 1024, 4096, 64, 768, 1024, 1024, False, "unique"),
+    ("stream_8m", 1024, 16384, 128, 768, 1024, 1024, False, "unique"),
+    ("engine", 1024, 4096, 256, 80, 2048, 1024, True, "copies"),
+    ("ties", 256, 4096, NUM_PROBE, 96, 1024, 512, True, "ties"),
+    ("masked", 256, 4096, NUM_PROBE, 96, 1024, 512, True, "masked"),
 )
 
 # Kernel B3 cases: (name, B, L, cold probes, hot probes, cap, D, storage,
@@ -401,6 +454,8 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 F32_INSTR_PER_S = F32_FLOPS / 2
+# The int32 instruction rate: 64 lanes an SM x 132 SMs x 1.98 GHz.
+INT32_INSTR_PER_S = F32_INSTR_PER_S / 2
 
 # The big-library slice (SCALE r04's single-chip point, scale_demo.py).
 N_BIG = 2_097_152
@@ -749,7 +804,7 @@ PARSERS = ("splib_parser", "sptxt_parser", "mgf_parser")
 
 
 def phase_build(names=("shifted_dot", "ivf_probe_scan", "ivf_chunked_scan",
-                       "stage1_bounds"),
+                       "stage1_bounds", "canonical_select"),
                 parsers=PARSERS):
     """Build every kernel source (one nvcc each) and every native parser
     (one g++ each) at once, then load them; a build that fails raises."""
@@ -1268,6 +1323,127 @@ def phase_scan_kernel(dev, cases=SCAN_CASES, kernel_reps=5, plain_reps=1):
     return record
 
 
+def _lehmer(h):
+    """One step of the Park-Miller generator on int64 values in
+    [1, 2^31 - 2]: a hash without int64 overflow."""
+    return h * 48271 % 2147483647
+
+
+def synth_select_case(gen, dev, b, l, p, cap, kind):
+    """Kernel B5 inputs made on `dev` from `gen`: (flat, probe_ids,
+    padded_ids).  padded_ids: a permutation of the ids over the (L, cap)
+    slots ("copies": each id twice, as x2 storage holds it), 10% of the
+    slots empty (-1); probe_ids ascending.  A lane's score and window mask
+    are hashes of (row, id), so both copies of an id carry the same score:
+    257 levels in [0.2, 0.7] ("ties": one value), 30% of the ids masked
+    ("masked": odd rows keep about 500 finite lanes, even rows none)."""
+    import torch
+
+    slots = l * cap
+    if kind == "unique":
+        ids = torch.randperm(slots, generator=gen, device=dev)
+    else:
+        half = slots // 2
+        ids = torch.cat([torch.randperm(half, generator=gen, device=dev),
+                         torch.randperm(slots - half, generator=gen,
+                                        device=dev) % half])
+    empty = torch.rand(slots, generator=gen, device=dev) < 0.1
+    padded_ids = torch.where(empty, -1, ids).to(torch.int32).view(l, cap)
+    probe_ids = torch.sort(torch.rand((b, l), generator=gen, device=dev)
+                           .topk(p, dim=1).indices, dim=1).values
+    lane_ids = padded_ids[probe_ids].view(b, p * cap).to(torch.int64)
+    row = torch.arange(b, device=dev)[:, None]
+    h = _lehmer(_lehmer((row * 1000003 + lane_ids * 7919) % 2147483629
+                        + 1))
+    score = 0.2 + torch.round(h.to(torch.float64) / 2 ** 31 * 256) / 512
+    h = _lehmer(h)
+    finite = (h.to(torch.float64) / 2 ** 31) >= 0.3
+    if kind == "ties":
+        score = torch.full_like(score, 0.5)
+    elif kind == "masked":
+        share = 500.0 / (p * cap)
+        finite = (h.to(torch.float64) / 2 ** 31 < share) & (row % 2 == 1)
+    flat = torch.where((lane_ids >= 0) & finite, score.to(torch.float32),
+                       float("-inf"))
+    return flat.contiguous(), probe_ids.contiguous(), padded_ids
+
+
+def phase_select_kernel(dev, cases=SELECT_CASES, kernel_reps=10,
+                        plain_reps=2):
+    """Phase 3e: kernel B5, through its routing
+    (`ops/canonical_select.py::canonical_select`: the kernel on the card),
+    against `canonical_select_plain` on the same tensors: scores (as bits)
+    and ids identical.  Beside each: the time of `torch.topk` on the
+    packed int64 keys (what `canonical_topk` calls; the port's card route
+    never does), the library's yardstick.  Returns the record of the
+    bench's 512-candidate case."""
+    import torch
+
+    from ann_solo_tpu_torch.ops import select_cuda
+    from ann_solo_tpu_torch.ops.canonical_select import (
+        canonical_select,
+        canonical_select_plain,
+    )
+    from ann_solo_tpu_torch.ops.ivf_scan import _key16
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2027)
+    record = {"max_abs_err": 0.0}
+    for name, b, l, p, cap, k_sel, k, redundant, kind in cases:
+        flat, probe_ids, padded_ids = synth_select_case(gen, dev, b, l, p,
+                                                        cap, kind)
+        args = (flat, probe_ids, padded_ids, k_sel, k, redundant)
+        got_s, got_i = canonical_select(*args)
+        want_s, want_i = canonical_select_plain(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        both = torch.isfinite(got_s) & torch.isfinite(want_s)
+        err = float(torch.where(both, got_s - want_s, 0.0).abs().max())
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        if not (torch.equal(got_s.view(torch.int32),
+                            want_s.view(torch.int32))
+                and torch.equal(got_i, want_i)):
+            raise AssertionError(
+                f"B5 != plain at {name}: "
+                f"{int((got_i != want_i).sum())} ids and "
+                f"{int((got_s.view(torch.int32) != want_s.view(torch.int32)).sum())}"
+                f" scores differ, max |d| {err}")
+        n = p * cap
+        k_eff = min(k_sel, n)
+        ms = time_ms(lambda: canonical_select(*args), dev, kernel_reps)
+        plain_ms = time_ms(lambda: canonical_select_plain(*args), dev,
+                           plain_reps)
+        lane_rev = torch.arange(n - 1, -1, -1, device=dev)
+        packed = ((_key16(flat) + 1) << 32) | lane_rev[None, :]
+        library_ms = time_ms(lambda: torch.topk(packed, k_eff, dim=1),
+                             dev, kernel_reps)
+        del packed, lane_rev
+        # Bytes: the f32 lanes and int64 probe table read once, an int32
+        # id a selected lane, the f32 scores and int32 ids written.  Operations: a key, its compare and
+        # a count for each lane, about 8 integer instructions.
+        n_bytes = b * (4 * n + 8 * p + 4 * k_eff + 8 * k)
+        fields = bound("B5", name, ms, n_bytes, 8.0 * b * n,
+                       INT32_INSTR_PER_S)
+        if name == cases[0][0]:
+            record.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          **fields)
+            note(f"B5 {name} ({b} x {n} lanes, k_sel {k_sel}): {ms:.4f} "
+                 f"ms, plain {plain_ms:.2f} ms, torch.topk "
+                 f"{library_ms:.4f} ms, {100 * fields['bound_ms'] / ms:.2f}%"
+                 f" of its {fields['bound_ms']:.4f} ms bound")
+        n_out = int((want_i >= 0).sum())
+        log(f"kernel B5 {name}: B={b} L={l} P={p} cap={cap} ({n} lanes) "
+            f"k_sel={k_sel} k={k} redundant={redundant} kind={kind}: "
+            f"identical ({float(torch.isfinite(flat).float().mean()):.3f} "
+            f"finite lanes, {n_out} ids out of {b * k}); kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, torch.topk "
+            f"{library_ms:.4f} ms; {select_cuda.smem_bytes(k_eff)} bytes of "
+            "shared memory a block")
+        del flat, probe_ids, padded_ids, args, got_s, got_i, want_s, want_i
+    note(f"{len(cases)} cases bit-identical (scores as bits, ids)")
+    return record
+
+
 def _check_outputs(best, score, n_cands, matches, n_lib, n_q,
                    num_candidates=NUM_CANDIDATES):
     assert best.shape == score.shape == n_cands.shape == (n_q,)
@@ -1284,28 +1460,35 @@ def _check_outputs(best, score, n_cands, matches, n_lib, n_q,
 
 def phase_slice(dev, n_lib=N_LIBRARY, n_q=N_QUERIES, n_batches=N_BATCHES):
     """Phase 4: the bench workload through `ann_solo_tpu_torch.bench.run`
-    (what ``python -m ann_solo_tpu_torch.bench`` prints).  Returns B1's
-    launches of the run and the index, library and settings for phase
-    5."""
+    (what ``python -m ann_solo_tpu_torch.bench`` prints), then its select
+    on batch 0 against the plain full scan (`fullscan_vs_plain`).  Returns
+    B1's, B2's, B4's and B5's launches of the run and the index, library
+    and settings for phase 5."""
     import torch
 
     from ann_solo_tpu_torch import bench
-    from ann_solo_tpu_torch.ops import shifted_dot_cuda, stage1_cuda
+    from ann_solo_tpu_torch.ops import ivf_probe_cuda, select_cuda, \
+        shifted_dot_cuda, stage1_cuda
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     shifted_dot_cuda.LAUNCHES = 0
+    ivf_probe_cuda.LAUNCHES = 0
     stage1_cuda.LAUNCHES = 0
+    select_cuda.LAUNCHES = 0
     out = bench.run(n_library=n_lib, n_queries=n_q, n_batches=n_batches,
                     device=dev)
     launches = shifted_dot_cuda.LAUNCHES
+    b2_launches = ivf_probe_cuda.LAUNCHES
     b4_launches = stage1_cuda.LAUNCHES
+    b5_launches = select_cuda.LAUNCHES
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     result, hit_rates = out["result"], out["hit_rates"]
     log("slice: " + json.dumps({
         "bench": result, "self_match_hit_rates": hit_rates,
         "max_memory_allocated_bytes": peak, "b1_launches": launches,
-        "b4_launches": b4_launches}))
+        "b2_launches": b2_launches, "b4_launches": b4_launches,
+        "b5_launches": b5_launches}))
     stages = result["stages_sec_per_batch"]
     note(f"{result['value']:.2f} q/s ({n_q} queries x {n_batches}, "
          f"{result['num_candidates']} candidates)",
@@ -1316,13 +1499,123 @@ def phase_slice(dev, n_lib=N_LIBRARY, n_q=N_QUERIES, n_batches=N_BATCHES):
          f"hit rates {min(hit_rates):.4f}-{max(hit_rates):.4f}",
          f"build {result['ivf_build_sec_cold']:.2f} s cold, "
          f"{result['ivf_build_sec']:.2f} s again",
-         f"peak {peak} bytes", f"B1 launched {launches}, B4 {b4_launches}")
+         f"peak {peak} bytes",
+         f"B1 launched {launches}, B2 {b2_launches}, B4 {b4_launches}, "
+         f"B5 {b5_launches}")
     if min(hit_rates) < HIT_RATE_GATE or not result["hit_rate_gate_passed"]:
         raise AssertionError(f"self-match hit rate {hit_rates} < gate")
-    if (launches <= 0 or b4_launches <= 0) and dev.type == "cuda":
-        raise AssertionError(f"B1 launched {launches}, B4 {b4_launches}")
-    return launches, b4_launches, out["index"], out["lib"], \
-        out["lib_arrays"], out["params"]
+    if dev.type == "cuda" and min(launches, b2_launches, b4_launches,
+                                  b5_launches) <= 0:
+        raise AssertionError(f"B1 launched {launches}, B2 {b2_launches}, "
+                             f"B4 {b4_launches}, B5 {b5_launches}")
+    fullscan_vs_plain(dev, out)
+    return launches, b2_launches, b4_launches, b5_launches, out["index"], \
+        out["lib"], out["lib_arrays"], out["params"]
+
+
+def fullscan_vs_plain(dev, out, k=NUM_CANDIDATES, reps=5):
+    """The bench's select on batch 0 (`search_device`: on the card the
+    probe path, B2 then B5) against the plain full scan
+    (`_ivf_search_fullscan`, the dense f32 product over every list) on the
+    same device: >= 99.9% of (id, score) lanes equal, every 16-bit key
+    within one step, no duplicate ids.  Logs the select's split on one
+    super-tile (coarse product, probe sort, B2, B5; CUDA events) and
+    each super-tile's share of the batch."""
+    import torch
+
+    from ann_solo_tpu_torch.index import ivf
+    from ann_solo_tpu_torch.models.vectorize import (
+        device_tables,
+        vectorize_batch,
+    )
+    from ann_solo_tpu_torch.ops.canonical_select import canonical_select
+    from ann_solo_tpu_torch.ops.ivf_probe_cuda import ivf_probe_scan
+    from ann_solo_tpu_torch.ops.topk import stable_topk_desc
+
+    index, params = out["index"], out["params"]
+    _, q_mz, q_int, q_prec = out["batches"][0]
+    b = len(q_mz)
+    tables = device_tables(params.vectorize, dev)
+    queries = vectorize_batch(
+        params.vectorize, tables, torch.from_numpy(q_mz).to(dev),
+        torch.from_numpy(q_int).to(dev),
+        torch.full((b,), K_PEAKS, dtype=torch.int32, device=dev))
+    qp = torch.from_numpy(q_prec.astype(np.float32)).to(dev)
+    window = dict(q_prec=qp, charge=float(CHARGE), tol_val=OPEN_TOL_DA,
+                  tol_mode="Da")
+    p = min(index.num_probe, index.num_list)
+    args = (float(CHARGE), index.num_probe, k, index.redundancy * k,
+            OPEN_TOL_DA, "Da", index.redundancy > 1)
+    blocks = index._blocks()
+
+    def select_peak(fn):
+        """fn's result and the device memory it allocated at its peak
+        above what was allocated before it."""
+        if dev.type != "cuda":
+            return fn(), 0
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, torch.cuda.max_memory_allocated(dev) - base
+
+    (ids, scores), peak = select_peak(
+        lambda: index.search_device(queries, k, **window))
+    select_ms = time_ms(lambda: index.search_device(queries, k, **window),
+                        dev, reps)
+    (p_s, p_ids), plain_peak = select_peak(lambda: ivf._ivf_search_fullscan(
+        index.scan_block(), *blocks[1:], queries, qp, *args, True))
+    plain_ms = time_ms(lambda: ivf._ivf_search_fullscan(
+        index.scan_block(), *blocks[1:], queries, qp, *args, True), dev, 1)
+    index._scan_block = None
+    same = float(((ids == p_ids.to(torch.int32)) & (scores == p_s))
+                 .float().mean())
+    key_step = int((ivf._key16(scores) - ivf._key16(p_s)).abs().max())
+    dups = _has_duplicates(ids)
+    # The split, on the first super-tile of the probe path.
+    tq = min(ivf._CHUNK_TQ, b)
+    qt, qpt = queries[:tq], qp[:tq]
+    centroids = index.centroids
+    coarse = qt @ centroids.T
+    probe_ids = torch.sort(stable_topk_desc(coarse, p)[1], dim=1).values
+    flat = ivf_probe_scan(*blocks[:4], qt, qpt, float(CHARGE), probe_ids,
+                          OPEN_TOL_DA, "Da")
+    k_eff = min(index.redundancy * k, p * index.padded_ids.shape[1])
+    split = {
+        "coarse": time_ms(lambda: qt @ centroids.T, dev, reps),
+        "probe_sort": time_ms(lambda: torch.sort(
+            stable_topk_desc(coarse, p)[1], dim=1).values, dev, reps),
+        "b2": time_ms(lambda: ivf_probe_scan(
+            *blocks[:4], qt, qpt, float(CHARGE), probe_ids, OPEN_TOL_DA,
+            "Da"), dev, reps),
+        "b5": time_ms(lambda: canonical_select(
+            flat, probe_ids, index.padded_ids, k_eff, k,
+            index.redundancy > 1), dev, reps),
+    }
+    del flat, coarse
+    tiles = -(-b // tq)
+    log("fullscan vs plain: " + json.dumps({
+        "queries": b, "super_tile": tq, "super_tiles": tiles,
+        "same_lanes": same, "max_key16_step": key_step,
+        "duplicates": dups, "select_ms": select_ms,
+        "plain_fullscan_ms": plain_ms,
+        "select_peak_bytes_above_base": peak,
+        "plain_fullscan_peak_bytes_above_base": plain_peak,
+        "split_ms_a_super_tile": split,
+        "split_ms_a_batch": {name: v * tiles for name, v in split.items()},
+    }))
+    note(f"select on the card {select_ms:.2f} ms a batch (plain full scan "
+         f"{plain_ms:.2f} ms): a super-tile of {tq} coarse "
+         f"{split['coarse']:.3f} + probe sort {split['probe_sort']:.3f} + "
+         f"B2 {split['b2']:.3f} + B5 {split['b5']:.3f} ms, x{tiles}",
+         f"lanes vs plain full scan {same:.5f}, key16 step {key_step}",
+         f"select peak {peak} bytes above its base (plain full scan "
+         f"{plain_peak}, its f32 copy of the lists built in the call)")
+    if same < 0.999 or key_step > 1 or dups:
+        raise AssertionError(
+            f"bench select vs the plain full scan: {same} lanes equal, "
+            f"key16 step {key_step}, duplicates {dups}")
 
 
 def synth_raw(rng, lib_arrays, n):
@@ -1608,7 +1901,8 @@ def big_library_search(dev, name, index, lib_arrays, params, gen, n_q,
         device_tables,
         vectorize_batch,
     )
-    from ann_solo_tpu_torch.ops import ivf_probe_cuda, stage1_cuda
+    from ann_solo_tpu_torch.ops import ivf_probe_cuda, select_cuda, \
+        stage1_cuda
     from ann_solo_tpu_torch.ops.rescore import rescore_candidate_matrix
     from ann_solo_tpu_torch.search import LibraryBlock, ann_open_search_batch
 
@@ -1634,12 +1928,14 @@ def big_library_search(dev, name, index, lib_arrays, params, gen, n_q,
     synchronize(dev)
     ivf_probe_cuda.LAUNCHES = 0
     stage1_cuda.LAUNCHES = 0
+    select_cuda.LAUNCHES = 0
     t0 = time.perf_counter()
     outs = [run(batch) for batch in batches]
     synchronize(dev)
     elapsed = time.perf_counter() - t0
     launches = ivf_probe_cuda.LAUNCHES
     b4_launches = stage1_cuda.LAUNCHES
+    b5_launches = select_cuda.LAUNCHES
     hit_rates = []
     for batch, (best, score, n_cands, matches) in zip(batches, outs):
         _check_outputs(best, score, n_cands, matches, n_lib, n_q,
@@ -1727,6 +2023,7 @@ def big_library_search(dev, name, index, lib_arrays, params, gen, n_q,
         "mean_candidates": float(np.mean(outs[-1][2])),
         "b2_launches": launches,
         "b4_launches": b4_launches,
+        "b5_launches": b5_launches,
     })
     log(f"{name}: " + json.dumps(summary))
     oracle_worst = min(oracle_rates.values())
@@ -1738,10 +2035,10 @@ def big_library_search(dev, name, index, lib_arrays, params, gen, n_q,
          f"hit rates {min(hit_rates):.4f}-{max(hit_rates):.4f} (oracle's "
          f"lowest {oracle_worst:.4f})",
          f"lanes vs oracle {same_lane:.5f}", f"search peak {peak} bytes",
-         f"B2 launched {launches}, B4 {b4_launches}")
-    if (launches <= 0 or b4_launches <= 0) and dev.type == "cuda":
+         f"B2 launched {launches}, B4 {b4_launches}, B5 {b5_launches}")
+    if dev.type == "cuda" and min(launches, b4_launches, b5_launches) <= 0:
         raise AssertionError(f"{name}: kernel B2 launched {launches}, "
-                             f"B4 {b4_launches}")
+                             f"B4 {b4_launches}, B5 {b5_launches}")
     if same_lane < 0.999 or key_step > 1:
         raise AssertionError(
             f"{name}: probe path vs oracle: {same_lane} lanes equal, key16 "
@@ -1752,7 +2049,7 @@ def big_library_search(dev, name, index, lib_arrays, params, gen, n_q,
                 f"{name}, batch {i}: best-match hit rate {rate} below the "
                 f"gate and below the oracle's {oracle_rates[i]}")
     return {"launches": launches, "b4_launches": b4_launches,
-            "index": index, "lib": lib,
+            "b5_launches": b5_launches, "index": index, "lib": lib,
             "batches": batches, "run": run, "embed": embed, "select": select,
             "best_match_rate": best_match_rate, "hit_rates": hit_rates,
             "queries_per_sec": summary["queries_per_sec"],
@@ -2564,10 +2861,11 @@ def engine_corpus(workdir, n_peptides, n_queries, seed):
 
 def run_engine_cli(dev, lib_path, query_path, out_path, extra=()):
     """`ann_solo_tpu_torch.cli.main` in this process on `dev`; returns
-    (the stage profile with B4's launches of the run under
-    "b4_launches", the B1 launches of the run)."""
+    (the stage profile with B4's and B5's launches of the run under
+    "b4_launches" and "b5_launches", the B1 launches of the run)."""
     from ann_solo_tpu_torch import cli
-    from ann_solo_tpu_torch.ops import shifted_dot_cuda, stage1_cuda
+    from ann_solo_tpu_torch.ops import select_cuda, shifted_dot_cuda, \
+        stage1_cuda
     from ann_solo_tpu_torch.utils.profiling import profiler
 
     args = [lib_path, query_path, out_path] + ENGINE_ARGS + list(extra)
@@ -2575,12 +2873,14 @@ def run_engine_cli(dev, lib_path, query_path, out_path, extra=()):
         args.append("--no_gpu")
     shifted_dot_cuda.LAUNCHES = 0
     stage1_cuda.LAUNCHES = 0
+    select_cuda.LAUNCHES = 0
     rc = cli.main(args)
     if rc != 0:
         raise AssertionError(f"the CLI returned {rc}")
     return ({"totals": dict(profiler.totals), "counts": dict(profiler.counts),
              "notes": dict(profiler.notes),
-             "b4_launches": stage1_cuda.LAUNCHES}, shifted_dot_cuda.LAUNCHES)
+             "b4_launches": stage1_cuda.LAUNCHES,
+             "b5_launches": select_cuda.LAUNCHES}, shifted_dot_cuda.LAUNCHES)
 
 
 def remove_library_files(workdir):
@@ -2599,7 +2899,7 @@ def engine_run(dev, name, lib_path, query_path, truth, n_queries, model,
     summary and holds its gates (see the module docstring); `loaded` says
     whether the store and index files must have been read, not built;
     `reference` holds the --model none statistics a model run must keep.
-    Returns (the identification statistics, B1's launches, B4's)."""
+    Returns (the identification statistics, B1's launches, B4's, B5's)."""
     import os
     from types import SimpleNamespace
 
@@ -2640,6 +2940,7 @@ def engine_run(dev, name, lib_path, query_path, truth, n_queries, model,
         "max_memory_allocated_bytes": peak,
         "b1_launches": launches,
         "b4_launches": profile["b4_launches"],
+        "b5_launches": profile["b5_launches"],
         "identifications": stats,
         "jax_quality_r05_ann": QUALITY_R05_ANN,
     }
@@ -2647,9 +2948,11 @@ def engine_run(dev, name, lib_path, query_path, truth, n_queries, model,
     note(f"{name} --model {model}: CLI {t_cli:.2f} s, search "
          f"{totals['search']:.2f} s, {stats['n_confident']} confident "
          f"(accuracy {stats['accuracy']:.5f})")
-    if (launches <= 0 or profile["b4_launches"] <= 0) and dev.type == "cuda":
+    if dev.type == "cuda" and min(launches, profile["b4_launches"],
+                                  profile["b5_launches"]) <= 0:
         raise AssertionError(f"{name}: the engine launched B1 {launches} "
-                             f"times, B4 {profile['b4_launches']}")
+                             f"times, B4 {profile['b4_launches']}, B5 "
+                             f"{profile['b5_launches']}")
     for charge in (2, 3):
         if counts.get(f"open level charge {charge}: ivf select", 0) <= 0:
             raise AssertionError(f"{name}, charge {charge}: no open-level "
@@ -2690,7 +2993,7 @@ def engine_run(dev, name, lib_path, query_path, truth, n_queries, model,
         raise AssertionError(
             f"{name}: {stats['n_confident']} confident PSMs, fewer than "
             f"--model none's {reference['n_confident']} less 1%")
-    return stats, launches, profile["b4_launches"]
+    return stats, launches, profile["b4_launches"], profile["b5_launches"]
 
 
 def phase_engine(dev, n_peptides=ENGINE_PEPTIDES, n_queries=ENGINE_QUERIES,
@@ -2699,7 +3002,8 @@ def phase_engine(dev, n_peptides=ENGINE_PEPTIDES, n_queries=ENGINE_QUERIES,
     CLI (std level by window rescoring, open level through the IVF
     index).  Run A builds and writes the store and index files with
     --model none; runs B (--model rf, the CLI's default) and C (--model
-    svm) read them.  Returns B4's launches summed over the runs."""
+    svm) read them.  Returns B4's and B5's launches summed over the
+    runs."""
     import os
 
     workdir = workdir or os.path.join(os.path.dirname(
@@ -2712,12 +3016,15 @@ def phase_engine(dev, n_peptides=ENGINE_PEPTIDES, n_queries=ENGINE_QUERIES,
         "seed": ENGINE_SEED, "corpus_sec": time.perf_counter() - t0}))
     remove_library_files(workdir)
     args = (lib_path, query_path, truth, n_queries)
-    none, _, total = engine_run(dev, "run A", *args, "none", False)
+    none, _, total, b5_total = engine_run(dev, "run A", *args, "none",
+                                          False)
     for name, model in (("run B", "rf"), ("run C", "svm")):
-        _, _, b4_launches = engine_run(dev, name, *args, model, True, none)
+        _, _, b4_launches, b5_launches = engine_run(dev, name, *args, model,
+                                                    True, none)
         total += b4_launches
-    note(f"B4 launched {total}")
-    return total
+        b5_total += b5_launches
+    note(f"B4 launched {total}, B5 {b5_total}")
+    return total, b5_total
 
 
 LIB_SPECTRUM = "opt_ms_run[1]_cv_MS:1003062_spectrum_index"
@@ -2942,13 +3249,14 @@ def phase_quality(dev, args=QUALITY_ARGS, workdir=None, full_size=True):
     """Phase 12a: the port's QUALITY harness (`quality.main`, both legs
     and the recall curve) on phase 9's corpus and files.  Gates as in the
     module docstring (the counts' only with `full_size`).  Returns B1's
-    launches in the two legs."""
+    and B4's launches in the two legs and B5's in the ann leg."""
     import os
 
     import torch
 
     from ann_solo_tpu_torch import cli, quality
-    from ann_solo_tpu_torch.ops import shifted_dot_cuda, stage1_cuda
+    from ann_solo_tpu_torch.ops import select_cuda, shifted_dot_cuda, \
+        stage1_cuda
     from ann_solo_tpu_torch.utils.profiling import profiler
 
     workdir = workdir or _workdir("engine")
@@ -2971,12 +3279,14 @@ def phase_quality(dev, args=QUALITY_ARGS, workdir=None, full_size=True):
         peak_reset()
         shifted_dot_cuda.LAUNCHES = 0
         stage1_cuda.LAUNCHES = 0
+        select_cuda.LAUNCHES = 0
         t0 = time.perf_counter()
         rc = real_main(cli_args)
         legs[mode] = {
             "cli_sec": time.perf_counter() - t0,
             "b1_launches": shifted_dot_cuda.LAUNCHES,
             "b4_launches": stage1_cuda.LAUNCHES,
+            "b5_launches": select_cuda.LAUNCHES,
             "max_memory_allocated_bytes": peak(),
             "totals": dict(profiler.totals),
             "counts": dict(profiler.counts), "notes": dict(profiler.notes),
@@ -3013,7 +3323,8 @@ def phase_quality(dev, args=QUALITY_ARGS, workdir=None, full_size=True):
             / totals["search"],
             "max_memory_allocated_bytes": info["max_memory_allocated_bytes"],
             "b1_launches": info["b1_launches"],
-            "b4_launches": info["b4_launches"], "stages_sec": totals,
+            "b4_launches": info["b4_launches"],
+            "b5_launches": info["b5_launches"], "stages_sec": totals,
             "paths": {k: v for k, v in info["counts"].items()
                       if "level charge" in k},
             "files": {k: {f: v[f] for f in ("source", "file")}
@@ -3028,7 +3339,8 @@ def phase_quality(dev, args=QUALITY_ARGS, workdir=None, full_size=True):
         note(f"{mode} leg: CLI {info['cli_sec']:.2f} s, search "
              f"{info['totals']['search']:.2f} s, {stats['n_confident']} "
              f"confident (accuracy {stats['accuracy']:.5f}), B1 launched "
-             f"{info['b1_launches']}, B4 {info['b4_launches']}")
+             f"{info['b1_launches']}, B4 {info['b4_launches']}, B5 "
+             f"{info['b5_launches']}")
     note(f"ann/bf {results['ann_vs_bf_ids_ratio']}", "recall@1024 "
          f"{results['ann_candidate_recall']['recall@1024']}",
          f"recall curve {recall.get('sec', 0.0):.2f} s")
@@ -3064,6 +3376,8 @@ def phase_quality(dev, args=QUALITY_ARGS, workdir=None, full_size=True):
             raise AssertionError(
                 f"quality {mode} leg: B1 launched {info['b1_launches']} "
                 f"times, B4 {info['b4_launches']}")
+    if dev.type == "cuda" and ann["b5_launches"] <= 0:
+        raise AssertionError("quality ann leg: B5 never launched")
     checked = results["ann_candidate_recall"]["n_bf_ssms_checked"]
     if checked != results["bf"]["n_confident"]:
         raise AssertionError(f"quality: {checked} bf SSMs checked of "
@@ -3084,7 +3398,7 @@ def phase_quality(dev, args=QUALITY_ARGS, workdir=None, full_size=True):
         if deep < QUALITY_RECALL_GATE:
             raise AssertionError(f"quality: recall@1024 {deep}")
     return (ann["b1_launches"] + bf["b1_launches"],
-            ann["b4_launches"] + bf["b4_launches"])
+            ann["b4_launches"] + bf["b4_launches"], ann["b5_launches"])
 
 
 def phase_tools(dev, workdir=None, n_queries=2048):
@@ -3280,32 +3594,41 @@ def run_phases():
     probe_record = phase("3b", phase_probe_kernel, dev)
     scan_record = phase("3c", phase_scan_kernel, dev)
     stage1_record = phase("3d", phase_stage1_kernel, dev)
-    launches, b4_launches, index, lib, lib_arrays, params = phase(
-        "4", phase_slice, dev)
+    select_record = phase("3e", phase_select_kernel, dev)
+    (launches, b2_launches, b4_launches, b5_launches, index, lib,
+     lib_arrays, params) = phase("4", phase_slice, dev)
     phase("5", phase_preprocess, dev, index, lib, lib_arrays, params)
     del index, lib
     phase("6", phase_cuda_vs_cpu, dev)
     big = phase("7", phase_big_slice, dev)
     b4_launches += big["b4_launches"]
+    b5_launches += big["b5_launches"]
     b3_launches = phase("8", phase_b3_slice, dev, big)
-    big_launches = big["launches"] + phase("7b", phase_scale_demo, dev)
+    big_launches = (b2_launches + big["launches"]
+                    + phase("7b", phase_scale_demo, dev))
     phase("10a", phase_streaming_switch, dev, big)
     del big  # phases 7 and 8's library, index and batches
     torch.cuda.empty_cache()
     s8m = phase("10b", phase_streaming_8m, dev)
+    b5_launches += s8m["b5_launches"]
     big_launches += phase("11a", phase_sharded_8m, dev, s8m)
     del s8m["index"], s8m["run"], s8m["select"], s8m["probe"], s8m["oracle"]
     torch.cuda.empty_cache()
     phase("11b", phase_born_sharded, dev, s8m)
     del s8m
     torch.cuda.empty_cache()
-    b4_launches += phase("9", phase_engine, dev)
+    b4, b5 = phase("9", phase_engine, dev)
+    b4_launches += b4
+    b5_launches += b5
     phase("11c", phase_sharded_engine, dev)
     phase("9s", phase_engine_cuda_vs_cpu, dev)
-    for label, fn in (("12a", phase_quality), ("12d", phase_tools)):
-        b1, b4 = phase(label, fn, dev)
-        launches += b1
-        b4_launches += b4
+    b1, b4, b5 = phase("12a", phase_quality, dev)
+    launches += b1
+    b4_launches += b4
+    b5_launches += b5
+    b1, b4 = phase("12d", phase_tools, dev)
+    launches += b1
+    b4_launches += b4
     phase("12b", phase_sweep, dev)
     launches += phase("12c", phase_plot_matching, dev)
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s",
@@ -3321,7 +3644,9 @@ def run_phases():
              "ann_solo_tpu/ops/ivf_scan_pallas.py:146", b3_launches,
              scan_record),
             ("stage1_bounds", "stage1_bounds.cu",
-             "ann_solo_tpu/ops/rescore.py:60", b4_launches, stage1_record)):
+             "ann_solo_tpu/ops/rescore.py:60", b4_launches, stage1_record),
+            ("canonical_select", "canonical_select.cu",
+             "ann_solo_tpu/index/ivf.py:779", b5_launches, select_record)):
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -3333,7 +3658,7 @@ def run_phases():
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
-            "library_ms": None,
+            "library_ms": rec.get("library_ms"),
         })
     return kernels, smi
 

@@ -1,0 +1,570 @@
+"""The probe path's selection (kernel B5's plain version and its routing)
+and the full scan's card route, vs the JAX package.
+
+Inputs are made with NumPy from a seed and fed to both packages.
+
+* (a) `ops.canonical_select.canonical_select_plain` equals, bit for bit,
+  the JAX tail of `_ivf_probe_scan_tile` (`_canonical_topk` on 16-bit
+  keys, the id gather, `_dedup_topk`, `_pad_topk`): ties at the threshold
+  key, rows with every lane masked, fewer finite lanes than k_sel, both
+  copies of an id inside the selection and across its edge, no dedup,
+  k_sel above the lane count, and more than 65,536 lanes (where JAX takes
+  `lax.top_k` on int16 keys).
+* (b) A NumPy emulation of the kernel's own algorithm (two 8-bit radix
+  histograms with the threshold search from the top bin, ties taken in
+  lane order through each warp's count and offset, the compaction in an
+  arbitrary order, the bitonic sorting network, the decode, the dedup by
+  a second bitonic sort of (id, rank) words and a prefix count of the
+  kept ranks) equals the plain version on those cases and on random rows;
+  the same emulation with the tie rule mutated (the last lanes at the
+  threshold instead of the first) does not.
+* (c) The full scan's card route (each query's probed lists through B2,
+  then B5) run on CPU tensors through their plain versions, against the
+  port's plain full scan and the JAX `_ivf_search_fullscan`: >= 99.9% of
+  (id, score) lanes equal, every 16-bit key within one step, no duplicate
+  ids, and rows identical wherever the two f32 sums give the same keys.
+* (d) Routing: CPU tensors never reach the wrapper or its library, the
+  wrapper refuses CPU tensors and its limits raise before anything is
+  built, `search_device` keeps the plain full scan on the CPU, and the
+  import rules of `test_torch_imports.py` cover the new modules.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ann_solo_tpu.index import ivf as jivf
+from ann_solo_tpu_torch.index import ivf as pivf
+from ann_solo_tpu_torch.ops import canonical_select as psel
+from ann_solo_tpu_torch.ops import select_cuda
+from ann_solo_tpu_torch.ops.ivf_probe import ivf_probe_scan_plain
+
+from test_ivf import IvfConfig, _clustered_vectors
+from test_torch_ivf import _port
+
+F32 = np.float32
+
+
+# (name, rows, L, P, cap, k_sel, k, redundant, options)
+CASES = {
+    "ties": (6, 32, 8, 16, 40, 24, True, {"levels": 4}),
+    "ties_x1": (6, 32, 8, 16, 24, 24, False, {"levels": 4}),
+    "all_masked": (5, 32, 8, 16, 40, 24, True, {"masked_rows": (0, 3)}),
+    "few_finite": (5, 32, 8, 16, 40, 24, True, {"finite": 0.15}),
+    "copies": (6, 16, 8, 16, 48, 24, True, {"copies": True,
+                                             "levels": 16}),
+    "not_redundant": (6, 32, 8, 16, 24, 24, False, {}),
+    "x1_k_sel_above_k": (6, 32, 8, 16, 40, 24, False, {}),
+    "k_sel_above_n": (4, 16, 4, 8, 80, 24, True, {"copies": True}),
+    "wide": (2, 96, 70, 1000, 300, 150, True, {"copies": True,
+                                               "levels": 64}),
+    "bench_like": (3, 512, 64, 96, 1024, 512, True, {"copies": True,
+                                                     "levels": 256}),
+}
+
+
+def _case(name, seed=0):
+    """(flat, probe_ids, padded_ids, k_sel, k, redundant) as NumPy arrays.
+
+    padded_ids: each list's slots hold ids, about 10% empty (-1); with
+    "copies" every id sits in two slots of different lists, as redundant
+    storage places it, and both copies carry the same score (stored copies
+    are bit-identical).  Scores are a per-(row, id) draw on `levels`
+    values (ties at every key) or continuous, with 30% of the ids masked
+    (the window), rows in "masked_rows" all -inf, and with "finite" only
+    that share of the ids finite."""
+    b, l, p, cap, k_sel, k, redundant, opts = CASES[name]
+    rng = np.random.default_rng(1000 + seed)
+    slots = l * cap
+    if opts.get("copies"):
+        n_ids = slots // 2
+        ids = np.concatenate([rng.permutation(n_ids), rng.permutation(n_ids)])
+        ids = np.pad(ids, (0, slots - len(ids)), constant_values=-1)
+    else:
+        n_ids = slots
+        ids = rng.permutation(n_ids)
+    ids = np.where(rng.random(slots) < 0.1, -1, ids).astype(np.int32)
+    padded_ids = ids.reshape(l, cap)
+    probe_ids = np.sort(np.argsort(rng.random((b, l)), axis=1)[:, :p],
+                        axis=1).astype(np.int64)
+    levels = opts.get("levels")
+    if levels:
+        per_id = (0.3 + rng.integers(0, levels, (b, n_ids)) / 512.0)
+    else:
+        per_id = rng.normal(0.5, 0.2, (b, n_ids))
+    per_id = per_id.astype(F32)
+    keep = rng.random((b, n_ids)) < opts.get("finite", 0.7)
+    per_id = np.where(keep, per_id, F32(-np.inf))
+    lane_ids = padded_ids[probe_ids].reshape(b, p * cap)
+    flat = np.where(lane_ids >= 0, np.take_along_axis(
+        per_id, np.maximum(lane_ids, 0), axis=1), F32(-np.inf))
+    for row in opts.get("masked_rows", ()):
+        flat[row] = -np.inf
+    return flat.astype(F32), probe_ids, padded_ids, k_sel, k, redundant
+
+
+def _jax_tail(flat, probe_ids, padded_ids, k_sel, k, redundant):
+    """The JAX package's selection after its probe scan
+    (`ann_solo_tpu/index/ivf.py:1282-1291`)."""
+    cap = padded_ids.shape[1]
+    k_eff = min(k_sel, flat.shape[1])
+    top_scores, pos = jivf._canonical_topk(jnp.asarray(flat), k_eff,
+                                           cast=True)
+    lp = pos // cap
+    slot = pos - lp * cap
+    lists = jnp.take_along_axis(jnp.asarray(probe_ids), lp, axis=1)
+    top_ids = jnp.where(top_scores > -jnp.inf,
+                        jnp.asarray(padded_ids)[lists, slot], -1)
+    if redundant or k_eff > k:
+        top_scores, top_ids = jivf._dedup_topk(top_scores, top_ids, k)
+    s, i = jivf._pad_topk(top_scores, top_ids, k)
+    return np.asarray(s), np.asarray(i)
+
+
+def _plain(flat, probe_ids, padded_ids, k_sel, k, redundant):
+    s, i = psel.canonical_select_plain(
+        torch.from_numpy(flat), torch.from_numpy(probe_ids),
+        torch.from_numpy(padded_ids), k_sel, k, redundant)
+    return s.numpy(), i.numpy()
+
+
+def _assert_same(got, want):
+    (gs, gi), (ws, wi) = got, want
+    assert gs.shape == ws.shape and gi.shape == wi.shape
+    np.testing.assert_array_equal(gs.view(np.uint32), ws.view(np.uint32))
+    np.testing.assert_array_equal(gi, wi)
+
+
+# --------------------------------------------------------------------- #
+# (a) the plain chain against the JAX tail
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_matches_jax_tail(name):
+    args = _case(name)
+    got = _plain(*args)
+    _assert_same(got, _jax_tail(*args))
+    s, i = got
+    assert s.dtype == np.float32 and i.dtype == np.int32
+    assert s.shape == (args[0].shape[0], args[4])
+
+
+def test_cases_have_what_they_are_named_for():
+    """The cases exercise what their names say: ties cut by the selection,
+    all-masked rows, fewer finite lanes than k_sel, an id with one copy
+    inside the selection and one outside it, more than 65,536 lanes."""
+    flat, probe, ids, k_sel, k, red = _case("ties_x1")
+    keys = -np.sort(-pivf._key16(torch.from_numpy(flat)).numpy(), axis=1)
+    kth = keys[:, k_sel - 1:k_sel]
+    cut = (keys == kth).sum(1) > (keys[:, :k_sel] == kth).sum(1)
+    assert cut.mean() >= 0.5
+    flat, *_ = _case("all_masked")
+    assert np.isneginf(flat[0]).all() and np.isneginf(flat[3]).all()
+    flat, _, _, k_sel, _, _ = _case("few_finite")
+    assert (np.isfinite(flat).sum(1) < k_sel).any()
+    flat, probe, ids, k_sel, k, red = _case("copies")
+    lane_ids = ids[probe].reshape(flat.shape)
+    _, pos = pivf.canonical_topk(pivf._key16(torch.from_numpy(flat)), k_sel)
+    sel = np.take_along_axis(lane_ids, pos.numpy(), axis=1)
+    split = False
+    for r in range(len(flat)):
+        inside = set(sel[r][sel[r] >= 0])
+        twice = {i for i in inside if (sel[r] == i).sum() == 2}
+        once = {i for i in inside if (lane_ids[r] == i).sum() == 2} - twice
+        split |= bool(twice) and bool(once)
+    assert split
+    assert _case("k_sel_above_n")[0].shape[1] < CASES["k_sel_above_n"][4]
+    assert _case("wide")[0].shape[1] > 65536
+
+
+# --------------------------------------------------------------------- #
+# (b) the kernel's algorithm, emulated in NumPy
+
+WARPS = select_cuda.THREADS // 32
+
+
+def _key16_np(x):
+    u = x.view(np.uint32).astype(np.int64)
+    b16 = ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFFFFFF) >> 16
+    return np.where(u >= 0x80000000, 0xFFFF - b16, b16 | 0x8000)
+
+
+def _key16_to_f32_np(key):
+    b16 = np.where(key < 0x8000, 0xFFFF - key, key - 0x8000)
+    return (b16.astype(np.uint32) << 16).view(F32)
+
+
+def _find_bin(hist, need):
+    """The kernel's warp search: lane j holds bins 255 - 8j .. 248 - 8j,
+    an inclusive scan of the lane sums from the top, the first lane whose
+    scan reaches `need`, then its walk down its eight bins."""
+    desc = hist[::-1].reshape(32, 8)
+    incl = np.cumsum(desc.sum(1))
+    lane = int(np.argmax(incl >= need))
+    cum = incl[lane] - desc[lane].sum()
+    for j in range(8):
+        if cum + desc[lane, j] >= need:
+            return 255 - 8 * lane - j, int(cum)
+        cum += desc[lane, j]
+    raise AssertionError("need above the histogram's total")
+
+
+def _bitonic(words, descending):
+    """The kernel's sorting network on a power-of-two array."""
+    w = words.copy()
+    m = len(w)
+    size = 2
+    while size <= m:
+        stride = size >> 1
+        while stride:
+            t = np.arange(m // 2)
+            lo = 2 * t - (t & (stride - 1))
+            hi = lo + stride
+            a, b = w[lo], w[hi]
+            down = ((lo & size) == 0) == descending
+            swap = np.where(down, a < b, a > b)
+            w[lo], w[hi] = np.where(swap, b, a), np.where(swap, a, b)
+            stride >>= 1
+        size <<= 1
+    return w
+
+
+def _emulate_row(x, probe, padded_ids, k_sel, k, redundant, rng,
+                 tie_rule="first"):
+    n = len(x)
+    l, cap = padded_ids.shape
+    k_eff = min(k_sel, n)
+    out_s = np.full(k, -np.inf, F32)
+    out_i = np.full(k, -1, np.int32)
+    if k_eff == 0:
+        return out_s, out_i
+    keys = _key16_np(x)
+    high, above = _find_bin(np.bincount(keys >> 8, minlength=256), k_eff)
+    need = k_eff - above
+    low, above2 = _find_bin(np.bincount(keys[(keys >> 8) == high] & 0xFF,
+                                        minlength=256), need)
+    thresh = (high << 8) | low
+    ties = need - above2
+    run = -(-n // select_cuda.THREADS) * 32
+    bounds = [(min(n, w * run), min(n, min(n, w * run) + run))
+              for w in range(WARPS)]
+    counts = np.array([(keys[a:e] == thresh).sum() for a, e in bounds])
+    offsets = np.cumsum(counts) - counts
+    n_ties = counts.sum()
+    taken = []
+    for (a, e), off in zip(bounds, offsets):
+        tie = keys[a:e] == thresh
+        rank = off + np.cumsum(tie) - tie
+        if tie_rule == "first":
+            take_tie = tie & (rank < ties)
+        else:  # the mutation: the last lanes at the threshold
+            take_tie = tie & (rank >= n_ties - ties)
+        lanes = np.arange(a, e)[(keys[a:e] > thresh) | take_tie]
+        taken.append(lanes)
+    lanes = np.concatenate(taken)
+    assert len(lanes) == k_eff
+    lanes = rng.permutation(lanes)  # the atomics' order does not matter
+    m = select_cuda.sort_width(k_eff)
+    words = np.zeros(m, np.uint64)
+    words[:k_eff] = (keys[lanes].astype(np.uint64) << np.uint64(32)) | (
+        np.uint64(n - 1) - lanes.astype(np.uint64))
+    words = _bitonic(words, True)[:k_eff]
+    lane = (n - 1) - (words & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    score = _key16_to_f32_np((words >> np.uint64(32)).astype(np.int64))
+    rank = lane // cap
+    lists = probe[rank]
+    ok = (score > -np.inf) & (lists >= 0) & (lists < l)
+    ident = np.where(ok, padded_ids[np.clip(lists, 0, l - 1),
+                                    lane - rank * cap], -1).astype(np.int32)
+    if not (redundant or k_eff > k):
+        out_s[:k_eff], out_i[:k_eff] = score, ident
+        return out_s, out_i
+    pairs = np.full(m, np.iinfo(np.uint64).max, np.uint64)
+    pairs[:k_eff] = ((ident.view(np.uint32) ^ np.uint32(0x80000000))
+                     .astype(np.uint64) << np.uint64(32)) | np.arange(
+                         k_eff, dtype=np.uint64)
+    pairs = _bitonic(pairs, False)[:k_eff]
+    id_key = pairs >> np.uint64(32)
+    first = np.concatenate([[True], id_key[1:] != id_key[:-1]]) & (
+        id_key >= np.uint64(0x80000000))
+    keep = np.zeros(k_eff, bool)
+    keep[(pairs & np.uint64(0xFFFFFFFF)).astype(np.int64)] = first
+    kept = np.nonzero(keep)[0][:k]  # the prefix count, in rank order
+    out_s[:len(kept)], out_i[:len(kept)] = score[kept], ident[kept]
+    return out_s, out_i
+
+
+def _emulate(flat, probe_ids, padded_ids, k_sel, k, redundant,
+             tie_rule="first"):
+    rng = np.random.default_rng(5)
+    rows = [_emulate_row(flat[r], probe_ids[r], padded_ids, k_sel, k,
+                         redundant, rng, tie_rule) for r in range(len(flat))]
+    return (np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_kernel_emulation_equals_plain(name):
+    args = _case(name)
+    _assert_same(_emulate(*args), _plain(*args))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_kernel_emulation_equals_plain_random(seed):
+    """Random shapes, tie densities, masks and dedup settings."""
+    rng = np.random.default_rng(seed)
+    b, l = int(rng.integers(1, 4)), int(rng.integers(4, 40))
+    p, cap = int(rng.integers(1, l + 1)), int(rng.integers(1, 40))
+    n = p * cap
+    k = int(rng.integers(1, 80))
+    k_sel = int(rng.integers(1, 2 * k + 2))
+    redundant = bool(rng.integers(0, 2)) or k_sel > min(k, n)
+    ids = rng.integers(-1, l * cap // 2 + 1, (l, cap)).astype(np.int32)
+    probe = np.sort(np.argsort(rng.random((b, l)), axis=1)[:, :p],
+                    axis=1).astype(np.int64)
+    levels = int(rng.choice([2, 16, 1000]))
+    flat = (rng.integers(0, levels, (b, n)) / levels - 0.5).astype(F32)
+    flat = np.where(rng.random((b, n)) < rng.random(), F32(-np.inf), flat)
+    args = (flat, probe, ids, k_sel, k, redundant)
+    _assert_same(_emulate(*args), _plain(*args))
+
+
+def test_tie_rule_mutation_fails():
+    """Taking the last lanes at the threshold key instead of the first
+    changes the result: the emulation's tie rule is load-bearing (the
+    lanes at the threshold key reach the output without dedup)."""
+    args = _case("ties_x1")
+    with pytest.raises(AssertionError):
+        _assert_same(_emulate(*args, tie_rule="last"), _plain(*args))
+
+
+@pytest.mark.parametrize("k_eff,width", [(1, 1), (2, 2), (3, 4),
+                                         (1024, 1024), (1025, 2048),
+                                         (4096, 4096)])
+def test_sort_width_and_smem(k_eff, width):
+    assert select_cuda.sort_width(k_eff) == width
+    assert select_cuda.smem_bytes(k_eff) == 20 * width
+    assert select_cuda.smem_bytes(select_cuda.MAX_SEL) <= 232_448
+
+
+# --------------------------------------------------------------------- #
+# (c) the full scan's card route, run on CPU tensors
+
+
+def _small_jax_index(storage, seed=43):
+    """L 64, cap 16, D 64, num_probe 8, x2 SOAR: the fullscan regime."""
+    rng = np.random.default_rng(seed)
+    n = 340
+    vectors = _clustered_vectors(rng, n=n, d=64, n_clusters=16)
+    prec = rng.uniform(400, 1200, n).astype(F32)
+    index = jivf.IvfIndex.build(
+        vectors, IvfConfig(num_list=64, num_probe=8), precursor_mz=prec,
+        storage_dtype=storage, redundancy=2,
+    )
+    rows = rng.choice(n, 256)
+    queries = vectors[rows] + 0.1 * rng.normal(size=(256, 64)).astype(F32)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    q_prec = prec[rows] + rng.normal(0, 20, 256).astype(F32)
+    return index, queries.astype(F32), q_prec.astype(F32)
+
+
+def _lanes_equal(a, b):
+    (ai, as_), (bi, bs) = a, b
+    return float(((ai == bi) & (as_.view(np.uint32) == bs.view(np.uint32)))
+                 .mean())
+
+
+def _route_on_cpu(monkeypatch):
+    """Make CPU tensors take the card route; count the selections."""
+    calls = {"select": 0}
+    real = pivf.canonical_select
+
+    def counted(*args, **kwargs):
+        calls["select"] += 1
+        return real(*args, **kwargs)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the card route ran the plain full scan")
+
+    monkeypatch.setattr(pivf, "canonical_select", counted)
+    monkeypatch.setattr(pivf, "_fullscan_scans_probed_lists",
+                        lambda device, dtype: dtype != torch.float32)
+    monkeypatch.setattr(pivf, "_ivf_search_fullscan", refuse)
+    return calls
+
+
+@pytest.mark.parametrize("storage", ["int8", "bf16"])
+@pytest.mark.parametrize("tol_val,tol_mode", [(0.0, "Da"), (150.0, "Da")])
+def test_card_route_on_cpu_matches_fullscan(monkeypatch, storage, tol_val,
+                                            tol_mode):
+    import ml_dtypes
+
+    jstorage = {"int8": np.int8, "bf16": ml_dtypes.bfloat16}[storage]
+    index, queries, q_prec = _small_jax_index(jstorage)
+    k = 24
+    port = _port(index)
+    assert port.padded_vectors.shape == (64, 16, 64)
+    assert port.regime(k) == "fullscan" and port.num_probe == 8
+    q_t, qp_t = torch.from_numpy(queries), torch.from_numpy(q_prec)
+    kwargs = dict(q_prec=qp_t, charge=2.0, tol_val=tol_val,
+                  tol_mode=tol_mode)
+    plain = [a.numpy() for a in port.search_device(q_t, k, **kwargs)]
+    e_ids, e_s = index.search_device(queries, k, q_prec=q_prec, charge=2.0,
+                                     tol_val=tol_val, tol_mode=tol_mode)
+    jax_out = [np.asarray(e_ids), np.asarray(e_s)]
+    calls = _route_on_cpu(monkeypatch)
+    route = [a.numpy() for a in port.search_device(q_t, k, **kwargs)]
+    assert calls["select"] == 1  # one super-tile of 256 queries
+    for ids in route[0]:
+        row = ids[ids >= 0]
+        assert len(np.unique(row)) == len(row)
+    for other in (plain, jax_out):
+        assert _lanes_equal(route, other) >= 0.999
+        keys = [pivf._key16(torch.tensor(s)).numpy()
+                for s in (route[1], other[1])]
+        assert np.abs(keys[0] - keys[1]).max() <= 1
+    # Rows whose lane scores give the same keys in both sums are
+    # identical.
+    blocks = port._blocks()
+    probe = pivf._probe_lists(q_t, port.centroids, 8)
+    flat_b2 = ivf_probe_scan_plain(*blocks[:4], q_t, qp_t, 2.0, probe,
+                                   tol_val, tol_mode)
+    q_bf16 = q_t.to(torch.bfloat16).to(torch.float32)
+    full = (q_bf16 @ port.scan_block().T) * port.padded_scales.reshape(1, -1)
+    lanes = (probe[:, :, None] * 16 + torch.arange(16)).reshape(256, -1)
+    flat_fs = torch.where(torch.isneginf(flat_b2), float("-inf"),
+                          full.gather(1, lanes))
+    agree = (pivf._key16(flat_b2) == pivf._key16(flat_fs)).all(1).numpy()
+    assert agree.mean() >= 0.5
+    for a, b in zip(route, plain):
+        np.testing.assert_array_equal(a[agree], b[agree])
+
+
+# --------------------------------------------------------------------- #
+# (d) routing
+
+
+def _refuse_the_wrapper(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached the kernel's wrapper")
+
+    monkeypatch.setattr(select_cuda, "canonical_select", refuse)
+    monkeypatch.setattr(select_cuda, "_library", refuse)
+
+
+def test_cpu_tensors_never_reach_the_wrapper(monkeypatch):
+    """The plain full scan, the probe path (`_FULLSCAN_TRANSIENT = 0`) and
+    the routing function all stay off the wrapper and its library on the
+    CPU, and the launch count does not move."""
+    _refuse_the_wrapper(monkeypatch)
+    before = select_cuda.LAUNCHES
+    rng = np.random.default_rng(2)
+    vectors = torch.from_numpy(_clustered_vectors(rng, n=600, d=32,
+                                                  n_clusters=8))
+    index = pivf.IvfIndex.build(
+        vectors, IvfConfig(num_list=32, num_probe=8), device="cpu",
+        storage_dtype=torch.int8, redundancy=2)
+    assert index.regime(16) == "fullscan"
+    full = index.search_device(vectors[:40], 16)
+    monkeypatch.setattr(pivf, "_FULLSCAN_TRANSIENT", 0)
+    assert index.regime(16) == "probe"
+    probe = index.search_device(vectors[:40], 16)
+    assert _lanes_equal([a.numpy() for a in full],
+                        [a.numpy() for a in probe]) >= 0.999
+    args = _case("copies")
+    psel.canonical_select(*(torch.from_numpy(a) for a in args[:3]),
+                          *args[3:])
+    assert select_cuda.LAUNCHES == before
+
+
+def test_wrapper_takes_cuda_tensors_only():
+    """The wrapper imports without CUDA and raises on CPU tensors before
+    building or loading anything; the routing refuses other devices."""
+    flat, probe, ids, k_sel, k, red = (
+        torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+        for a in _case("ties"))
+    before = select_cuda.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        select_cuda.canonical_select(flat, probe, ids, k_sel, k, red)
+    assert select_cuda.LAUNCHES == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        psel.canonical_select(flat.to("meta"), probe.to("meta"),
+                              ids.to("meta"), k_sel, k, red)
+
+
+@pytest.mark.parametrize("n,k_sel,k,limit", [
+    (select_cuda.MAX_LANES + 1, 16, 16, "MAX_LANES"),
+    (0, 16, 16, "MAX_LANES"),
+    (49152, select_cuda.MAX_SEL + 1, 2048, "MAX_SEL"),
+    (49152, 0, 16, "MAX_SEL"),
+    (49152, 16, -1, "k = -1"),
+])
+def test_limits_raise(n, k_sel, k, limit):
+    with pytest.raises(ValueError, match=limit):
+        select_cuda.check_limits(n, k_sel, k)
+
+
+def test_limits_raise_before_the_library_loads(monkeypatch):
+    """Beyond a limit the wrapper raises ValueError naming it before the
+    library is built or loaded; at the limits it passes k_eff on."""
+    monkeypatch.setattr(select_cuda, "_check", lambda *a: None)
+    monkeypatch.setattr(select_cuda, "_library", lambda: pytest.fail(
+        "the library was loaded"))
+    flat = torch.empty((0, 512 * 96))
+    probe = torch.empty((0, 512), dtype=torch.int64)
+    ids = torch.empty((4096, 96), dtype=torch.int32)
+    with pytest.raises(ValueError, match="MAX_SEL"):
+        select_cuda.canonical_select(flat, probe, ids,
+                                     select_cuda.MAX_SEL + 1, 2048, True)
+    s, i = select_cuda.canonical_select(flat, probe, ids, 1024, 512, True)
+    assert s.shape == i.shape == (0, 512)
+    assert select_cuda.check_limits(49152, select_cuda.MAX_SEL, 2048) == \
+        select_cuda.MAX_SEL
+    assert select_cuda.check_limits(100, 4096, 50) == 100
+
+
+def test_search_device_keeps_the_plain_full_scan_on_cpu(monkeypatch):
+    """On the CPU the fullscan regime runs `_ivf_search_fullscan`; the rule
+    sends CUDA tensors with int8/bf16 storage to the probe path and f32
+    storage never."""
+    calls = {"full": 0}
+    real = pivf._ivf_search_fullscan
+
+    def counted(*args, **kwargs):
+        calls["full"] += 1
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(pivf, "_ivf_search_fullscan", counted)
+    monkeypatch.setattr(pivf.IvfIndex, "_search_probe", lambda *a: (
+        pytest.fail("the CPU took the probe path")))
+    rng = np.random.default_rng(3)
+    vectors = torch.from_numpy(_clustered_vectors(rng, n=400, d=16,
+                                                  n_clusters=8))
+    for dtype in (torch.int8, torch.bfloat16, torch.float32):
+        index = pivf.IvfIndex.build(
+            vectors, IvfConfig(num_list=16, num_probe=4), device="cpu",
+            storage_dtype=dtype, redundancy=2)
+        assert index.regime(8) == "fullscan"
+        index.search_device(vectors[:10], 8)
+    assert calls["full"] == 3
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert pivf._fullscan_scans_probed_lists(cuda, torch.int8)
+    assert pivf._fullscan_scans_probed_lists(cuda, torch.bfloat16)
+    assert not pivf._fullscan_scans_probed_lists(cuda, torch.float32)
+    assert not pivf._fullscan_scans_probed_lists(cpu, torch.int8)
+
+
+def test_import_rules_cover_the_new_modules():
+    import os
+
+    import test_torch_imports
+
+    for path in ("ann_solo_tpu_torch/ops/select_cuda.py",
+                 "ann_solo_tpu_torch/ops/canonical_select.py"):
+        assert path in test_torch_imports._SOURCES
+        assert not [m for m in test_torch_imports._imported_modules(path)
+                    if m.split(".")[0] in
+                    test_torch_imports._NOT_ON_THE_GPU_MACHINE]
+    assert os.path.isfile(os.path.join(
+        test_torch_imports.REPO, "ann_solo_tpu_torch", "csrc",
+        "canonical_select.cu"))
