@@ -10,9 +10,18 @@ launch of one block a row.  The kernel source is
 bit.
 
 The kernel is bound by device-memory bytes: the (B, n) float32 lanes read
-once and the (B, k) outputs written.  It reads each row four times (two
-8-bit radix histograms, a count of the ties at the threshold key, the
-compaction), then sorts the selected lanes in shared memory.
+once and the (B, k) outputs written.  Its first pass reads each row from
+device memory once, 16 bytes a thread a load with four in flight, and
+keeps a 16-bit key a lane in shared memory; the low-byte histogram, the
+tie count and the compaction then read those keys.  The compacted lanes
+stay in lane order, so the canonical order is one descending sort of
+32-bit words (a bitonic network whose strides below a warp's span run in
+registers), and the dedup keeps each id's least rank through a hash table
+in shared memory (integer CAS and min).  `plan(n, k_eff)` gives the
+branch and the dynamic shared memory: keys on chip while they fit
+(`SMEM_LIMIT`; every row of the main path, two blocks an SM at the
+bench's 49,152 lanes), else the long-row branch of the same kernel, whose
+passes each read the row from device memory.
 
 Routing is decided by the tensors, never by a fallback:
 `ops/canonical_select.py::canonical_select` sends CPU tensors to the plain
@@ -31,24 +40,41 @@ from ann_solo_tpu_torch.ops import _build
 
 # The kernel's limits, as in `csrc/canonical_select.cu`: threads a block
 # (one block a row), lanes selected before dedup (the shared-memory sort)
-# and lanes a row (`ops/ivf_probe.py::MAX_PROBE_LANES`).
+# and lanes a row (`ops/ivf_probe.py::MAX_PROBE_LANES`); the shared memory
+# a block may use on the H100, the part of it the kernel's static arrays
+# may take, and the least count of sort words (their area holds a 1 KB
+# histogram first).
 THREADS = 512
 MAX_SEL = 4096
 MAX_LANES = 1 << 22
+SMEM_LIMIT = 232_448
+STATIC_RESERVE = 256
+MIN_WORDS = 128
 
 # Kernel launches in this process; reset by whoever wants to count.
 LAUNCHES = 0
 
 
 def sort_width(k_eff: int) -> int:
-    """The bitonic sort's width: the least power of two >= k_eff (>= 1)."""
+    """The sort's width before its floor: the least power of two >= k_eff
+    (>= 1)."""
     return 1 << max(0, k_eff - 1).bit_length()
 
 
-def smem_bytes(k_eff: int) -> int:
-    """Dynamic shared memory of one block: 8-byte packed words, then the
-    decoded scores, ids and dedup marks, `sort_width(k_eff)` of each."""
-    return sort_width(k_eff) * 20
+def plan(n: int, k_eff: int) -> tuple:
+    """(branch, dynamic shared memory bytes) of a row of n lanes with k_eff
+    selected, as the kernel's `make_plan` computes them: "on_chip" keeps
+    2 * round_up(n + 3, 8) bytes of keys (the dedup table of 16 bytes a
+    word takes the same area later) beside 8 bytes a sort word, while
+    that and `STATIC_RESERVE` fit `SMEM_LIMIT`; else "long_row", the
+    table and the words only."""
+    words = max(sort_width(k_eff), MIN_WORDS)
+    keys = 2 * ((n + 3 + 7) // 8 * 8)
+    table = 16 * words
+    on_chip = max(keys, table) + 8 * words
+    if on_chip + STATIC_RESERVE <= SMEM_LIMIT:
+        return "on_chip", on_chip
+    return "long_row", table + 8 * words
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,9 +84,30 @@ def _library() -> ctypes.CDLL:
     lib.canonical_select.restype = ctypes.c_int
     lib.canonical_select.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.canonical_select_plan.restype = ctypes.c_int
+    lib.canonical_select_plan.argtypes = (
+        [ctypes.c_longlong, ctypes.c_int]
+        + [ctypes.POINTER(ctypes.c_int)] * 3)
     lib.canonical_select_error_string.restype = ctypes.c_char_p
     lib.canonical_select_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def occupancy(n: int, k_sel: int) -> tuple:
+    """(branch, dynamic shared memory bytes, blocks an SM) of the built
+    kernel on the current CUDA device for rows of n lanes, k_sel selected:
+    the kernel's own plan and `cudaOccupancyMaxActiveBlocksPerMultiprocessor`
+    (builds the library; the card only)."""
+    k_eff = check_limits(n, k_sel, 0)
+    lib = _library()
+    on_chip, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = lib.canonical_select_plan(n, k_eff, ctypes.byref(on_chip),
+                                    ctypes.byref(smem), ctypes.byref(blocks))
+    if err != 0:
+        msg = lib.canonical_select_error_string(err).decode()
+        raise RuntimeError(f"canonical_select_plan failed: {msg} ({err})")
+    return ("on_chip" if on_chip.value else "long_row", smem.value,
+            blocks.value)
 
 
 def check_limits(n: int, k_sel: int, k: int) -> int:

@@ -88,11 +88,17 @@ Phases, in the order they run (1-3c, 3d, 3e, 4-6, 7, 8, 7b, 10a, 10b,
    tile (1,024 x 49,152) at k_sel 2,048 and at phase 7's own 1,024 (x1),
    phase 10b's 98,304 lanes (P 128 x cap 768), phase 9's open level
    (4,096 lists x cap 80, num_probe 256, k_sel 2,048), every finite lane
-   at one score (ties across the threshold), and rows with every lane
-   masked or fewer finite lanes than k_sel.  Scores (as bits) and ids
-   must be identical.  Logs each case's time beside its bound, the plain
-   chain's time and that of `torch.topk` on the packed int64 keys (the
-   kernels record's `library_ms`; the port never calls it on the card);
+   at one score (ties across the threshold), rows with every lane
+   masked or fewer finite lanes than k_sel, 256 rows of 196,608 lanes
+   (P 256 x cap 768, k_sel 2,048: the kernel's long-row branch), the
+   bench's rows at k_sel = MAX_SEL 4,096 (k 2,048) and 1,024 rows of P
+   511 x cap 77 lanes (row starts not 16-byte aligned).  Scores (as
+   bits) and ids must be identical.  Logs each case's time beside its
+   bound, the plain chain's time and that of `torch.topk` on the packed
+   int64 keys (the kernels record's `library_ms`; the port never calls it
+   on the card), its branch, dynamic shared memory and blocks an SM (the
+   kernel's own plan and occupancy, which must equal the wrapper's
+   `plan`);
 4. the bench (`ann_solo_tpu_torch.bench.run`, what ``python -m
    ann_solo_tpu_torch.bench`` prints): a 131,072-spectrum library (K = 50
    peaks, hash_len 800), auto num_list, num_probe 512, x2 SOAR
@@ -370,7 +376,11 @@ PROBE_CASES = (
 # phase 10b's 8.4M shape (P 128 x cap 768 = 98,304 lanes), phase 9's open
 # level (4,096 lists x cap 80 at num_probe 256, k 1,024 of x2 storage, as
 # its regime log line reports it), every finite lane at one score, and
-# rows with every lane masked or fewer finite lanes than k_sel.  Kinds
+# rows with every lane masked or fewer finite lanes than k_sel; then a
+# row too long for the keys in shared memory (P 256 x cap 768 = 196,608
+# lanes: the kernel's long-row branch), the bench's rows at k_sel =
+# MAX_SEL (the largest sort) and rows of P 511 x cap 77 lanes, whose
+# starts are not 16-byte aligned.  Kinds
 # (`synth_select_case`): "copies" (each id in two slots, one score),
 # "unique", "ties", "masked".
 SELECT_CASES = (
@@ -382,6 +392,9 @@ SELECT_CASES = (
     ("engine", 1024, 4096, 256, 80, 2048, 1024, True, "copies"),
     ("ties", 256, 4096, NUM_PROBE, 96, 1024, 512, True, "ties"),
     ("masked", 256, 4096, NUM_PROBE, 96, 1024, 512, True, "masked"),
+    ("long_row", 256, 4096, 256, 768, 2048, 1024, True, "copies"),
+    ("k_max", 4096, 4096, NUM_PROBE, 96, 4096, 2048, True, "copies"),
+    ("odd", 1024, 4096, 511, 77, 1024, 512, True, "copies"),
 )
 
 # Kernel B3 cases: (name, B, L, cold probes, hot probes, cap, D, storage,
@@ -1432,13 +1445,23 @@ def phase_select_kernel(dev, cases=SELECT_CASES, kernel_reps=10,
                  f"{library_ms:.4f} ms, {100 * fields['bound_ms'] / ms:.2f}%"
                  f" of its {fields['bound_ms']:.4f} ms bound")
         n_out = int((want_i >= 0).sum())
+        branch, smem = select_cuda.plan(n, k_eff)
+        if dev.type == "cuda":
+            built = select_cuda.occupancy(n, k_sel)
+            if built[:2] != (branch, smem):
+                raise AssertionError(f"B5 {name}: the kernel plans {built[:2]}"
+                                     f", the wrapper {(branch, smem)}")
+            blocks = built[2]
+        else:
+            blocks = "not measured"
         log(f"kernel B5 {name}: B={b} L={l} P={p} cap={cap} ({n} lanes) "
             f"k_sel={k_sel} k={k} redundant={redundant} kind={kind}: "
             f"identical ({float(torch.isfinite(flat).float().mean()):.3f} "
             f"finite lanes, {n_out} ids out of {b * k}); kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, torch.topk "
-            f"{library_ms:.4f} ms; {select_cuda.smem_bytes(k_eff)} bytes of "
-            "shared memory a block")
+            f"{ms:.4f} ms, {100 * fields['bound_ms'] / ms:.2f}% of its "
+            f"{fields['bound_ms']:.4f} ms bound, plain {plain_ms:.3f} ms, "
+            f"torch.topk {library_ms:.4f} ms; branch {branch}, {smem} bytes "
+            f"of dynamic shared memory a block, {blocks} blocks an SM")
         del flat, probe_ids, padded_ids, args, got_s, got_i, want_s, want_i
     note(f"{len(cases)} cases bit-identical (scores as bits, ids)")
     return record

@@ -10,14 +10,22 @@ Inputs are made with NumPy from a seed and fed to both packages.
   copies of an id inside the selection and across its edge, no dedup,
   k_sel above the lane count, and more than 65,536 lanes (where JAX takes
   `lax.top_k` on int16 keys).
-* (b) A NumPy emulation of the kernel's own algorithm (two 8-bit radix
-  histograms with the threshold search from the top bin, ties taken in
-  lane order through each warp's count and offset, the compaction in an
-  arbitrary order, the bitonic sorting network, the decode, the dedup by
-  a second bitonic sort of (id, rank) words and a prefix count of the
-  kept ranks) equals the plain version on those cases and on random rows;
-  the same emulation with the tie rule mutated (the last lanes at the
-  threshold instead of the first) does not.
+* (b) A NumPy emulation of the kernel's own algorithm (pass 1 keys each
+  lane once into the on-chip key array at lane + the row's misalignment,
+  its other positions holding junk, with the high-byte histogram; passes
+  2 and 3 over that array, or over the row keyed again for the long-row
+  branch: the low-byte histogram with the threshold searches from the top
+  bin, then the compaction in lane order, chunk by chunk, each thread's
+  first tie rank and slot from the sums of the counts at and above the
+  threshold over the threads before it; the sort network of 32-bit
+  words with its register and shared-memory strides; the decode; the
+  dedup through the hash table, inserts in a shuffled order, and the
+  prefix count of the kept ranks) equals the plain version on those
+  cases and on random rows, on both branches and under several insert
+  orders; the same emulation with the tie rule mutated (the last lanes at
+  the threshold instead of the first) or the dedup's (each id's last
+  rank) does not.  The wrapper's `plan` gives every phase 3e shape its
+  branch and shared memory as the kernel's header states them.
 * (c) The full scan's card route (each query's probed lists through B2,
   then B5) run on CPU tensors through their plain versions, against the
   port's plain full scan and the JAX `_ivf_search_fullscan`: >= 99.9% of
@@ -28,6 +36,9 @@ Inputs are made with NumPy from a seed and fed to both packages.
   built, `search_device` keeps the plain full scan on the CPU, and the
   import rules of `test_torch_imports.py` cover the new modules.
 """
+
+import importlib.util
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -61,6 +72,7 @@ CASES = {
                                                "levels": 64}),
     "bench_like": (3, 512, 64, 96, 1024, 512, True, {"copies": True,
                                                      "levels": 256}),
+    "odd": (5, 40, 7, 13, 48, 24, True, {"copies": True, "levels": 16}),
 }
 
 
@@ -176,12 +188,14 @@ def test_cases_have_what_they_are_named_for():
     assert split
     assert _case("k_sel_above_n")[0].shape[1] < CASES["k_sel_above_n"][4]
     assert _case("wide")[0].shape[1] > 65536
+    assert _case("odd")[0].shape[1] % 4 != 0  # rows start unaligned
 
 
 # --------------------------------------------------------------------- #
 # (b) the kernel's algorithm, emulated in NumPy
 
-WARPS = select_cuda.THREADS // 32
+STEPS = 2  # the kernel's kSteps: steps of eight positions a thread a chunk
+EMPTY = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
 def _key16_np(x):
@@ -210,28 +224,80 @@ def _find_bin(hist, need):
     raise AssertionError("need above the histogram's total")
 
 
-def _bitonic(words, descending):
-    """The kernel's sorting network on a power-of-two array."""
+def _sort_desc(words):
+    """The kernel's `sort_desc<E>`: a descending bitonic network on 32-bit
+    words, E = 2, 4 or 8 words a thread and 32 * E a warp's tile.  Strides
+    below E are a thread's pairs and strides of a tile's span and above
+    pairs in shared memory (compare-exchange); the strides between are
+    shuffles, where each word keeps the max or the min of itself and its
+    partner lane's word."""
     w = words.copy()
-    m = len(w)
+    ms = len(w)
+    per = 2 if ms <= 1024 else ms // 512
+    span = 32 * per
+    assert ms >= span and ms & (ms - 1) == 0
+    pos = np.arange(ms)
     size = 2
-    while size <= m:
+    while size <= ms:
         stride = size >> 1
         while stride:
-            t = np.arange(m // 2)
-            lo = 2 * t - (t & (stride - 1))
-            hi = lo + stride
-            a, b = w[lo], w[hi]
-            down = ((lo & size) == 0) == descending
-            swap = np.where(down, a < b, a > b)
-            w[lo], w[hi] = np.where(swap, b, a), np.where(swap, a, b)
+            if per <= stride < span:
+                other = w[pos ^ stride]
+                keep_max = ((pos & stride) == 0) == ((pos & size) == 0)
+                w = np.where(keep_max, np.maximum(w, other),
+                             np.minimum(w, other))
+            else:
+                q = np.arange(ms // 2)
+                lo = 2 * q - (q & (stride - 1))
+                hi = lo + stride
+                a, b = w[lo], w[hi]
+                swap = np.where((lo & size) == 0, a < b, a > b)
+                w[lo], w[hi] = np.where(swap, b, a), np.where(swap, a, b)
             stride >>= 1
         size <<= 1
     return w
 
 
-def _emulate_row(x, probe, padded_ids, k_sel, k, redundant, rng,
-                 tie_rule="first"):
+def _dedup_keep(ident, words, rng, rule="least"):
+    """The kernel's dedup table: 2 * words slots of an id and a rank, a
+    multiplicative hash and linear probing; the inserts in an order drawn
+    from `rng` (the threads' order is free), CAS claiming a slot for an
+    id and min keeping its least rank (the mutation "most": max).  A rank
+    is kept where its id's slot holds it."""
+    slots = 2 * words
+    shift = 32 - (slots.bit_length() - 1)
+    table = np.full(slots, EMPTY, np.uint64)
+    pick = np.minimum if rule == "least" else np.maximum
+
+    def home(i):
+        return ((int(i) * 0x9E3779B1) & 0xFFFFFFFF) >> shift
+
+    for r in rng.permutation(len(ident)):
+        i = int(ident[r])
+        if i < 0:
+            continue
+        word = np.uint64((i << 32) | int(r))
+        h = home(i)
+        while table[h] != EMPTY and int(table[h]) >> 32 != i:
+            h = (h + 1) & (slots - 1)
+        table[h] = word if table[h] == EMPTY else pick(table[h], word)
+    keep = np.zeros(len(ident), bool)
+    for r, i in enumerate(ident):
+        if i >= 0:
+            h = home(i)
+            while int(table[h]) >> 32 != int(i):
+                h = (h + 1) & (slots - 1)
+            keep[r] = int(table[h]) & 0xFFFFFFFF == r
+    return keep
+
+
+def _emulate_row(x, probe, padded_ids, k_sel, k, redundant, rng, off=0,
+                 branch="on_chip", tie_rule="first", dedup_rule="least"):
+    """One row through the kernel's steps: pass 1 keys each lane once
+    (into the on-chip key array at position lane + off, whose other
+    positions hold whatever shared memory held) and counts the high
+    bytes; passes 2 and 3 read the key array (on chip) or key the row
+    again (the long-row branch) in steps of eight positions."""
     n = len(x)
     l, cap = padded_ids.shape
     k_eff = min(k_sel, n)
@@ -239,39 +305,80 @@ def _emulate_row(x, probe, padded_ids, k_sel, k, redundant, rng,
     out_i = np.full(k, -1, np.int32)
     if k_eff == 0:
         return out_s, out_i
-    keys = _key16_np(x)
-    high, above = _find_bin(np.bincount(keys >> 8, minlength=256), k_eff)
+    lane_keys = _key16_np(x)
+    steps8 = (off + n + 7) // 8
+    width = 8 * steps8
+    valid = np.zeros(width, bool)
+    valid[off:off + n] = True
+    if branch == "on_chip":
+        on_chip = rng.integers(0, 1 << 16, (n + 3 + 7) // 8 * 8)
+        on_chip[off:off + n] = lane_keys
+        assert len(on_chip) >= width
+
+    def read():
+        if branch == "on_chip":
+            return on_chip[:width]
+        keys = np.zeros(width, np.int64)
+        keys[off:off + n] = _key16_np(x)
+        return keys
+
+    high, above = _find_bin(np.bincount(lane_keys >> 8, minlength=256),
+                            k_eff)
     need = k_eff - above
-    low, above2 = _find_bin(np.bincount(keys[(keys >> 8) == high] & 0xFF,
+    keys = read()
+    in_high = valid & ((keys >> 8) == high)
+    low, above2 = _find_bin(np.bincount(keys[in_high] & 0xFF,
                                         minlength=256), need)
     thresh = (high << 8) | low
     ties = need - above2
-    run = -(-n // select_cuda.THREADS) * 32
-    bounds = [(min(n, w * run), min(n, min(n, w * run) + run))
-              for w in range(WARPS)]
-    counts = np.array([(keys[a:e] == thresh).sum() for a, e in bounds])
-    offsets = np.cumsum(counts) - counts
-    n_ties = counts.sum()
-    taken = []
-    for (a, e), off in zip(bounds, offsets):
-        tie = keys[a:e] == thresh
-        rank = off + np.cumsum(tie) - tie
+    # Pass 3 in chunks of 512 threads, thread t the chunk's STEPS steps
+    # from t * STEPS: the ties taken by rank, each taken lane to its rank
+    # in lane order; each thread's tie count and first slot equal the
+    # kernel's, which come from the sums of the counts at and above the
+    # threshold over the threads before it (its packed scan).
+    keys = read()
+    threads = select_cuda.THREADS
+    per = 8 * STEPS
+    chunks = -(-steps8 // (threads * STEPS))
+    pad = per * chunks * threads - width
+    keys8 = np.pad(keys, (0, pad)).reshape(chunks, threads, per)
+    valid8 = np.pad(valid, (0, pad)).reshape(chunks, threads, per)
+    at_t = valid8 & (keys8 == thresh)
+    above_t = valid8 & (keys8 > thresh)
+    words_n = max(select_cuda.sort_width(k_eff), select_cuda.MIN_WORDS)
+    words = np.zeros(words_n, np.uint32)
+    lanes = rng.integers(0, n, words_n)
+    n_ties = int(at_t.sum())
+    tie_base = slot_base = 0
+    for ch in range(chunks):
+        eq, gt = at_t[ch].sum(1), above_t[ch].sum(1)
+        eq_before = np.cumsum(eq) - eq
+        rank = tie_base + np.cumsum(at_t[ch]).reshape(-1, per) - at_t[ch]
         if tie_rule == "first":
-            take_tie = tie & (rank < ties)
+            take_tie = at_t[ch] & (rank < ties)
         else:  # the mutation: the last lanes at the threshold
-            take_tie = tie & (rank >= n_ties - ties)
-        lanes = np.arange(a, e)[(keys[a:e] > thresh) | take_tie]
-        taken.append(lanes)
-    lanes = np.concatenate(taken)
-    assert len(lanes) == k_eff
-    lanes = rng.permutation(lanes)  # the atomics' order does not matter
-    m = select_cuda.sort_width(k_eff)
-    words = np.zeros(m, np.uint64)
-    words[:k_eff] = (keys[lanes].astype(np.uint64) << np.uint64(32)) | (
-        np.uint64(n - 1) - lanes.astype(np.uint64))
-    words = _bitonic(words, True)[:k_eff]
-    lane = (n - 1) - (words & np.uint64(0xFFFFFFFF)).astype(np.int64)
-    score = _key16_to_f32_np((words >> np.uint64(32)).astype(np.int64))
+            take_tie = at_t[ch] & (rank >= n_ties - ties)
+        take = above_t[ch] | take_tie
+        flat_take = take.reshape(-1)
+        slot = (slot_base + np.cumsum(flat_take) - flat_take).reshape(-1, per)
+        if tie_rule == "first":
+            # The kernel's first tie rank and first slot of each thread.
+            can = np.clip(ties - (tie_base + eq_before), 0, eq)
+            np.testing.assert_array_equal(take_tie.sum(1), can)
+            first = slot_base + (np.cumsum(gt) - gt) + np.clip(
+                ties - tie_base, 0, eq_before)
+            np.testing.assert_array_equal(
+                np.cumsum(take.sum(1)) - take.sum(1) + slot_base, first)
+        at = slot[take]
+        words[at] = (keys8[ch][take] << 16) | (0xFFFF - at)
+        lanes[at] = (per * (ch * threads + np.nonzero(take)[0])
+                     + np.nonzero(take)[1] - off)
+        slot_base += int(take.sum())
+        tie_base += int(eq.sum())
+    assert slot_base == k_eff
+    words = _sort_desc(words)[:k_eff]
+    lane = lanes[0xFFFF - (words & 0xFFFF)].astype(np.int64)
+    score = _key16_to_f32_np((words >> 16).astype(np.int64))
     rank = lane // cap
     lists = probe[rank]
     ok = (score > -np.inf) & (lists >= 0) & (lists < l)
@@ -280,38 +387,34 @@ def _emulate_row(x, probe, padded_ids, k_sel, k, redundant, rng,
     if not (redundant or k_eff > k):
         out_s[:k_eff], out_i[:k_eff] = score, ident
         return out_s, out_i
-    pairs = np.full(m, np.iinfo(np.uint64).max, np.uint64)
-    pairs[:k_eff] = ((ident.view(np.uint32) ^ np.uint32(0x80000000))
-                     .astype(np.uint64) << np.uint64(32)) | np.arange(
-                         k_eff, dtype=np.uint64)
-    pairs = _bitonic(pairs, False)[:k_eff]
-    id_key = pairs >> np.uint64(32)
-    first = np.concatenate([[True], id_key[1:] != id_key[:-1]]) & (
-        id_key >= np.uint64(0x80000000))
-    keep = np.zeros(k_eff, bool)
-    keep[(pairs & np.uint64(0xFFFFFFFF)).astype(np.int64)] = first
-    kept = np.nonzero(keep)[0][:k]  # the prefix count, in rank order
+    kept = np.nonzero(_dedup_keep(ident, words_n, rng, dedup_rule))[0][:k]
     out_s[:len(kept)], out_i[:len(kept)] = score[kept], ident[kept]
     return out_s, out_i
 
 
-def _emulate(flat, probe_ids, padded_ids, k_sel, k, redundant,
-             tie_rule="first"):
-    rng = np.random.default_rng(5)
+def _emulate(flat, probe_ids, padded_ids, k_sel, k, redundant, seed=5,
+             **rules):
+    """Every row; row r starts at lane r * n of a 16-byte aligned block,
+    so its misalignment is r * n mod 4 lanes."""
+    rng = np.random.default_rng(seed)
+    n = flat.shape[1]
     rows = [_emulate_row(flat[r], probe_ids[r], padded_ids, k_sel, k,
-                         redundant, rng, tie_rule) for r in range(len(flat))]
+                         redundant, rng, off=r * n % 4, **rules)
+            for r in range(len(flat))]
     return (np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]))
 
 
+@pytest.mark.parametrize("branch", ["on_chip", "long_row"])
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_kernel_emulation_equals_plain(name):
+def test_kernel_emulation_equals_plain(name, branch):
     args = _case(name)
-    _assert_same(_emulate(*args), _plain(*args))
+    _assert_same(_emulate(*args, branch=branch), _plain(*args))
 
 
 @pytest.mark.parametrize("seed", range(8))
 def test_kernel_emulation_equals_plain_random(seed):
-    """Random shapes, tie densities, masks and dedup settings."""
+    """Random shapes (rows starting at every misalignment), tie
+    densities, masks and dedup settings, on both branches."""
     rng = np.random.default_rng(seed)
     b, l = int(rng.integers(1, 4)), int(rng.integers(4, 40))
     p, cap = int(rng.integers(1, l + 1)), int(rng.integers(1, 40))
@@ -326,7 +429,19 @@ def test_kernel_emulation_equals_plain_random(seed):
     flat = (rng.integers(0, levels, (b, n)) / levels - 0.5).astype(F32)
     flat = np.where(rng.random((b, n)) < rng.random(), F32(-np.inf), flat)
     args = (flat, probe, ids, k_sel, k, redundant)
-    _assert_same(_emulate(*args), _plain(*args))
+    want = _plain(*args)
+    for branch in ("on_chip", "long_row"):
+        _assert_same(_emulate(*args, seed=seed, branch=branch), want)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_dedup_table_order_free(seed):
+    """The dedup table's result does not depend on the order the inserts
+    run in: several orders, one answer, the plain version's."""
+    args = _case("copies", seed=seed)
+    want = _plain(*args)
+    for order in range(3):
+        _assert_same(_emulate(*args, seed=100 * seed + order), want)
 
 
 def test_tie_rule_mutation_fails():
@@ -338,13 +453,72 @@ def test_tie_rule_mutation_fails():
         _assert_same(_emulate(*args, tie_rule="last"), _plain(*args))
 
 
+def test_dedup_rule_mutation_fails():
+    """Keeping each id's last rank (atomicMax) instead of its first
+    changes the result: the table's min is load-bearing."""
+    args = _case("copies")
+    with pytest.raises(AssertionError):
+        _assert_same(_emulate(*args, dedup_rule="most"), _plain(*args))
+
+
+def _select_cases():
+    """chip_smoke.py's SELECT_CASES (phase 3e's shapes) by name."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return {case[0]: case for case in module.SELECT_CASES}
+
+
 @pytest.mark.parametrize("k_eff,width", [(1, 1), (2, 2), (3, 4),
                                          (1024, 1024), (1025, 2048),
                                          (4096, 4096)])
-def test_sort_width_and_smem(k_eff, width):
+def test_sort_width_and_plan(k_eff, width):
+    """The sort's width, and the shared memory of a bench row (49,152
+    lanes) with k_eff selected: 98,320 bytes of keys beside 8 bytes a
+    word of at least 128 words, the dedup table inside the key area."""
     assert select_cuda.sort_width(k_eff) == width
-    assert select_cuda.smem_bytes(k_eff) == 20 * width
-    assert select_cuda.smem_bytes(select_cuda.MAX_SEL) <= 232_448
+    branch, smem = select_cuda.plan(49152, k_eff)
+    assert branch == "on_chip"
+    assert smem == 98_320 + 8 * max(width, select_cuda.MIN_WORDS)
+    assert smem + select_cuda.STATIC_RESERVE <= 232_448
+
+
+# The plan of each phase 3e case, as the kernel's header states it.
+PLANS = {
+    "bench_k512": ("on_chip", 106_512), "bench_k1024": ("on_chip", 114_704),
+    "tile_2m": ("on_chip", 114_704), "tile_2m_x1": ("on_chip", 106_512),
+    "stream_8m": ("on_chip", 204_816), "engine": ("on_chip", 57_360),
+    "ties": ("on_chip", 106_512), "masked": ("on_chip", 106_512),
+    "long_row": ("long_row", 49_152), "k_max": ("on_chip", 131_088),
+    "odd": ("on_chip", 86_896),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLANS))
+def test_plan_of_each_select_case(name):
+    """Every phase 3e shape but long_row keeps its keys on chip within
+    the 232,448 bytes a block may use; long_row (196,608 lanes at m
+    2,048) takes the long-row branch; the bench's rows leave room for two
+    blocks an SM (233,472 bytes, 1 KB reserved a block)."""
+    _, _, _, p, cap, k_sel, _, _, _ = _select_cases()[name]
+    n = p * cap
+    plan = select_cuda.plan(n, min(k_sel, n))
+    assert plan == PLANS[name]
+    assert plan[1] + select_cuda.STATIC_RESERVE <= 232_448
+    if name in ("bench_k512", "bench_k1024", "odd"):
+        assert 2 * (plan[1] + select_cuda.STATIC_RESERVE + 1024) <= 233_472
+
+
+def test_plan_long_rows():
+    """Rows too long for shared memory take the long-row branch: 2^22
+    lanes, 196,608 at m 2,048; the last on-chip length at m 1,024."""
+    assert select_cuda.plan(select_cuda.MAX_LANES, 4096) == (
+        "long_row", 16 * 4096 + 8 * 4096)
+    assert select_cuda.plan(196_608, 2048)[0] == "long_row"
+    # 2 * round_up(n + 3, 8) + 8,192 + 256 <= 232,448 up to n = 111,997.
+    assert select_cuda.plan(111_997, 1024) == ("on_chip", 232_192)
+    assert select_cuda.plan(111_998, 1024)[0] == "long_row"
 
 
 # --------------------------------------------------------------------- #
@@ -554,13 +728,30 @@ def test_search_device_keeps_the_plain_full_scan_on_cpu(monkeypatch):
     assert not pivf._fullscan_scans_probed_lists(cpu, torch.int8)
 
 
+def test_breakdown_cuts_apply_to_the_source():
+    """`tools/select_breakdown.py` finds each of its cut points once in the
+    kernel's source, in stage order."""
+    from ann_solo_tpu_torch.tools import select_breakdown as sb
+
+    source = (sb._build.CSRC_DIR / "canonical_select.cu").read_text()
+    at = []
+    for name, _, code in sb.CUTS:
+        cut = sb.cut_source(source, name)
+        assert len(cut) == len(source) + len(code)
+        at.append(cut.index(code))
+    assert at == sorted(at)
+    with pytest.raises(ValueError, match="marker"):
+        sb.cut_source(source.replace("// Pass 3:", "// pass 3:"), "pass2")
+
+
 def test_import_rules_cover_the_new_modules():
     import os
 
     import test_torch_imports
 
     for path in ("ann_solo_tpu_torch/ops/select_cuda.py",
-                 "ann_solo_tpu_torch/ops/canonical_select.py"):
+                 "ann_solo_tpu_torch/ops/canonical_select.py",
+                 "ann_solo_tpu_torch/tools/select_breakdown.py"):
         assert path in test_torch_imports._SOURCES
         assert not [m for m in test_torch_imports._imported_modules(path)
                     if m.split(".")[0] in
