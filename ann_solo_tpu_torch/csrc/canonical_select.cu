@@ -2,9 +2,10 @@
 //
 // Replaces no Pallas kernel.  It is the selection that follows the
 // probe-gather scan, XLA code of the reference: the canonical top-k of
-// ann_solo_tpu/index/ivf.py::_canonical_topk (:779, packed 16-bit key
-// sort) and the id gather and unique-id top-k of _ivf_probe_scan_tile
-// (:1211, :1282-1291), which the port ran as a chain of torch passes
+// ann_solo_tpu/index/ivf.py::_canonical_topk (:673, packed 16-bit key
+// sort; _canonical_topk_u16 at :719) and the id gather and unique-id
+// top-k of _ivf_probe_scan_tile (:1211, :1282-1291), which the port ran
+// as a chain of torch passes
 // (ops/canonical_select.py::canonical_select_plain, the plain version
 // this kernel equals bit for bit).  For each row b of the (B, n) float32
 // score block (n = P * cap lanes in (probe rank, slot) order, -inf where
@@ -96,10 +97,37 @@
 // that long; the branch is held against the plain version on the card
 // all the same.
 //
+// More than kMaxSel (4,096) lanes selected (the open level's k_sel =
+// redundancy x num_candidates, e.g. 8,192 at 4,096 candidates x2) take
+// the wide branch, a second kernel over the same passes 1-3 (the same
+// code, keys on chip while they fit beside the sort's tile, else read
+// from device memory): the sort words, the sort and the dedup table
+// live in a workspace in device memory that the wrapper allocates, 24
+// bytes a sort word for each block of a persistent grid that walks the
+// rows:
+//   * words: 64-bit key << 32 | (0xffffffff - lane), so the lane needs
+//     no side array and lanes up to 2^22 fit; distinct, and the pad
+//     words 0 sort last;
+//   * the sort: the same descending bitonic network over m words (the
+//     least power of two >= k_eff); the strides below kTileWords (8,192
+//     words, 64 KB) run tile by tile in shared memory (one load and one
+//     store of a tile for all of a size's small strides), the larger
+//     ones as block-wide passes over the workspace (L2-resident: 64 KB
+//     a block at m 8,192);
+//   * the dedup: the same CAS claim and atomicMin on the rank, against a
+//     table of 2 * m slots in the workspace; ranks are decoded and
+//     placed kThreads at a time (a block scan of the kept ranks).
+// Shared memory of the wide branch: max(keys, 65,536) bytes (the keys
+// until pass 3 ends, then the sort's tile) + 1 KB for the histogram;
+// without the keys (rows too long): 65,536 + 1,024.  At the bench's
+// 49,152 lanes: 98,320 + 1,024 = 99,344 B, 2 blocks an SM.  Its speed
+// is recorded, not tuned: the sizes above 4,096 are off the bench's
+// path.
+//
 // No float atomics and no float arithmetic but the key's decode, so the
 // result does not depend on the order threads run in.  Limits (the
 // wrapper raises first): 1 <= n <= 2^22 lanes (the probe path's
-// MAX_PROBE_LANES), 1 <= k_eff <= 4,096, n = P * cap.
+// MAX_PROBE_LANES), 1 <= k_eff <= n, n = P * cap.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -110,7 +138,9 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBins = 256;
-constexpr int kMaxSel = 4096;
+constexpr int kMaxSel = 4096;          // the on-chip sort's largest k_eff
+constexpr int kTileWords = 8192;       // the wide sort's tile in shared memory
+constexpr int kHistBytes = kBins * 4;  // the wide branch's histogram area
 constexpr int kMaxLanes = 1 << 22;
 constexpr int kMinWords = 128;         // the word area holds the histogram
 constexpr int kSmemLimit = 232448;     // shared memory a block may use
@@ -126,8 +156,10 @@ struct Params {
   const int* ids;           // (l, cap) library ids, -1 empty
   float* out_s;             // (b, k)
   int* out_i;               // (b, k)
+  unsigned long long* work;  // wide: 3 * words 64-bit words a block
   int n, p, l, cap, k_eff, k, words, dedup, on_chip;
   int area;                 // bytes of the key / table area
+  int b;                    // rows (the wide grid walks them)
 };
 
 // The branch and the dynamic shared memory of a row of n lanes with
@@ -136,12 +168,22 @@ struct Plan {
   int on_chip, words, area, smem;
 };
 
+// The wide branch (k_eff > kMaxSel): the key area holds the keys (on chip)
+// or nothing, then the sort's tile; the histogram lies after it.
 inline Plan make_plan(long long n, int k_eff) {
   int m = 1;
   while (m < k_eff) m <<= 1;
   Plan pl;
   pl.words = m < kMinWords ? kMinWords : m;
   const long long keys = 2 * ((n + 3 + 7) / 8 * 8);
+  if (k_eff > kMaxSel) {
+    const long long tile = 8LL * kTileWords;
+    const long long area = keys > tile ? keys : tile;
+    pl.on_chip = area + kHistBytes + kStaticReserve <= kSmemLimit;
+    pl.area = (int)(pl.on_chip ? area : tile);
+    pl.smem = pl.area + kHistBytes;
+    return pl;
+  }
   const long long table = 16LL * pl.words;
   const long long words = 8LL * pl.words;
   const long long on_chip = (keys > table ? keys : table) + words;
@@ -375,9 +417,153 @@ __device__ __forceinline__ int table_rank(const unsigned* ids,
   return ranks[h];
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-    canonical_select_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// Bitonic sort, descending, of w[0 .. m) in device memory (m a power of
+// two >= 2); every thread of the block calls it.  The strides below S =
+// min(m, kTileWords) run on tiles of S words in shared memory (`tile`),
+// all of a size's small strides between one load and one store of each
+// tile; the larger strides are block-wide passes over w.  The direction
+// of a pair is set by its position in w, as in sort_desc.
+__device__ void sort_desc_wide(unsigned long long* w, int m,
+                               unsigned long long* tile) {
+  const int S = m < kTileWords ? m : kTileWords;
+  const int tid = threadIdx.x;
+  // On each tile, for the sizes lo .. hi: the strides below S, from the
+  // larger down to 1.
+  auto tiles = [&](int lo, int hi) {
+    for (int t = 0; t < m; t += S) {
+      for (int i = tid; i < S; i += kThreads) tile[i] = w[t + i];
+      __syncthreads();
+      for (int size = lo; size <= hi; size <<= 1) {
+        for (int stride = min(size, S) >> 1; stride > 0; stride >>= 1) {
+          for (int q = tid; q < (S >> 1); q += kThreads) {
+            const int a_at = 2 * q - (q & (stride - 1));
+            const int b_at = a_at + stride;
+            const unsigned long long a = tile[a_at], b = tile[b_at];
+            const bool desc = ((t + a_at) & size) == 0;
+            if (desc ? a < b : a > b) {
+              tile[a_at] = b;
+              tile[b_at] = a;
+            }
+          }
+          __syncthreads();
+        }
+      }
+      for (int i = tid; i < S; i += kThreads) w[t + i] = tile[i];
+      __syncthreads();
+    }
+  };
+  tiles(2, S);
+  for (int size = 2 * S; size <= m; size <<= 1) {
+    for (int stride = size >> 1; stride >= S; stride >>= 1) {
+      for (int q = tid; q < (m >> 1); q += kThreads) {
+        const int lo = 2 * q - (q & (stride - 1));
+        const int hi = lo + stride;
+        const unsigned long long a = w[lo], b = w[hi];
+        const bool desc = (lo & size) == 0;
+        if (desc ? a < b : a > b) {
+          w[lo] = b;
+          w[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+    tiles(size, size);
+  }
+}
+
+// The wide branch after pass 3: the k_eff words of row `row` in the
+// block's workspace `ws` (m = p.words of them; then the dedup table's 2 *
+// m ids and 2 * m ranks) are padded with 0, sorted, decoded and, with
+// dedup, kept at each id's least rank; the first k are written.
+__device__ void wide_tail(const Params& p, long long row,
+                          unsigned long long* ws, unsigned long long* tile,
+                          int* warp_sums) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m = p.words, k_eff = p.k_eff;
+  float* out_s = p.out_s + row * (long long)p.k;
+  int* out_i = p.out_i + row * (long long)p.k;
+  for (int i = k_eff + tid; i < m; i += kThreads) ws[i] = 0ull;
+  __syncthreads();
+  sort_desc_wide(ws, m, tile);
+
+  // Rank r's score and id (-1 where the score is -inf or the probe id
+  // lies outside [0, L)).
+  auto decode = [&](int r, float* score) -> int {
+    const unsigned long long w = ws[r];
+    const int lane_r = (int)(0xffffffffu - (unsigned)w);
+    *score = key16_to_f32((unsigned)(w >> 32));
+    if (!(*score > -CUDART_INF_F)) return -1;
+    const int rank = lane_r / p.cap;
+    const long long list = p.probe[row * p.p + rank];
+    if (list < 0 || list >= p.l) return -1;
+    return p.ids[list * p.cap + (lane_r - rank * p.cap)];
+  };
+
+  const bool dedup = p.dedup;
+  if (!dedup) {  // k_eff <= k here
+    for (int r = tid; r < k_eff; r += kThreads) {
+      float s;
+      const int id = decode(r, &s);
+      out_s[r] = s;
+      out_i[r] = id;
+    }
+    for (int i = k_eff + tid; i < p.k; i += kThreads) {
+      out_s[i] = -CUDART_INF_F;
+      out_i[i] = -1;
+    }
+    return;
+  }
+
+  unsigned* t_ids = reinterpret_cast<unsigned*>(ws + m);
+  int* t_ranks = reinterpret_cast<int*>(t_ids + 2 * m);
+  const int slots = 2 * m;
+  const unsigned mask = (unsigned)slots - 1u;
+  const int shift = 32 - (__ffs(slots) - 1);
+  for (int i = tid; i < slots; i += kThreads) {
+    t_ids[i] = kFree;
+    t_ranks[i] = k_eff;
+  }
+  __syncthreads();
+  for (int r = tid; r < k_eff; r += kThreads) {
+    float s;
+    const int id = decode(r, &s);
+    if (id >= 0) table_insert(t_ids, t_ranks, mask, shift, id, r);
+  }
+  __syncthreads();
+  // The kept ranks in rank order, kThreads ranks a step (one each).
+  int base = 0;
+  for (int r0 = 0; r0 < k_eff && base < p.k; r0 += kThreads) {
+    const int r = r0 + tid;
+    float s = 0.0f;
+    int id = -1;
+    if (r < k_eff) id = decode(r, &s);
+    const int kept =
+        id >= 0 && table_rank(t_ids, t_ranks, mask, shift, id) == r;
+    const int incl = warp_inclusive(kept);
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();
+    const int w_kept = lane < kWarps ? warp_sums[lane] : 0;
+    const int pos =
+        base + __reduce_add_sync(kFull, lane < warp ? w_kept : 0) + incl - kept;
+    const int total = __reduce_add_sync(kFull, w_kept);
+    __syncthreads();  // warp_sums is read before the next step writes it
+    if (kept && pos < p.k) {
+      out_s[pos] = s;
+      out_i[pos] = id;
+    }
+    base += total;
+  }
+  for (int i = min(base, p.k) + tid; i < p.k; i += kThreads) {
+    out_s[i] = -CUDART_INF_F;
+    out_i[i] = -1;
+  }
+}
+
+// One row: passes 1-3, then (Wide) wide_tail, else the sort, decode and
+// dedup on chip.
+template <bool Wide>
+__device__ __forceinline__ void select_row(const Params& p, long long row,
+                                           unsigned char* smem) {
   unsigned short* keys = reinterpret_cast<unsigned short*>(smem);
   unsigned* table_ids = reinterpret_cast<unsigned*>(smem);  // after pass 3
   int* table_ranks = reinterpret_cast<int*>(table_ids + 2 * p.words);
@@ -388,8 +574,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   __shared__ int sel[4];  // bin, above, bin, above
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long row = blockIdx.x;
   const int n = p.n, k_eff = p.k_eff;
+  // Wide: this block's workspace.
+  unsigned long long* ws =
+      Wide ? p.work + (long long)blockIdx.x * 3 * p.words : nullptr;
   const float* x = p.flat + row * (long long)n;
   float* out_s = p.out_s + row * (long long)p.k;
   int* out_i = p.out_i + row * (long long)p.k;
@@ -558,8 +746,13 @@ __global__ void __launch_bounds__(kThreads, 2)
         if (j < warp_taken) {
           const int pos = 8 * (ch * kThreads + warp * 32 + owner) * kSteps + c;
           if (p.on_chip) key = keys[pos];
-          words[slot] = (key << 16) | (0xffffu - (unsigned)slot);
-          lanes[slot] = pos - off;
+          if (Wide) {
+            ws[slot] = ((unsigned long long)key << 32) |
+                       (0xffffffffu - (unsigned)(pos - off));
+          } else {
+            words[slot] = (key << 16) | (0xffffu - (unsigned)slot);
+            lanes[slot] = pos - off;
+          }
         }
       }
       const int eq_total = (int)(total & 0xffffu);
@@ -569,6 +762,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   // The key area is free from here: the dedup table's slots start empty.
   __syncthreads();
+  if (Wide) {
+    wide_tail(p, row, ws, reinterpret_cast<unsigned long long*>(smem),
+              warp_sums);
+    return;
+  }
   if (p.dedup) {
     for (int i = tid; i < 2 * p.words; i += kThreads) {
       table_ids[i] = kFree;
@@ -674,17 +872,67 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// The kernel's static shared memory fits kStaticReserve (checked once).
+// One block a row, k_eff <= kMaxSel.
+__global__ void __launch_bounds__(kThreads, 2)
+    canonical_select_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  select_row<false>(p, blockIdx.x, smem);
+}
+
+// The wide branch: a persistent grid, block g on rows g, g + gridDim.x,
+// ... with workspace g.
+__global__ void __launch_bounds__(kThreads, 2)
+    canonical_select_wide_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  for (long long row = blockIdx.x; row < p.b; row += gridDim.x) {
+    select_row<true>(p, row, smem);
+    __syncthreads();  // the row's last reads of shared memory are done
+  }
+}
+
+// The kernels' static shared memory fits kStaticReserve (checked once).
 cudaError_t check_static() {
   static cudaError_t checked = cudaErrorNotReady;
   if (checked == cudaErrorNotReady) {
-    cudaFuncAttributes attr;
-    checked = cudaFuncGetAttributes(&attr, canonical_select_kernel);
-    if (checked == cudaSuccess && attr.sharedSizeBytes > kStaticReserve) {
-      checked = cudaErrorInvalidConfiguration;
+    checked = cudaSuccess;
+    for (const void* kernel : {(const void*)canonical_select_kernel,
+                               (const void*)canonical_select_wide_kernel}) {
+      cudaFuncAttributes attr;
+      const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+      if (err != cudaSuccess) {
+        checked = err;
+      } else if (attr.sharedSizeBytes > kStaticReserve) {
+        checked = cudaErrorInvalidConfiguration;
+      }
     }
   }
   return checked;
+}
+
+// The parameters of a launch (k_eff clipped to n, the plan's fields).
+Params make_params(const float* flat, const long long* probe, const int* ids,
+                   float* out_s, int* out_i, unsigned long long* work, int b,
+                   int n_probe, int n_list, int cap, int k_eff, int k,
+                   int dedup, const Plan& pl) {
+  Params p;
+  p.flat = flat;
+  p.probe = probe;
+  p.ids = ids;
+  p.out_s = out_s;
+  p.out_i = out_i;
+  p.work = work;
+  p.n = n_probe * cap;
+  p.p = n_probe;
+  p.l = n_list;
+  p.cap = cap;
+  p.k_eff = k_eff;
+  p.k = k;
+  p.words = pl.words;
+  p.dedup = dedup ? 1 : 0;
+  p.on_chip = pl.on_chip;
+  p.area = pl.area;
+  p.b = b;
+  return p;
 }
 
 }  // namespace
@@ -696,6 +944,7 @@ extern "C" {
 // probe int64 (b, n_probe); ids int32 (n_list, cap); out_s float32 and
 // out_i int32 (b, k).  k_sel is clipped to n; dedup as the caller decides
 // (redundant storage, or k_eff > k; without it k_eff must be <= k).
+// k_eff above kMaxSel takes canonical_select_wide.
 int canonical_select(const float* flat, const long long* probe,
                      const int* ids, float* out_s, int* out_i, int b,
                      int n_probe, int n_list, int cap, int k_sel, int k,
@@ -713,22 +962,8 @@ int canonical_select(const float* flat, const long long* probe,
   cudaError_t err = check_static();
   if (err != cudaSuccess) return (int)err;
   const Plan pl = make_plan(n, k_eff);
-  Params p;
-  p.flat = flat;
-  p.probe = probe;
-  p.ids = ids;
-  p.out_s = out_s;
-  p.out_i = out_i;
-  p.n = (int)n;
-  p.p = n_probe;
-  p.l = n_list;
-  p.cap = cap;
-  p.k_eff = k_eff;
-  p.k = k;
-  p.words = pl.words;
-  p.dedup = dedup ? 1 : 0;
-  p.on_chip = pl.on_chip;
-  p.area = pl.area;
+  const Params p = make_params(flat, probe, ids, out_s, out_i, nullptr, b,
+                               n_probe, n_list, cap, k_eff, k, dedup, pl);
   err = cudaFuncSetAttribute(canonical_select_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              pl.smem);
@@ -737,25 +972,65 @@ int canonical_select(const float* flat, const long long* probe,
   return (int)cudaGetLastError();
 }
 
-// The launch plan of a row of n lanes with k_sel selected: the branch
-// (1 = keys on chip, 0 = the long-row branch), the dynamic shared memory
-// and the blocks an SM the card runs (cudaOccupancy...).  0 = ok.
-int canonical_select_plan(long long n, int k_sel, int* on_chip, int* smem,
-                          int* blocks_per_sm) {
-  if (n < 1 || n > kMaxLanes || k_sel < 1) return (int)cudaErrorInvalidValue;
+// The wide branch (kMaxSel < k_eff): as canonical_select, with `work` a
+// device array of grid * 3 * m int64 (m the least power of two >= k_eff)
+// and `grid` (1 to b) the blocks that walk the rows.
+int canonical_select_wide(const float* flat, const long long* probe,
+                          const int* ids, float* out_s, int* out_i,
+                          long long* work, int b, int n_probe, int n_list,
+                          int cap, int k_sel, int k, int dedup, int grid,
+                          void* stream) {
+  if (b < 0 || n_probe < 1 || n_list < 1 || cap < 1 || k_sel < 1 || k < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long n = (long long)n_probe * cap;
+  if (n > kMaxLanes) return (int)cudaErrorInvalidValue;
   const int k_eff = (int)(k_sel < n ? k_sel : n);
-  if (k_eff > kMaxSel) return (int)cudaErrorInvalidValue;
+  if (k_eff <= kMaxSel || (!dedup && k_eff > k)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (b == 0 || k == 0) return (int)cudaSuccess;
+  if (grid < 1 || grid > b || work == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = check_static();
   if (err != cudaSuccess) return (int)err;
   const Plan pl = make_plan(n, k_eff);
-  *on_chip = pl.on_chip;
+  const Params p = make_params(
+      flat, probe, ids, out_s, out_i,
+      reinterpret_cast<unsigned long long*>(work), b, n_probe, n_list, cap,
+      k_eff, k, dedup, pl);
+  err = cudaFuncSetAttribute(canonical_select_wide_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             pl.smem);
+  if (err != cudaSuccess) return (int)err;
+  canonical_select_wide_kernel<<<grid, kThreads, pl.smem,
+                                 (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The launch plan of a row of n lanes with k_sel selected: the branch (0
+// = the long-row branch, 1 = keys on chip, 2 = wide, 3 = wide without the
+// keys on chip), the dynamic shared memory and the blocks an SM the card
+// runs (cudaOccupancy...).  0 = ok.
+int canonical_select_plan(long long n, int k_sel, int* branch, int* smem,
+                          int* blocks_per_sm) {
+  if (n < 1 || n > kMaxLanes || k_sel < 1) return (int)cudaErrorInvalidValue;
+  const int k_eff = (int)(k_sel < n ? k_sel : n);
+  cudaError_t err = check_static();
+  if (err != cudaSuccess) return (int)err;
+  const Plan pl = make_plan(n, k_eff);
+  const bool wide = k_eff > kMaxSel;
+  *branch = wide ? (pl.on_chip ? 2 : 3) : pl.on_chip;
   *smem = pl.smem;
-  err = cudaFuncSetAttribute(canonical_select_kernel,
+  const void* kernel = wide ? (const void*)canonical_select_wide_kernel
+                            : (const void*)canonical_select_kernel;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              pl.smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, canonical_select_kernel, kThreads, pl.smem);
+      blocks_per_sm, kernel, kThreads, pl.smem);
 }
 
 const char* canonical_select_error_string(int code) {

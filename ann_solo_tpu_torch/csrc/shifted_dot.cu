@@ -40,6 +40,20 @@
 //   the same argmax over the entries recomputed at each step from the
 //   peaks, skipping taken rows and columns: slower, the same function.
 //
+// K above kMaxPeaks (128) takes the wide branch, a second kernel: the
+// columns no longer fit in a lane's registers, so the warp compacts the
+// positive entries tile by tile of 128 columns (four a lane in registers,
+// the same arithmetic), walking every row for each tile; the query peaks
+// are read from device memory (a warp-wide broadcast), the pair's match
+// and taken columns live in its row of `match` and of a workspace the
+// wrapper allocates (lane 0 updates them between two __syncwarp), and the
+// list holds up to kListWide entries of (value, i, j).  The list is in
+// tile order, not flat order, so its argmax compares (value desc, i asc,
+// j asc) explicitly: the same entry as the dense loop's first maximum.  A
+// pair with more positives recomputes the live entries at each step, row
+// by row.  Same picks, same order, `total += best` in selection order.
+// Its speed is recorded, not tuned: K = 50 keeps the bench's branch.
+//
 // Arithmetic matches the plain PyTorch version bit for bit: IEEE division
 // for prec_diff / s (build without fast-math; -fmad=false keeps every
 // product and sum separately rounded), the product order
@@ -56,6 +70,7 @@ constexpr int kMaxPeaks = 128;
 constexpr int kCols = kMaxPeaks / kWarp;  // candidate peaks a lane holds
 constexpr int kWarps = 8;                 // pairs a block
 constexpr int kList = 256;                // positive entries kept a pair
+constexpr int kListWide = 1024;           // the same, wide branch
 constexpr size_t kSmemDefault = 48 * 1024;
 
 // 32-bit words of shared memory one warp uses: q_mz, q_int, match and the
@@ -263,6 +278,199 @@ __global__ void __launch_bounds__(kWarps * kWarp) shifted_dot_greedy_kernel(
   if (lane == 0) total_out[pair] = total;
 }
 
+// The wide branch's entry order: (value desc, i asc, j asc); true when
+// (v, i, j) comes before (bv, bi, bj).
+__device__ __forceinline__ bool before(float v, int i, int j, float bv,
+                                       int bi, int bj) {
+  return v > bv || (v == bv && (i < bi || (i == bi && j < bj)));
+}
+
+// compact_positive over any K: for each tile of kMaxPeaks columns (in
+// registers, j = t0 + 32 c + lane), every row i; the entries in (tile,
+// row, ballot) order, the first kListWide of them stored.
+template <int NS>
+__device__ __forceinline__ int compact_wide(
+    const float* q_mz, const float* q_int, const float* c_mz,
+    const float* c_int, const int* c_ann, int k, int n_shift,
+    const float* s_off, float tol, int lane, float* s_val, int* s_i,
+    int* s_j) {
+  constexpr int kNS = NS > 0 ? NS : 1;
+  float off[kNS];
+#pragma unroll
+  for (int s = 0; s < kNS; ++s) off[s] = NS > 0 ? s_off[s + 1] : 0.0f;
+  int n = 0;
+  for (int t0 = 0; t0 < k; t0 += kMaxPeaks) {
+    float cmz[kCols], cint[kCols], mul[kCols][kNS];
+    int cann[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int j = t0 + c * kWarp + lane;
+      cmz[c] = j < k ? c_mz[j] : 0.0f;
+      cint[c] = j < k ? c_int[j] : 0.0f;
+      cann[c] = j < k ? c_ann[j] : -1;
+#pragma unroll
+      for (int s = 0; s < kNS; ++s) {
+        mul[c][s] = cann[c] == s + 1
+                        ? 1.0f
+                        : (cann[c] == 0 ? (float)(2.0 / 3.0) : 0.0f);
+      }
+    }
+    for (int i = 0; i < k; ++i) {
+      const float qm = q_mz[i];
+      const float qi = q_int[i];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        if (t0 + c * kWarp >= k) break;  // uniform across the warp
+        const int j = t0 + c * kWarp + lane;
+        float v = 0.0f;
+        if (j < k) {
+          if (NS < 0) {
+            v = entry(qm, qi, cmz[c], cint[c], cann[c], n_shift, s_off, tol);
+          } else {
+            const float diff = qm - cmz[c];
+            float mult = fabsf(diff) <= tol ? 1.0f : 0.0f;
+#pragma unroll
+            for (int s = 0; s < NS; ++s) {
+              if (fabsf(diff - off[s]) <= tol) mult = fmaxf(mult, mul[c][s]);
+            }
+            v = (mult * qi) * cint[c];
+          }
+        }
+        const unsigned pos = __ballot_sync(kFull, v > 0.0f);
+        if (v > 0.0f) {
+          const int at = n + __popc(pos & ((1u << lane) - 1u));
+          if (at < kListWide) {
+            s_val[at] = v;
+            s_i[at] = i;
+            s_j[at] = j;
+          }
+        }
+        n += __popc(pos);
+      }
+    }
+  }
+  return n;
+}
+
+// Shared memory words of one warp of the wide kernel: the shift offsets
+// and the list's values, rows and columns.
+__host__ __device__ inline size_t wide_warp_smem_words(int num_shifts) {
+  return offset_words(num_shifts) + 3 * (size_t)kListWide;
+}
+
+// The wide branch: one warp a pair; `taken` (n_pairs, k) is workspace.
+__global__ void __launch_bounds__(kWarps * kWarp)
+    shifted_dot_greedy_wide_kernel(
+        const float* __restrict__ q_mz, const float* __restrict__ q_int,
+        const float* __restrict__ c_mz, const float* __restrict__ c_int,
+        const int* __restrict__ c_ann, const float* __restrict__ q_prec,
+        const float* __restrict__ c_prec, const int* __restrict__ charge,
+        float* total_out, int* match_out, int* taken_out, int n_pairs, int k,
+        float tol, int num_shifts, int allow_shift) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int pair = blockIdx.x * kWarps + warp;
+  if (pair >= n_pairs) return;  // whole warp leaves together
+
+  float* s_off = smem + (size_t)warp * wide_warp_smem_words(num_shifts);
+  float* s_val = s_off + offset_words(num_shifts);
+  int* s_i = reinterpret_cast<int*>(s_val + kListWide);
+  int* s_j = s_i + kListWide;
+
+  const size_t row = (size_t)pair * k;
+  const float* qm_row = q_mz + row;
+  const float* qi_row = q_int + row;
+  const float* cm_row = c_mz + row;
+  const float* ci_row = c_int + row;
+  const int* ca_row = c_ann + row;
+  int* match = match_out + row;
+  int* taken = taken_out + row;
+  for (int t = lane; t < k; t += kWarp) {
+    match[t] = -1;
+    taken[t] = 0;
+  }
+  const int chg = charge[pair];
+  const float prec_diff = (q_prec[pair] - c_prec[pair]) * (float)chg;
+  const bool shifted =
+      allow_shift && num_shifts > 1 && fabsf(prec_diff) >= tol;
+  const int n_shift = shifted ? min(num_shifts - 1, chg) : 0;
+  for (int s = lane; s < num_shifts; s += kWarp) {
+    s_off[s] = s > 0 ? prec_diff / (float)s : 0.0f;
+  }
+  __syncwarp();
+
+  const int n =
+      n_shift <= 0 ? compact_wide<0>(qm_row, qi_row, cm_row, ci_row, ca_row,
+                                     k, n_shift, s_off, tol, lane, s_val,
+                                     s_i, s_j)
+      : n_shift == 1 ? compact_wide<1>(qm_row, qi_row, cm_row, ci_row,
+                                       ca_row, k, n_shift, s_off, tol, lane,
+                                       s_val, s_i, s_j)
+      : n_shift == 2 ? compact_wide<2>(qm_row, qi_row, cm_row, ci_row,
+                                       ca_row, k, n_shift, s_off, tol, lane,
+                                       s_val, s_i, s_j)
+                     : compact_wide<-1>(qm_row, qi_row, cm_row, ci_row,
+                                        ca_row, k, n_shift, s_off, tol, lane,
+                                        s_val, s_i, s_j);
+  __syncwarp();
+
+  const bool listed = n <= kListWide;
+  float total = 0.0f;
+  for (int step = 0; step < k; ++step) {
+    float best = -CUDART_INF_F;
+    int best_i = 0x7fffffff, best_j = 0x7fffffff;
+    if (listed) {
+      for (int t = lane; t < n; t += kWarp) {
+        const int i = s_i[t], j = s_j[t];
+        if (match[i] >= 0 || taken[j]) continue;
+        const float v = s_val[t];
+        if (before(v, i, j, best, best_i, best_j)) {
+          best = v;
+          best_i = i;
+          best_j = j;
+        }
+      }
+    } else {  // the live entries, recomputed row by row
+      for (int i = 0; i < k; ++i) {
+        if (match[i] >= 0) continue;  // uniform across the warp
+        const float qm = qm_row[i];
+        const float qi = qi_row[i];
+        for (int j = lane; j < k; j += kWarp) {
+          if (taken[j]) continue;
+          const float v = entry(qm, qi, cm_row[j], ci_row[j], ca_row[j],
+                                n_shift, s_off, tol);
+          if (before(v, i, j, best, best_i, best_j)) {
+            best = v;
+            best_i = i;
+            best_j = j;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(kFull, best, off);
+      const int oi = __shfl_xor_sync(kFull, best_i, off);
+      const int oj = __shfl_xor_sync(kFull, best_j, off);
+      if (before(ov, oi, oj, best, best_i, best_j)) {
+        best = ov;
+        best_i = oi;
+        best_j = oj;
+      }
+    }
+    if (!(best > 0.0f)) break;  // uniform across the warp
+    total += best;
+    __syncwarp();  // every lane has finished reading before the update
+    if (lane == 0) {
+      match[best_i] = best_j;
+      taken[best_j] = 1;
+    }
+    __syncwarp();
+  }
+  if (lane == 0) total_out[pair] = total;
+}
+
 }  // namespace
 
 extern "C" {
@@ -270,29 +478,43 @@ extern "C" {
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
 // All pointers are device pointers to contiguous arrays: q_mz, q_int, c_mz,
 // c_int, c_ann, match of shape (n_pairs, k); q_prec, c_prec, charge, total
-// of shape (n_pairs,).
+// of shape (n_pairs,).  k above kMaxPeaks takes the wide kernel, whose
+// workspace `taken` is int32 (n_pairs, k) (unused, and may be null, at
+// k <= kMaxPeaks).
 int shifted_dot_greedy(const float* q_mz, const float* q_int,
                        const float* c_mz, const float* c_int,
                        const int* c_ann, const float* q_prec,
                        const float* c_prec, const int* charge, float* total,
-                       int* match, int n_pairs, int k, float tol,
+                       int* match, int* taken, int n_pairs, int k, float tol,
                        int num_shifts, int allow_shift, void* stream) {
-  if (n_pairs < 0 || k < 1 || k > kMaxPeaks) {
+  if (n_pairs < 0 || k < 1 || (k > kMaxPeaks && taken == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_pairs == 0) return (int)cudaSuccess;
-  const size_t smem = kWarps * warp_smem_words(k, num_shifts) * sizeof(float);
+  const bool wide = k > kMaxPeaks;
+  const size_t smem =
+      kWarps * sizeof(float) *
+      (wide ? wide_warp_smem_words(num_shifts)
+            : warp_smem_words(k, num_shifts));
+  const void* kernel = wide ? (const void*)shifted_dot_greedy_wide_kernel
+                            : (const void*)shifted_dot_greedy_kernel;
   if (smem > kSmemDefault) {
     const cudaError_t err = cudaFuncSetAttribute(
-        shifted_dot_greedy_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int blocks = (n_pairs + kWarps - 1) / kWarps;
-  shifted_dot_greedy_kernel<<<blocks, kWarps * kWarp, smem,
-                              (cudaStream_t)stream>>>(
-      q_mz, q_int, c_mz, c_int, c_ann, q_prec, c_prec, charge, total, match,
-      n_pairs, k, tol, num_shifts, allow_shift);
+  if (wide) {
+    shifted_dot_greedy_wide_kernel<<<blocks, kWarps * kWarp, smem,
+                                     (cudaStream_t)stream>>>(
+        q_mz, q_int, c_mz, c_int, c_ann, q_prec, c_prec, charge, total,
+        match, taken, n_pairs, k, tol, num_shifts, allow_shift);
+  } else {
+    shifted_dot_greedy_kernel<<<blocks, kWarps * kWarp, smem,
+                                (cudaStream_t)stream>>>(
+        q_mz, q_int, c_mz, c_int, c_ann, q_prec, c_prec, charge, total,
+        match, n_pairs, k, tol, num_shifts, allow_shift);
+  }
   return (int)cudaGetLastError();
 }
 

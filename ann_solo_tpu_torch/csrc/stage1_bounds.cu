@@ -78,6 +78,22 @@
 // adds those terms in i order.  Adding +-0 to a sum that starts at +0
 // changes nothing, so the skipped terms are exact.
 //
+// The wide branch: any Kq and Kc.  Rows padded past 256 peaks
+// (kMaxSteps), or rows and query whose staged layout passes the shared
+// memory a block may use (at Kc = 300, Kq = 50 already about 273 KB),
+// take a second kernel that stages nothing: one warp a (query row,
+// candidate slot) pair, its lanes over the query peaks (i = lane, lane +
+// 32, ...), the candidate's row read where it lies in device memory
+// (L1 and L2 hold it for the warp).  The warp checks the branch rule (one
+// ballot a 32 peaks); a row that passes takes, for each query peak and
+// window, a lower-bound binary search over [0, Kc) (ceil(log2(Kc + 1))
+// steps, the plain f32 test on the staged m/z: +inf for a peak of
+// intensity <= 0) and the walk from it; any other row the dense loop over
+// its Kc peaks.  The windows and their offsets are those of loop_vmax.
+// The terms q_int[i] * vmax[i] are added in i order, every one of them:
+// the +-0 terms the other branch skips change nothing.  Its speed is
+// recorded, not tuned: these widths are off the bench's path.
+//
 // Arithmetic matches the plain PyTorch version (ops/rescore.py::
 // stage1_bounds_plain) bit for bit: IEEE division for prec_diff / s
 // (built without fast-math), -fmad=false so that no product is fused into
@@ -97,6 +113,7 @@ constexpr int kTile = 8;                   // query peaks a dense step
 constexpr int kMaxSteps = 8;               // binary search: kcp <= 256
 constexpr int kReach = 8;                  // peaks a step from the last edge
 constexpr int kMinBlocks = 4;              // launch bounds: <= 64 registers
+constexpr size_t kSmemLimit = 232448;      // shared memory a block may use
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kTwoThirds = (float)(2.0 / 3.0);
 constexpr float kInflation = 1.0f + 1.0f / 1048576.0f;  // 1 + 2^-20, exact
@@ -111,7 +128,7 @@ struct Params {
   const float* lib_prec;
   const long long* cand;
   float* out;
-  long long items;  // b * tiles
+  long long items;  // b * tiles (wide: b * c pairs)
   int c, tiles, kq, kc, kcp, qb, n_lib, n_shift;
   float tol, chg;
 };
@@ -603,6 +620,115 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   cp_async_wait_all();
 }
 
+// The staged m/z of a row's peak j: +inf where its intensity is not > 0.
+__device__ __forceinline__ float staged_mz(const float* mz, const float* x,
+                                           int j) {
+  return x[j] > 0.0f ? mz[j] : CUDART_INF_F;
+}
+
+// The wide branch's vmax of query peak q over a row in device memory (m/z
+// `mz`, intensity `x`, annotation `ann`, kc peaks): loop_vmax's windows;
+// `fast` (the branch rule holds) takes each window's lower edge by a
+// binary search over [0, kc) (the count of peaks with g > tol, which form
+// a prefix) and walks from it while the test passes; else every peak.
+__device__ float wide_vmax(float q, float pd, int n_shift, float tol,
+                           bool shifted, bool fast, const float* mz,
+                           const float* x, const int* ann, int kc) {
+  float v = 0.0f;
+  for (int s = 0; s <= (shifted ? n_shift : 0); ++s) {
+    const float off = s == 0 ? 0.0f : pd / (float)s;
+    int k = 0;
+    if (fast) {
+      int hi = kc;
+      while (k < hi) {
+        const int mid = (k + hi) >> 1;
+        if ((q - staged_mz(mz, x, mid)) - off > tol) {
+          k = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+    }
+    for (; k < kc; ++k) {
+      if (fabsf((q - staged_mz(mz, x, k)) - off) <= tol) {
+        v = fmaxf(v, window_val(s, ann[k], x[k]));
+      } else if (fast) {
+        break;
+      }
+    }
+  }
+  return v;
+}
+
+// The wide branch: warp w of the grid on pairs w, w + warps, ... of the
+// (b, c) matrix.
+__global__ void __launch_bounds__(kThreads)
+    stage1_bounds_wide_kernel(const Params p) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * kWarps;
+  for (long long pair = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       pair < p.items; pair += warps) {
+    const long long id = p.cand[pair];
+    if (id < 0) {
+      if (lane == 0) p.out[pair] = -CUDART_INF_F;
+      continue;
+    }
+    const long long b = pair / p.c;
+    const long long row = id >= p.n_lib ? p.n_lib - 1 : id;
+    const float* mz = p.lib_mz + row * p.kc;
+    const float* x = p.lib_int + row * p.kc;
+    const int* ann = p.lib_ann + row * p.kc;
+    // The branch rule (ops/stage1_cuda.py::ascending_rows), as the
+    // staging pass of the other kernel checks it.
+    bool bad = false;
+    for (int j0 = 0; j0 < p.kc; j0 += 32) {
+      const int j = j0 + lane;
+      bool mine = false;
+      if (j < p.kc && x[j] > 0.0f) {
+        const bool pos_prev = j == 0 || x[j - 1] > 0.0f;
+        const float m = mz[j];
+        mine = !(pos_prev && fabsf(m) < CUDART_INF_F &&
+                 (j == 0 || mz[j - 1] <= m));
+      }
+      bad = bad || __any_sync(kFull, mine);
+    }
+    const float pd = (p.q_prec[b] - p.lib_prec[row]) * p.chg;
+    const bool shifted = p.n_shift > 0 && fabsf(pd) >= p.tol;
+    const float* qm = p.q_mz + b * p.kq;
+    const float* qi = p.q_int + b * p.kq;
+    float acc = 0.0f;
+    for (int i0 = 0; i0 < p.kq; i0 += 32) {
+      const int i = i0 + lane;
+      float term = 0.0f;
+      if (i < p.kq) {
+        term = qi[i] * wide_vmax(qm[i], pd, p.n_shift, p.tol, shifted, !bad,
+                                 mz, x, ann, p.kc);
+      }
+      const int n = min(32, p.kq - i0);
+      for (int t = 0; t < n; ++t) acc = acc + __shfl_sync(kFull, term, t);
+    }
+    if (lane == 0) p.out[pair] = acc * kInflation;
+  }
+}
+
+// p.items = b * c pairs here.
+cudaError_t launch_wide(const Params& p, cudaStream_t stream) {
+  const auto kernel = stage1_bounds_wide_kernel;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long need = (p.items + kWarps - 1) / kWarps;
+  const long long fit = (long long)sms * per_sm;
+  kernel<<<(int)(need < fit ? need : fit), kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <int NS>
 cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
   const auto kernel = stage1_bounds_kernel<NS>;
@@ -627,10 +753,12 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
 
 extern "C" {
 
-// Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
-// All pointers are device pointers to contiguous arrays: q_mz, q_int
-// (b, kq); q_prec (b,); lib_mz, lib_int, lib_ann (n_lib, kc); lib_prec
-// (n_lib,); cand (b, c) int64, -1 = invalid; out (b, c).
+// Launches the kernel on `stream` (the wide branch where the row padded to
+// a power of two passes 256 peaks or the shared memory passes
+// kSmemLimit); returns cudaGetLastError() (0 = ok).  All pointers are
+// device pointers to contiguous arrays: q_mz, q_int (b, kq); q_prec (b,);
+// lib_mz, lib_int, lib_ann (n_lib, kc); lib_prec (n_lib,); cand (b, c)
+// int64, -1 = invalid; out (b, c).
 int stage1_bounds(const float* q_mz, const float* q_int, const float* q_prec,
                   const float* lib_mz, const float* lib_int,
                   const int* lib_ann, const float* lib_prec,
@@ -642,7 +770,6 @@ int stage1_bounds(const float* q_mz, const float* q_int, const float* q_prec,
   }
   if (b == 0 || c == 0) return (int)cudaSuccess;
   const Widths w = widths(kq, kc);
-  if (w.kcp > (1 << kMaxSteps)) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(kq, kc);
   Params p;
   p.q_mz = q_mz;
@@ -666,6 +793,10 @@ int stage1_bounds(const float* q_mz, const float* q_int, const float* q_prec,
   p.tol = tol;
   p.chg = allow_shift ? (float)(num_shifts - 1) : 1.0f;
   const cudaStream_t st = (cudaStream_t)stream;
+  if (w.kcp > (1 << kMaxSteps) || smem > kSmemLimit) {
+    p.items = (long long)b * c;
+    return (int)launch_wide(p, st);
+  }
   switch (p.n_shift) {
     case 0: return (int)launch<0>(p, smem, st);
     case 1: return (int)launch<1>(p, smem, st);

@@ -33,6 +33,9 @@ from ann_solo_tpu_torch.ops.topk import stable_topk_desc
 # the certificate sound.
 BOUND_INFLATION = 1.0 + 2.0 ** -20
 _GREEDY_CHUNK = 8192  # pairs per full-C greedy call
+# Entries of one (pairs, K, K) block of the plain stage 1 at most: wide
+# peak rows (K = 300: 90,000 entries a pair) take fewer pairs a block.
+_PLAIN_BLOCK_ENTRIES = 1 << 28
 
 
 @torch.no_grad()
@@ -49,8 +52,9 @@ def stage1_bounds_plain(
     the m/z differences and a row max of the multiplier-weighted candidate
     intensities.  The sum over query peaks is taken in a stated order,
     i = 0, 1, ..., K - 1 from +0.0, which the kernel follows.  Only the
-    valid pairs are computed, B * `c_chunk` at a time: window rows are
-    mostly padding past their window's end."""
+    valid pairs are computed, B * `c_chunk` at a time (fewer where a
+    block would pass `_PLAIN_BLOCK_ENTRIES`): window rows are mostly
+    padding past their window's end."""
     b, c = cand_ids.shape
     dev = q_mz.device
     f32 = torch.float32
@@ -60,7 +64,9 @@ def stage1_bounds_plain(
     chg = float(num_shifts - 1 if allow_shift else 1)
     zero = torch.zeros((), dtype=f32, device=dev)
     out = torch.full((b * c,), float("-inf"), dtype=f32, device=dev)
-    step = max(1, b * c_chunk)
+    width = max(q_mz.shape[1], lib_mz.shape[1])
+    step = max(1, min(b * c_chunk,
+                      _PLAIN_BLOCK_ENTRIES // max(1, width * width)))
     for start in range(0, pairs.shape[0], step):
         flat = pairs[start:start + step]
         rows = flat // c

@@ -1,13 +1,13 @@
 """The canonical select CUDA kernel (B5): wrapper, limits and launch count.
 
 Replaces the XLA selection that follows the probe-gather scan in the
-reference (`ann_solo_tpu/index/ivf.py::_canonical_topk`, `:779`, and the
-tail of `_ivf_probe_scan_tile`, `:1211`; no Pallas kernel): the canonical
-top-k on 16-bit keys, the lane-to-id map and the unique-id dedup, in one
-launch of one block a row.  The kernel source is
-`ann_solo_tpu_torch/csrc/canonical_select.cu`, its plain PyTorch version
-`ops/canonical_select.py::canonical_select_plain`, which it equals bit for
-bit.
+reference (`ann_solo_tpu/index/ivf.py::_canonical_topk`, `:673`, and
+`_canonical_topk_u16`, `:719`; the tail of `_ivf_probe_scan_tile`,
+`:1211`; no Pallas kernel): the canonical top-k on 16-bit keys, the
+lane-to-id map and the unique-id dedup, in one launch.  The kernel
+source is `ann_solo_tpu_torch/csrc/canonical_select.cu`, its plain
+PyTorch version `ops/canonical_select.py::canonical_select_plain`, which
+it equals bit for bit.
 
 The kernel is bound by device-memory bytes: the (B, n) float32 lanes read
 once and the (B, k) outputs written.  Its first pass reads each row from
@@ -18,10 +18,15 @@ stay in lane order, so the canonical order is one descending sort of
 32-bit words (a bitonic network whose strides below a warp's span run in
 registers), and the dedup keeps each id's least rank through a hash table
 in shared memory (integer CAS and min).  `plan(n, k_eff)` gives the
-branch and the dynamic shared memory: keys on chip while they fit
-(`SMEM_LIMIT`; every row of the main path, two blocks an SM at the
-bench's 49,152 lanes), else the long-row branch of the same kernel, whose
-passes each read the row from device memory.
+branch and the dynamic shared memory: one block a row with the keys on
+chip while they fit (`SMEM_LIMIT`; every row of the main path, two
+blocks an SM at the bench's 49,152 lanes), else the long-row branch of
+the same kernel, whose passes each read the row from device memory; and
+for more than `MAX_SEL` lanes selected (the open level at 4,096
+candidates x2, k_sel 8,192) the wide branch, a second kernel with the
+same passes whose 64-bit sort words, sort and dedup table live in a
+device-memory workspace this wrapper allocates (`wide_grid` blocks walk
+the rows, 24 bytes a sort word each).
 
 Routing is decided by the tensors, never by a fallback:
 `ops/canonical_select.py::canonical_select` sends CPU tensors to the plain
@@ -38,18 +43,25 @@ import torch
 
 from ann_solo_tpu_torch.ops import _build
 
-# The kernel's limits, as in `csrc/canonical_select.cu`: threads a block
-# (one block a row), lanes selected before dedup (the shared-memory sort)
-# and lanes a row (`ops/ivf_probe.py::MAX_PROBE_LANES`); the shared memory
-# a block may use on the H100, the part of it the kernel's static arrays
-# may take, and the least count of sort words (their area holds a 1 KB
-# histogram first).
+# The kernel's limits, as in `csrc/canonical_select.cu`: threads a block,
+# the largest selection (lanes before dedup) of the on-chip sort, lanes a
+# row (`ops/ivf_probe.py::MAX_PROBE_LANES`); the shared memory a block may
+# use on the H100, the part of it the kernel's static arrays may take, and
+# the least count of sort words (their area holds a 1 KB histogram
+# first).  The wide branch: its sort's tile in shared memory (64-bit
+# words), its histogram's bytes, and the device memory its workspace may
+# take in one launch (it bounds the grid).
 THREADS = 512
 MAX_SEL = 4096
 MAX_LANES = 1 << 22
 SMEM_LIMIT = 232_448
 STATIC_RESERVE = 256
 MIN_WORDS = 128
+TILE_WORDS = 8192
+HIST_BYTES = 1024
+WORK_BUDGET = 1 << 30
+# `plan`'s branches by the code the kernel's `canonical_select_plan` gives.
+BRANCHES = ("long_row", "on_chip", "wide", "wide_long_row")
 
 # Kernel launches in this process; reset by whoever wants to count.
 LAUNCHES = 0
@@ -63,18 +75,35 @@ def sort_width(k_eff: int) -> int:
 
 def plan(n: int, k_eff: int) -> tuple:
     """(branch, dynamic shared memory bytes) of a row of n lanes with k_eff
-    selected, as the kernel's `make_plan` computes them: "on_chip" keeps
-    2 * round_up(n + 3, 8) bytes of keys (the dedup table of 16 bytes a
-    word takes the same area later) beside 8 bytes a sort word, while
-    that and `STATIC_RESERVE` fit `SMEM_LIMIT`; else "long_row", the
-    table and the words only."""
-    words = max(sort_width(k_eff), MIN_WORDS)
+    selected, as the kernel's `make_plan` computes them.  Up to `MAX_SEL`:
+    "on_chip" keeps 2 * round_up(n + 3, 8) bytes of keys (the dedup table
+    of 16 bytes a word takes the same area later) beside 8 bytes a sort
+    word, while that and `STATIC_RESERVE` fit `SMEM_LIMIT`; else
+    "long_row", the table and the words only.  Above it: "wide", the
+    keys or the sort's tile (8 * `TILE_WORDS` bytes), the larger, and
+    the histogram, while that fits; else "wide_long_row", the tile and
+    the histogram."""
     keys = 2 * ((n + 3 + 7) // 8 * 8)
+    if k_eff > MAX_SEL:
+        tile = 8 * TILE_WORDS
+        area = max(keys, tile)
+        if area + HIST_BYTES + STATIC_RESERVE <= SMEM_LIMIT:
+            return "wide", area + HIST_BYTES
+        return "wide_long_row", tile + HIST_BYTES
+    words = max(sort_width(k_eff), MIN_WORDS)
     table = 16 * words
     on_chip = max(keys, table) + 8 * words
     if on_chip + STATIC_RESERVE <= SMEM_LIMIT:
         return "on_chip", on_chip
     return "long_row", table + 8 * words
+
+
+def wide_grid(b: int, k_eff: int, sms: int) -> int:
+    """Blocks of the wide branch for b rows: two an SM at most, no more
+    than the rows, and no more than `WORK_BUDGET` bytes of workspace at
+    24 bytes a sort word a block (at least one block)."""
+    per_block = 24 * sort_width(k_eff)
+    return max(1, min(b, 2 * sms, WORK_BUDGET // per_block))
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,6 +113,9 @@ def _library() -> ctypes.CDLL:
     lib.canonical_select.restype = ctypes.c_int
     lib.canonical_select.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.canonical_select_wide.restype = ctypes.c_int
+    lib.canonical_select_wide.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.canonical_select_plan.restype = ctypes.c_int
     lib.canonical_select_plan.argtypes = (
         [ctypes.c_longlong, ctypes.c_int]
@@ -100,30 +132,28 @@ def occupancy(n: int, k_sel: int) -> tuple:
     (builds the library; the card only)."""
     k_eff = check_limits(n, k_sel, 0)
     lib = _library()
-    on_chip, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = lib.canonical_select_plan(n, k_eff, ctypes.byref(on_chip),
+    branch, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = lib.canonical_select_plan(n, k_eff, ctypes.byref(branch),
                                     ctypes.byref(smem), ctypes.byref(blocks))
     if err != 0:
         msg = lib.canonical_select_error_string(err).decode()
         raise RuntimeError(f"canonical_select_plan failed: {msg} ({err})")
-    return ("on_chip" if on_chip.value else "long_row", smem.value,
-            blocks.value)
+    return BRANCHES[branch.value], smem.value, blocks.value
 
 
 def check_limits(n: int, k_sel: int, k: int) -> int:
     """k_eff = min(k_sel, n) after checking the kernel's limits: 1 <= n <=
-    `MAX_LANES`, 1 <= k_eff <= `MAX_SEL`, k >= 0."""
+    `MAX_LANES`, k_sel >= 1, k >= 0.  Every k_eff runs (above `MAX_SEL`
+    on the wide branch)."""
     if not 1 <= n <= MAX_LANES:
         raise ValueError(f"canonical_select: {n} lanes a row; the kernel "
                          f"takes 1 to MAX_LANES = {MAX_LANES}")
-    k_eff = min(k_sel, n)
-    if not 1 <= k_eff <= MAX_SEL:
+    if k_sel < 1:
         raise ValueError(f"canonical_select: k_sel = {k_sel} lanes before "
-                         f"dedup; the kernel takes 1 to MAX_SEL = "
-                         f"{MAX_SEL}")
+                         "dedup; at least 1")
     if k < 0:
         raise ValueError(f"canonical_select: k = {k} < 0")
-    return k_eff
+    return min(k_sel, n)
 
 
 def _check(flat, probe_ids, padded_ids):
@@ -155,7 +185,8 @@ def _check(flat, probe_ids, padded_ids):
 def canonical_select(flat, probe_ids, padded_ids, k_sel: int, k: int,
                      redundant: bool):
     """((B, k) float32 scores, (B, k) int32 ids): kernel B5 on CUDA
-    tensors in one launch, `canonical_select_plain`'s result bit for bit.
+    tensors in one launch (the branch of `plan`), `canonical_select_plain`'s
+    result bit for bit.
     `flat` (B, P * cap) float32, `probe_ids` (B, P) int32/int64,
     `padded_ids` (L, cap) int32, all on one CUDA device."""
     global LAUNCHES
@@ -173,11 +204,23 @@ def canonical_select(flat, probe_ids, padded_ids, k_sel: int, k: int,
     ids = padded_ids.contiguous()
     lib = _library()
     stream = torch.cuda.current_stream(flat.device).cuda_stream
-    err = lib.canonical_select(
-        flat.data_ptr(), probe.data_ptr(), ids.data_ptr(), out_s.data_ptr(),
-        out_i.data_ptr(), b, probe.shape[1], l, cap, k_eff, k, int(dedup),
-        stream,
-    )
+    if plan(n, k_eff)[0].startswith("wide"):
+        sms = torch.cuda.get_device_properties(
+            flat.device).multi_processor_count
+        grid = wide_grid(b, k_eff, sms)
+        work = torch.empty(grid * 3 * sort_width(k_eff), dtype=torch.int64,
+                           device=flat.device)
+        err = lib.canonical_select_wide(
+            flat.data_ptr(), probe.data_ptr(), ids.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(), work.data_ptr(), b,
+            probe.shape[1], l, cap, k_eff, k, int(dedup), grid, stream,
+        )
+    else:
+        err = lib.canonical_select(
+            flat.data_ptr(), probe.data_ptr(), ids.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(), b, probe.shape[1], l, cap,
+            k_eff, k, int(dedup), stream,
+        )
     if err != 0:
         msg = lib.canonical_select_error_string(err).decode()
         raise RuntimeError(f"canonical_select launch failed: {msg} ({err})")

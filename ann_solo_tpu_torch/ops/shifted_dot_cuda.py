@@ -15,8 +15,15 @@ PyTorch, for the tests).
 
 Routing is decided by the tensors, never by a fallback: CPU tensors take
 the plain PyTorch version (`ops/shifted_dot.py`), CUDA tensors launch the
-kernel or raise.  The one width rule of the JAX package is kept: more than
-128 peaks take the plain version (`shifted_dot_pallas.py:338`).
+kernel at every K or raise.  The port drops the JAX package's width rule
+on purpose (more than 128 peaks take its XLA path,
+`shifted_dot_pallas.py:336-338`): that rule exists for the TPU's VMEM,
+which holds the kernel's K x K blocks, and nothing on this card needs it.
+Above `MAX_KERNEL_PEAKS` (`branch`) the kernel's wide branch takes the
+pair: the candidate peaks in 128-column tiles of registers, the match
+state in device memory (a workspace allocated here), the same picks in
+the same order, where the plain version would build the whole K x K
+matrix step by step (53.58 ms against the kernel's 0.2308 ms at K = 50).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch.nn.functional as F
 from ann_solo_tpu_torch.ops import _build
 from ann_solo_tpu_torch.ops.shifted_dot import shifted_dot_full_plain
 
+# Peaks a pair of the register branch; more take the wide branch.
 MAX_KERNEL_PEAKS = 128
 # Pair-count granularity of the JAX call sites (the Pallas PAIR_BLOCK).
 # The kernel itself takes any pair count.
@@ -44,13 +52,19 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load("shifted_dot")
     lib.shifted_dot_greedy.restype = ctypes.c_int
-    lib.shifted_dot_greedy.argtypes = [ctypes.c_void_p] * 10 + [
+    lib.shifted_dot_greedy.argtypes = [ctypes.c_void_p] * 11 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p,
     ]
     lib.shifted_dot_error_string.restype = ctypes.c_char_p
     lib.shifted_dot_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def branch(k: int) -> str:
+    """The kernel's branch for pairs of K peaks: "registers" (a lane holds
+    its candidate columns) up to `MAX_KERNEL_PEAKS`, else "wide"."""
+    return "registers" if k <= MAX_KERNEL_PEAKS else "wide"
 
 
 @torch.no_grad()
@@ -61,12 +75,15 @@ def _launch(q_mz, q_int, c_mz, c_int, c_ann, q_prec, c_prec, charge,
     p, k = q_mz.shape
     total = torch.empty(p, dtype=torch.float32, device=q_mz.device)
     match = torch.empty((p, k), dtype=torch.int32, device=q_mz.device)
+    taken = (torch.empty((p, k), dtype=torch.int32, device=q_mz.device)
+             if branch(k) == "wide" else None)
     stream = torch.cuda.current_stream(q_mz.device).cuda_stream
     err = lib.shifted_dot_greedy(
         q_mz.data_ptr(), q_int.data_ptr(), c_mz.data_ptr(), c_int.data_ptr(),
         c_ann.data_ptr(), q_prec.data_ptr(), c_prec.data_ptr(),
         charge.data_ptr(), total.data_ptr(), match.data_ptr(),
-        p, k, tol, num_shifts, int(bool(allow_shift)), stream,
+        None if taken is None else taken.data_ptr(), p, k, tol, num_shifts,
+        int(bool(allow_shift)), stream,
     )
     if err != 0:
         msg = lib.shifted_dot_error_string(err).decode()
@@ -114,7 +131,7 @@ def shifted_dot_full(
     peak width K (pad the narrower one, as the dispatchers below do).
     """
     _check(q_mz, q_int, c_mz, c_int, c_ann, q_prec_mz, c_prec_mz, charge)
-    if q_mz.device.type == "cpu" or q_mz.shape[1] > MAX_KERNEL_PEAKS:
+    if q_mz.device.type == "cpu":
         return shifted_dot_full_plain(
             q_mz, q_int, c_mz, c_int, c_ann, q_prec_mz, c_prec_mz, charge,
             fragment_mz_tolerance, num_shifts, allow_shift,

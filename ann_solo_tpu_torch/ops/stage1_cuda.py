@@ -35,7 +35,13 @@ to shrink.  The kernel searches instead:
   shared memory (at most `SMEM_LIMIT`);
 * the sum over query peaks runs i = 0, 1, ..., Kq - 1 from +0.0, the
   order the plain version states: warp 0 adds the terms the warps marked
-  as possibly non-zero, in order; the others are +-0 and change nothing.
+  as possibly non-zero, in order; the others are +-0 and change nothing;
+* any other width (`branch`: a row padded past `MAX_PADDED` peaks, or
+  more shared memory than `SMEM_LIMIT`) takes the wide branch, a second
+  kernel that stages nothing: a warp a pair, its lanes over the query
+  peaks, the row read where it lies in device memory, the same branch
+  rule, a binary search over the whole row (ceil(log2(Kc + 1)) steps)
+  and the walk, or the dense loop, and the same sum order.
 
 Routing is decided by the tensors, never by a fallback: `_stage1_bounds`
 sends CPU tensors to the plain version and CUDA tensors here, where the
@@ -87,6 +93,15 @@ def smem_bytes(kq: int, kc: int) -> int:
     per_slot = (padded_width(kc) + REACH + 2 * kc + WARPS * i_tile(kq)
                 + WARPS + 2 + 2 * WARPS)
     return 4 * (3 * kc * (SLOTS + 1) + SLOTS + 1 + 4 * kq + SLOTS * per_slot)
+
+
+def branch(kq: int, kc: int) -> str:
+    """The kernel's branch at these widths: "staged" (rows staged in
+    shared memory, searched over `padded_width(Kc)` <= `MAX_PADDED`) while
+    the row's padded width and `smem_bytes` fit, else "wide"."""
+    if padded_width(kc) > MAX_PADDED or smem_bytes(kq, kc) > SMEM_LIMIT:
+        return "wide"
+    return "staged"
 
 
 def ascending_rows(lib_mz: torch.Tensor, lib_int: torch.Tensor):
@@ -156,12 +171,6 @@ def _check(q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec,
                          "x 3 and (N,), N >= 1")
     if n > 2 ** 31 - 1:
         raise ValueError("stage1_bounds: at most 2^31 - 1 library rows")
-    kq, kc = q_mz.shape[1], lib_mz.shape[1]
-    if padded_width(kc) > MAX_PADDED or smem_bytes(kq, kc) > SMEM_LIMIT:
-        raise ValueError(
-            f"stage1_bounds: Kq={kq}, Kc={kc} take {smem_bytes(kq, kc)} "
-            f"bytes of shared memory a block (at most {SMEM_LIMIT}) and a "
-            f"row padded to {padded_width(kc)} peaks (at most {MAX_PADDED})")
 
 
 @torch.no_grad()
@@ -169,9 +178,10 @@ def stage1_bounds(q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec,
                   cand_ids, fragment_mz_tolerance: float, num_shifts: int,
                   allow_shift: bool):
     """(B, C) float32 upper bounds of the greedy scores (-inf where
-    `cand_ids` is negative), computed by kernel B4 in one launch.  Every
-    tensor on one CUDA device, contiguous; query and library peak widths
-    may differ."""
+    `cand_ids` is negative), computed by kernel B4 in one launch (the
+    branch of `branch(Kq, Kc)`).  Every tensor on one CUDA device,
+    contiguous; query and library peak widths may differ, and any width
+    runs."""
     global LAUNCHES
     _check(q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec,
            cand_ids)

@@ -24,9 +24,11 @@ Phases, in the order they run (1-3c, 3d, 3e, 4-6, 7, 8, 7b, 10a, 10b,
    PyTorch version on the card, at the stage-2 (32,768 pairs) and
    match-extraction (4,096 pairs) shapes of the bench workload plus
    ragged, unequal-width, tie-heavy, K = 20 / 128 and dense (every entry
-   positive) cases.  Totals must be equal bit for bit (rtol 0: both sum
-   the same float32 terms in the same order) and the match tables
-   identical;
+   positive) cases, then the kernel's wide branch (K above 128): K = 129
+   (ties), 300 and 1,024, and a dense K = 200 set (more positive entries
+   than its list holds: the recompute path).  Totals must be equal bit
+   for bit (rtol 0: both sum the same float32 terms in the same order)
+   and the match tables identical; each case logs its branch;
 3b. kernel B2 vs plain: the probe-gather scan against its plain version at
    the 2.1M-spectrum tile shape (B = 1,024, P = 64, cap = 768, D = 800,
    int8, +-500 Da), bf16 storage with a ppm window, a ragged shape
@@ -65,11 +67,14 @@ Phases, in the order they run (1-3c, 3d, 3e, 4-6, 7, 8, 7b, 10a, 10b,
    edges: preprocess's zero tail (bench and window rows), peaks at the
    float32 edges of the windows with duplicated m/z (at tol 2^-5 and at
    0.04 with charge 3), a quarter of the rows shuffled, and non-finite
-   m/z and precursors.  Bounds must be equal bit for bit (rtol 0: the
+   m/z and precursors; then the kernel's wide branch: Kc = 257 (a row
+   padded past 256), Kq = Kc = 300 and Kc = 1,024 with a quarter of the
+   rows shuffled.  Bounds must be equal bit for bit (rtol 0: the
    same float32 operations, the sum over query peaks in the stated
    order), -inf cells included; the rows and pairs on each of the
    kernel's branches (range search, dense loop) are logged and both must
-   be taken.  Phases 3-3d log each kernel's time
+   be taken, and each case's kernel branch (staged or wide).  Phases
+   3-3d log each kernel's time
    beside its bound: the larger of its bytes (each input read once, each
    output written once; for B2 and B3 only the lists and chunks this
    run's probes touch, for B4 the library rows its ids name) over 3.35
@@ -92,7 +97,12 @@ Phases, in the order they run (1-3c, 3d, 3e, 4-6, 7, 8, 7b, 10a, 10b,
    masked or fewer finite lanes than k_sel, 256 rows of 196,608 lanes
    (P 256 x cap 768, k_sel 2,048: the kernel's long-row branch), the
    bench's rows at k_sel = MAX_SEL 4,096 (k 2,048) and 1,024 rows of P
-   511 x cap 77 lanes (row starts not 16-byte aligned).  Scores (as
+   511 x cap 77 lanes (row starts not 16-byte aligned); then the wide
+   branch (more than MAX_SEL lanes selected): the bench's rows at k_sel
+   4,097 (x1) and 8,192 (k 4,096, x2, as 4,096 candidates select),
+   k_sel = n = 65,536 on rows of one score, the long rows at k_sel
+   16,384 (keys read from device memory) and two rows at k_sel = n =
+   2^22, the kernel's largest.  Scores (as
    bits) and ids must be identical.  Logs each case's time beside its
    bound, the plain chain's time and that of `torch.topk` on the packed
    int64 keys (the kernels record's `library_ms`; the port never calls it
@@ -190,7 +200,11 @@ Phases, in the order they run (1-3c, 3d, 3e, 4-6, 7, 8, 7b, 10a, 10b,
    at rtol 1e-6, every differing line logged; and, each run building its
    own files, on the card and with --no_gpu in --mode ann and bf: the same
    PSM_IDs, the same library spectrum for >= 99.9% of them, identical PSM
-   lines wherever it is.
+   lines wherever it is; then the widths past the kernels' first
+   branches (`wide_cuda_vs_cpu`): the library and the first 12 queries at
+   --num_candidates 4096 --max_peaks_used 300 --max_peaks_used_library
+   300, on the card (files built; B1 and B4 launched, at K = 300 their
+   wide branches) and with --no_gpu (files loaded): identical PSM lines.
 10a. the streaming switch (run after phase 8, on phase 7's library,
    settings and index): `IvfIndex.load_or_build` with no file present; the
    source block, 2,097,152 x 800 x 4 bytes, exceeds the 4 GiB bound of the
@@ -341,6 +355,10 @@ KERNEL_CASES = (
     ("k128", 1000, 128, 128, 2, True, False, FRAG_TOL),
     ("k20", 777, 20, 20, 2, True, True, FRAG_TOL),
     ("dense", 1024, 50, 50, 2, True, False, 5000.0),
+    ("k129", 1024, 129, 129, 2, True, True, FRAG_TOL),
+    ("k300", 1024, 300, 300, 2, True, False, FRAG_TOL),
+    ("k1024", 64, 1024, 1024, 2, True, False, FRAG_TOL),
+    ("dense_k200", 64, 200, 200, 2, True, False, 5000.0),
 )
 
 # Kernel B2 cases: (name, B, L, P, cap, D, storage, tol_val, tol_mode,
@@ -380,9 +398,12 @@ PROBE_CASES = (
 # row too long for the keys in shared memory (P 256 x cap 768 = 196,608
 # lanes: the kernel's long-row branch), the bench's rows at k_sel =
 # MAX_SEL (the largest sort) and rows of P 511 x cap 77 lanes, whose
-# starts are not 16-byte aligned.  Kinds
-# (`synth_select_case`): "copies" (each id in two slots, one score),
-# "unique", "ties", "masked".
+# starts are not 16-byte aligned; then the wide branch (k_sel above
+# MAX_SEL): the bench's rows at 4,097 (x1) and 8,192 (4,096 candidates of
+# x2), k_sel = n = 65,536 (P 512 x cap 128) at one score, the long
+# rows at 16,384, and k_sel = n = MAX_LANES (2^22 lanes, P 4,096 x cap
+# 1,024: the largest row and selection the kernel takes).  Kinds (`synth_select_case`): "copies" (each id in two
+# slots, one score), "unique", "ties", "masked".
 SELECT_CASES = (
     ("bench_k512", 4096, 4096, NUM_PROBE, 96, 1024, 512, True, "copies"),
     ("bench_k1024", 4096, 4096, NUM_PROBE, 96, 2048, 1024, True, "copies"),
@@ -395,6 +416,11 @@ SELECT_CASES = (
     ("long_row", 256, 4096, 256, 768, 2048, 1024, True, "copies"),
     ("k_max", 4096, 4096, NUM_PROBE, 96, 4096, 2048, True, "copies"),
     ("odd", 1024, 4096, 511, 77, 1024, 512, True, "copies"),
+    ("k_4097", 1024, 4096, NUM_PROBE, 96, 4097, 4097, False, "unique"),
+    ("k_wide", 4096, 4096, NUM_PROBE, 96, 8192, 4096, True, "copies"),
+    ("k_all", 256, 4096, 512, 128, 65536, 4096, True, "ties"),
+    ("long_k16384", 256, 4096, 256, 768, 16384, 8192, True, "copies"),
+    ("k_lanes_max", 2, 4096, 4096, 1024, 1 << 22, 65536, True, "copies"),
 )
 
 # Kernel B3 cases: (name, B, L, cold probes, hot probes, cap, D, storage,
@@ -432,6 +458,9 @@ SCAN_CASES = (
 # preprocess's zero tail, peaks at the float32 edges of the windows with
 # duplicated m/z (at tol = 2^-5 some sit exactly on them), a quarter of
 # the rows shuffled (the dense branch), and non-finite m/z and precursors.
+# The last three take the kernel's wide branch (`stage1_cuda.branch`): a
+# row padded past 256 peaks, Kq = Kc = 300, and Kc = 1,024 with a quarter
+# of the rows shuffled (both of its branch rules).
 STAGE1_CASES = (
     ("bench_chunk", 4096, 512, 131072, 50, 50, 2, True, "bench"),
     ("bench_1024", 4096, 1024, 131072, 50, 50, 2, True, "bench"),
@@ -455,6 +484,10 @@ STAGE1_CASES = (
      {"shuffle": 0.25}),
     ("nonfinite", 512, 512, 131072, 50, 50, 2, True, "bench",
      {"nonfinite": True}),
+    ("kc_257", 512, 256, 16384, 50, 257, 2, True, "bench"),
+    ("kc_300_kq_300", 256, 256, 16384, 300, 300, 2, True, "bench"),
+    ("kc_1024", 64, 64, 16384, 50, 1024, 2, True, "bench",
+     {"shuffle": 0.25}),
 )
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, 700 W) for the
@@ -876,6 +909,7 @@ def phase_kernel(dev, cases=KERNEL_CASES, kernel_reps=20, plain_reps=3):
         shifted_dot_full_plain,
     )
     from ann_solo_tpu_torch.ops.shifted_dot_cuda import (
+        branch,
         pad_peaks,
         shifted_dot_full,
     )
@@ -930,7 +964,9 @@ def phase_kernel(dev, cases=KERNEL_CASES, kernel_reps=20, plain_reps=3):
         log(f"kernel {name}: P={p} K={qm.shape[1]} charge={charge} "
             f"shift={shift} ties={ties} tol={tol}: identical ({n_match} "
             f"matches, {n_pos:.1f} positive entries a pair); kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+            f"{ms:.4f} ms, {100 * fields['bound_ms'] / ms:.2f}% of its "
+            f"{fields['bound_ms']:.4f} ms bound, plain {plain_ms:.3f} ms; "
+            f"branch {branch(qm.shape[1])}")
     return record
 
 
@@ -1055,7 +1091,9 @@ def phase_stage1_kernel(dev, cases=STAGE1_CASES, kernel_reps=20,
             f"({fast_pairs + dense_pairs} valid pairs, {int(finite.sum())} "
             f"finite; branches: range search {fast_rows} rows / "
             f"{fast_pairs} pairs, dense {dense_rows} rows / {dense_pairs} "
-            f"pairs); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            f"pairs); kernel {ms:.4f} ms, {100 * fields['bound_ms'] / ms:.2f}%"
+            f" of its {fields['bound_ms']:.4f} ms bound, plain "
+            f"{plain_ms:.3f} ms; branch {stage1_cuda.branch(kq, kc)}")
         del arrays, args, got, want
     if not (branches > 0).all():
         raise AssertionError(f"B4: rows on the range search and the dense "
@@ -3199,7 +3237,63 @@ def phase_engine_cuda_vs_cpu(dev, n_peptides=1000, n_queries=250,
         if differ:
             raise AssertionError(f"{mode}: PSM lines differ: {differ[:5]}")
 
+    wide_cuda_vs_cpu(dev, workdir, lib_path, query_path)
     fasta_cuda_vs_cpu(dev, workdir, query_path, truth)
+
+
+# The wide run of phase 9s: its first queries (the --no_gpu run's time
+# grows with K^2 per pair), and the settings past the kernels' first
+# branches: k_sel = 2 x 4,096 lanes before dedup, K = 300 for B1 and B4.
+WIDE_QUERIES = 12
+WIDE_ARGS = ["--num_candidates", "4096", "--max_peaks_used", "300",
+             "--max_peaks_used_library", "300"]
+
+
+def wide_cuda_vs_cpu(dev, workdir, lib_path, query_path,
+                     n_queries=WIDE_QUERIES):
+    """The CLI on a library and the first `n_queries` spectra of a query
+    file at `WIDE_ARGS`, on `dev` (store and index built) and with
+    --no_gpu (loaded): identical PSM lines, and on the card B1 and B4
+    launched (B1 takes K = 300 on its wide branch, B4 Kc = 300)."""
+    import os
+
+    import torch
+
+    from ann_solo_tpu_torch.ops import shifted_dot_cuda, stage1_cuda
+
+    with open(query_path) as f:
+        blocks = f.read().split("END IONS\n")
+    sub_path = os.path.join(workdir, "queries_wide.mgf")
+    with open(sub_path, "w") as f:
+        f.write("END IONS\n".join(blocks[:n_queries]) + "END IONS\n")
+    remove_library_files(workdir)
+    rows, launches = {}, {}
+    for d in (dev, torch.device("cpu")):
+        out = os.path.join(workdir, f"wide_{d.type}.mztab")
+        t0 = time.perf_counter()
+        profile, b1 = run_engine_cli(d, lib_path, sub_path, out, WIDE_ARGS)
+        source = profile["notes"]["store"]["source"]
+        if source != ("built" if d is dev else "loaded"):
+            raise AssertionError(f"wide run on {d.type}: store {source}")
+        launches[d.type] = (b1, profile["b4_launches"],
+                            profile["b5_launches"])
+        log(f"engine wide: {d.type} {time.perf_counter() - t0:.1f}s (store "
+            f"{source}); B1, B4, B5 launches {launches[d.type]}")
+        rows[d.type] = _psm_rows(out)
+    got, want = rows[dev.type], rows["cpu"]
+    differ = [q for q in want if got.get(q) != want[q]]
+    log(f"engine wide: {n_queries} queries {' '.join(WIDE_ARGS)}: "
+        f"{len(want)} PSMs, {len(differ)} lines differ; B1 branch "
+        f"{shifted_dot_cuda.branch(300)}, B4 branch "
+        f"{stage1_cuda.branch(300, 300)}")
+    note(f"wide run ({n_queries} queries, {' '.join(WIDE_ARGS)}): "
+         f"{len(want)} PSM lines, card vs CPU identical: {not differ}")
+    if got.keys() != want.keys() or differ or not want:
+        raise AssertionError(f"wide run: {len(differ)} PSM lines differ, "
+                             f"{len(got)} vs {len(want)} PSMs")
+    if dev.type == "cuda" and min(launches[dev.type][:2]) <= 0:
+        raise AssertionError(f"wide run: B1, B4 launches "
+                             f"{launches[dev.type][:2]}")
 
 
 def fasta_cuda_vs_cpu(dev, workdir, query_path, truth):
@@ -3669,7 +3763,7 @@ def run_phases():
             ("stage1_bounds", "stage1_bounds.cu",
              "ann_solo_tpu/ops/rescore.py:60", b4_launches, stage1_record),
             ("canonical_select", "canonical_select.cu",
-             "ann_solo_tpu/index/ivf.py:779", b5_launches, select_record)):
+             "ann_solo_tpu/index/ivf.py:673", b5_launches, select_record)):
         kernels.append({
             "name": name,
             "route": "cuda",

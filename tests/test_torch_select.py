@@ -8,8 +8,10 @@ Inputs are made with NumPy from a seed and fed to both packages.
   keys, the id gather, `_dedup_topk`, `_pad_topk`): ties at the threshold
   key, rows with every lane masked, fewer finite lanes than k_sel, both
   copies of an id inside the selection and across its edge, no dedup,
-  k_sel above the lane count, and more than 65,536 lanes (where JAX takes
-  `lax.top_k` on int16 keys).
+  k_sel above the lane count, more than 65,536 lanes (where JAX takes
+  `lax.top_k` on int16 keys), and more than 4,096 lanes selected (k_sel
+  4,097 and 8,192, and k_sel = n on a 16,384-lane row: the kernel's wide
+  branch).
 * (b) A NumPy emulation of the kernel's own algorithm (pass 1 keys each
   lane once into the on-chip key array at lane + the row's misalignment,
   its other positions holding junk, with the high-byte histogram; passes
@@ -21,20 +23,28 @@ Inputs are made with NumPy from a seed and fed to both packages.
   words with its register and shared-memory strides; the decode; the
   dedup through the hash table, inserts in a shuffled order, and the
   prefix count of the kept ranks) equals the plain version on those
-  cases and on random rows, on both branches and under several insert
-  orders; the same emulation with the tie rule mutated (the last lanes at
-  the threshold instead of the first) or the dedup's (each id's last
-  rank) does not.  The wrapper's `plan` gives every phase 3e shape its
-  branch and shared memory as the kernel's header states them.
+  cases and on random rows, on every branch and under several insert
+  orders.  The wide branch's split: 64-bit words key << 32 | (2^32 - 1 -
+  lane), the bitonic network with its strides below the 8,192-word tile
+  on tiles and the larger ones over the whole workspace, the dedup table
+  of 2 * m slots in device memory (shuffled inserts), the kept ranks
+  placed 512 a step.  The same emulation with the tie rule mutated (the
+  last lanes at the threshold instead of the first), the dedup's (each
+  id's last rank) or the wide words' lane order (descending) does not.
+  The wrapper's `plan` gives every phase 3e shape its branch and shared
+  memory as the kernel's header states them.
 * (c) The full scan's card route (each query's probed lists through B2,
   then B5) run on CPU tensors through their plain versions, against the
   port's plain full scan and the JAX `_ivf_search_fullscan`: >= 99.9% of
   (id, score) lanes equal, every 16-bit key within one step, no duplicate
   ids, and rows identical wherever the two f32 sums give the same keys.
+  The same at 4,096 candidates of x2 storage (k_sel 8,192 lanes, the
+  wide branch on the card).
 * (d) Routing: CPU tensors never reach the wrapper or its library, the
-  wrapper refuses CPU tensors and its limits raise before anything is
-  built, `search_device` keeps the plain full scan on the CPU, and the
-  import rules of `test_torch_imports.py` cover the new modules.
+  wrapper refuses CPU tensors, its limits raise and its plan picks the
+  wide branch before anything is built, `search_device` keeps the plain
+  full scan on the CPU, and the import rules of `test_torch_imports.py`
+  cover the new modules.
 """
 
 import importlib.util
@@ -73,7 +83,14 @@ CASES = {
     "bench_like": (3, 512, 64, 96, 1024, 512, True, {"copies": True,
                                                      "levels": 256}),
     "odd": (5, 40, 7, 13, 48, 24, True, {"copies": True, "levels": 16}),
+    "k_4097": (2, 64, 32, 160, 4097, 4097, False, {"levels": 64}),
+    "k_8192": (2, 128, 64, 256, 8192, 4096, True, {"copies": True,
+                                                   "levels": 64}),
+    "k_all_16384": (2, 128, 64, 256, 16384, 8192, True, {"copies": True,
+                                                         "levels": 4}),
 }
+# The cases whose selection passes MAX_SEL (the kernel's wide branch).
+WIDE_CASES = ("k_4097", "k_8192", "k_all_16384")
 
 
 def _case(name, seed=0):
@@ -189,6 +206,10 @@ def test_cases_have_what_they_are_named_for():
     assert _case("k_sel_above_n")[0].shape[1] < CASES["k_sel_above_n"][4]
     assert _case("wide")[0].shape[1] > 65536
     assert _case("odd")[0].shape[1] % 4 != 0  # rows start unaligned
+    for name in WIDE_CASES:
+        flat, _, _, k_sel, _, _ = _case(name)
+        assert min(k_sel, flat.shape[1]) > select_cuda.MAX_SEL
+    assert CASES["k_all_16384"][4] == _case("k_all_16384")[0].shape[1]
 
 
 # --------------------------------------------------------------------- #
@@ -258,6 +279,37 @@ def _sort_desc(words):
     return w
 
 
+def _sort_desc_wide(words):
+    """The wide branch's `sort_desc_wide`: the descending bitonic network
+    on 64-bit words in the kernel's order of stages: every size up to the
+    tile S = min(m, TILE_WORDS) on each tile, then for each larger size
+    its strides of S and above over the whole workspace and its smaller
+    strides on each tile (whose pairs never leave a tile); each pair's
+    direction set by its position in the workspace."""
+    w = words.copy()
+    m = len(w)
+    tile = min(m, select_cuda.TILE_WORDS)
+    q = np.arange(m // 2)
+
+    def stage(size, stride, on_tiles):
+        lo = 2 * q - (q & (stride - 1))
+        hi = lo + stride
+        if on_tiles:
+            assert (lo // tile == hi // tile).all()
+        a, b = w[lo], w[hi]
+        swap = np.where((lo & size) == 0, a < b, a > b)
+        w[lo], w[hi] = np.where(swap, b, a), np.where(swap, a, b)
+
+    size = 2
+    while size <= m:
+        stride = size >> 1
+        while stride:
+            stage(size, stride, stride < tile)
+            stride >>= 1
+        size <<= 1
+    return w
+
+
 def _dedup_keep(ident, words, rng, rule="least"):
     """The kernel's dedup table: 2 * words slots of an id and a rank, a
     multiplicative hash and linear probing; the inserts in an order drawn
@@ -292,12 +344,17 @@ def _dedup_keep(ident, words, rng, rule="least"):
 
 
 def _emulate_row(x, probe, padded_ids, k_sel, k, redundant, rng, off=0,
-                 branch="on_chip", tie_rule="first", dedup_rule="least"):
+                 branch="on_chip", tie_rule="first", dedup_rule="least",
+                 lane_rule="asc"):
     """One row through the kernel's steps: pass 1 keys each lane once
     (into the on-chip key array at position lane + off, whose other
     positions hold whatever shared memory held) and counts the high
-    bytes; passes 2 and 3 read the key array (on chip) or key the row
-    again (the long-row branch) in steps of eight positions."""
+    bytes; passes 2 and 3 read the key array ("on_chip", "wide") or key
+    the row again ("long_row", "wide_long_row") in steps of eight
+    positions.  The wide branches then sort 64-bit words in the
+    workspace (`_sort_desc_wide`; `lane_rule` "desc" is the mutation
+    that orders a key's lanes descending) and dedup through a table of 2
+    * m slots."""
     n = len(x)
     l, cap = padded_ids.shape
     k_eff = min(k_sel, n)
@@ -310,13 +367,15 @@ def _emulate_row(x, probe, padded_ids, k_sel, k, redundant, rng, off=0,
     width = 8 * steps8
     valid = np.zeros(width, bool)
     valid[off:off + n] = True
-    if branch == "on_chip":
+    wide = branch.startswith("wide")
+    keys_on_chip = branch in ("on_chip", "wide")
+    if keys_on_chip:
         on_chip = rng.integers(0, 1 << 16, (n + 3 + 7) // 8 * 8)
         on_chip[off:off + n] = lane_keys
         assert len(on_chip) >= width
 
     def read():
-        if branch == "on_chip":
+        if keys_on_chip:
             return on_chip[:width]
         keys = np.zeros(width, np.int64)
         keys[off:off + n] = _key16_np(x)
@@ -345,8 +404,12 @@ def _emulate_row(x, probe, padded_ids, k_sel, k, redundant, rng, off=0,
     valid8 = np.pad(valid, (0, pad)).reshape(chunks, threads, per)
     at_t = valid8 & (keys8 == thresh)
     above_t = valid8 & (keys8 > thresh)
-    words_n = max(select_cuda.sort_width(k_eff), select_cuda.MIN_WORDS)
-    words = np.zeros(words_n, np.uint32)
+    if wide:
+        words_n = select_cuda.sort_width(k_eff)
+        words = np.zeros(words_n, np.uint64)  # the pad words are 0
+    else:
+        words_n = max(select_cuda.sort_width(k_eff), select_cuda.MIN_WORDS)
+        words = np.zeros(words_n, np.uint32)
     lanes = rng.integers(0, n, words_n)
     n_ties = int(at_t.sum())
     tie_base = slot_base = 0
@@ -370,15 +433,27 @@ def _emulate_row(x, probe, padded_ids, k_sel, k, redundant, rng, off=0,
             np.testing.assert_array_equal(
                 np.cumsum(take.sum(1)) - take.sum(1) + slot_base, first)
         at = slot[take]
-        words[at] = (keys8[ch][take] << 16) | (0xFFFF - at)
-        lanes[at] = (per * (ch * threads + np.nonzero(take)[0])
-                     + np.nonzero(take)[1] - off)
+        taken = (per * (ch * threads + np.nonzero(take)[0])
+                 + np.nonzero(take)[1] - off)
+        if wide:
+            low = 0xFFFFFFFF - taken if lane_rule == "asc" else taken
+            words[at] = ((keys8[ch][take].astype(np.uint64) << np.uint64(32))
+                         | low.astype(np.uint64))
+        else:
+            words[at] = (keys8[ch][take] << 16) | (0xFFFF - at)
+            lanes[at] = taken
         slot_base += int(take.sum())
         tie_base += int(eq.sum())
     assert slot_base == k_eff
-    words = _sort_desc(words)[:k_eff]
-    lane = lanes[0xFFFF - (words & 0xFFFF)].astype(np.int64)
-    score = _key16_to_f32_np((words >> 16).astype(np.int64))
+    if wide:
+        words = _sort_desc_wide(words)[:k_eff]
+        low = (words & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        lane = 0xFFFFFFFF - low if lane_rule == "asc" else low
+        score = _key16_to_f32_np((words >> np.uint64(32)).astype(np.int64))
+    else:
+        words = _sort_desc(words)[:k_eff]
+        lane = lanes[0xFFFF - (words & 0xFFFF)].astype(np.int64)
+        score = _key16_to_f32_np((words >> 16).astype(np.int64))
     rank = lane // cap
     lists = probe[rank]
     ok = (score > -np.inf) & (lists >= 0) & (lists < l)
@@ -404,8 +479,14 @@ def _emulate(flat, probe_ids, padded_ids, k_sel, k, redundant, seed=5,
     return (np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]))
 
 
-@pytest.mark.parametrize("branch", ["on_chip", "long_row"])
-@pytest.mark.parametrize("name", sorted(CASES))
+# Every case on the branches the kernel gives its width, and on the wide
+# branch (which takes any width) too.
+EMULATED = [(name, branch) for name in sorted(CASES)
+            for branch in (("wide", "wide_long_row") if name in WIDE_CASES
+                           else ("on_chip", "long_row", "wide"))]
+
+
+@pytest.mark.parametrize("name,branch", EMULATED)
 def test_kernel_emulation_equals_plain(name, branch):
     args = _case(name)
     _assert_same(_emulate(*args, branch=branch), _plain(*args))
@@ -430,18 +511,25 @@ def test_kernel_emulation_equals_plain_random(seed):
     flat = np.where(rng.random((b, n)) < rng.random(), F32(-np.inf), flat)
     args = (flat, probe, ids, k_sel, k, redundant)
     want = _plain(*args)
-    for branch in ("on_chip", "long_row"):
+    for branch in ("on_chip", "long_row", "wide", "wide_long_row"):
         _assert_same(_emulate(*args, seed=seed, branch=branch), want)
 
 
 @pytest.mark.parametrize("seed", range(4))
 def test_dedup_table_order_free(seed):
     """The dedup table's result does not depend on the order the inserts
-    run in: several orders, one answer, the plain version's."""
+    run in: several orders, one answer, the plain version's; in shared
+    memory and, on the wide branch, in device memory (8,192 lanes
+    selected, a table of 16,384 slots)."""
     args = _case("copies", seed=seed)
     want = _plain(*args)
     for order in range(3):
         _assert_same(_emulate(*args, seed=100 * seed + order), want)
+    args = _case("k_8192", seed=seed)
+    want = _plain(*args)
+    for order in range(2):
+        _assert_same(_emulate(*args, seed=100 * seed + order,
+                              branch="wide"), want)
 
 
 def test_tie_rule_mutation_fails():
@@ -459,6 +547,18 @@ def test_dedup_rule_mutation_fails():
     args = _case("copies")
     with pytest.raises(AssertionError):
         _assert_same(_emulate(*args, dedup_rule="most"), _plain(*args))
+
+
+@pytest.mark.parametrize("name", ["ties_x1", "k_all_16384"])
+def test_wide_lane_order_mutation_fails(name):
+    """The wide words order a key's lanes ascending through 2^32 - 1 -
+    lane; the lane itself (descending) changes the result where ties are
+    selected: that half of the word is load-bearing."""
+    args = _case(name)
+    want = _plain(*args)
+    _assert_same(_emulate(*args, branch="wide"), want)
+    with pytest.raises(AssertionError):
+        _assert_same(_emulate(*args, branch="wide", lane_rule="desc"), want)
 
 
 def _select_cases():
@@ -492,6 +592,9 @@ PLANS = {
     "ties": ("on_chip", 106_512), "masked": ("on_chip", 106_512),
     "long_row": ("long_row", 49_152), "k_max": ("on_chip", 131_088),
     "odd": ("on_chip", 86_896),
+    "k_4097": ("wide", 99_344), "k_wide": ("wide", 99_344),
+    "k_all": ("wide", 132_112), "long_k16384": ("wide_long_row", 66_560),
+    "k_lanes_max": ("wide_long_row", 66_560),
 }
 
 
@@ -500,13 +603,17 @@ def test_plan_of_each_select_case(name):
     """Every phase 3e shape but long_row keeps its keys on chip within
     the 232,448 bytes a block may use; long_row (196,608 lanes at m
     2,048) takes the long-row branch; the bench's rows leave room for two
-    blocks an SM (233,472 bytes, 1 KB reserved a block)."""
+    blocks an SM (233,472 bytes, 1 KB reserved a block), on the wide
+    branch too; more than MAX_SEL lanes selected take the wide branch,
+    keys on chip beside nothing but the histogram (the sort's tile takes
+    their area after pass 3), long_k16384's 196,608 lanes and
+    k_lanes_max's 2^22 without them."""
     _, _, _, p, cap, k_sel, _, _, _ = _select_cases()[name]
     n = p * cap
     plan = select_cuda.plan(n, min(k_sel, n))
     assert plan == PLANS[name]
     assert plan[1] + select_cuda.STATIC_RESERVE <= 232_448
-    if name in ("bench_k512", "bench_k1024", "odd"):
+    if name in ("bench_k512", "bench_k1024", "odd", "k_wide"):
         assert 2 * (plan[1] + select_cuda.STATIC_RESERVE + 1024) <= 233_472
 
 
@@ -519,6 +626,26 @@ def test_plan_long_rows():
     # 2 * round_up(n + 3, 8) + 8,192 + 256 <= 232,448 up to n = 111,997.
     assert select_cuda.plan(111_997, 1024) == ("on_chip", 232_192)
     assert select_cuda.plan(111_998, 1024)[0] == "long_row"
+    # The wide branch: 2 * round_up(n + 3, 8) + 1,024 + 256 <= 232,448 up
+    # to n = 115,581; every row of up to 2^22 lanes in 66,560 bytes.
+    assert select_cuda.plan(115_581, 8192) == ("wide", 232_192)
+    assert select_cuda.plan(115_582, 8192) == ("wide_long_row", 66_560)
+    assert select_cuda.plan(select_cuda.MAX_LANES, select_cuda.MAX_LANES) \
+        == ("wide_long_row", 66_560)
+    assert select_cuda.plan(5000, 4097) == ("wide", 66_560)
+
+
+@pytest.mark.parametrize("b,k_eff,sms,grid", [
+    (4096, 8192, 132, 264), (256, 65536, 132, 256), (3, 4097, 132, 3),
+    (64, 1 << 22, 132, 10), (1, 1 << 22, 132, 1), (4096, 1 << 20, 132, 42),
+])
+def test_wide_grid(b, k_eff, sms, grid):
+    """The wide branch's blocks: two an SM, no more than the rows, and a
+    workspace of 24 bytes a sort word a block within WORK_BUDGET (1 GiB:
+    ten blocks at 2^22 lanes selected)."""
+    assert select_cuda.wide_grid(b, k_eff, sms) == grid
+    words = select_cuda.sort_width(k_eff)
+    assert grid == 1 or grid * 24 * words <= select_cuda.WORK_BUDGET
 
 
 # --------------------------------------------------------------------- #
@@ -550,11 +677,12 @@ def _lanes_equal(a, b):
 
 def _route_on_cpu(monkeypatch):
     """Make CPU tensors take the card route; count the selections."""
-    calls = {"select": 0}
+    calls = {"select": 0, "k_sel": []}
     real = pivf.canonical_select
 
     def counted(*args, **kwargs):
         calls["select"] += 1
+        calls["k_sel"].append(args[3])
         return real(*args, **kwargs)
 
     def refuse(*args, **kwargs):
@@ -614,6 +742,50 @@ def test_card_route_on_cpu_matches_fullscan(monkeypatch, storage, tol_val,
         np.testing.assert_array_equal(a[agree], b[agree])
 
 
+def test_card_route_on_cpu_at_4096_candidates(monkeypatch):
+    """The card route at 4,096 candidates of x2 storage: k_sel 8,192 of a
+    query's 48 probed lists (the wide branch on the card), on CPU tensors
+    through the plain versions, against the port's plain full scan and
+    the JAX package's search: >= 99.9% of (id, score) lanes equal, every
+    16-bit key within one step, no duplicate ids."""
+    rng = np.random.default_rng(47)
+    n, d, k = 6000, 32, 4096
+    vectors = _clustered_vectors(rng, n=n, d=d, n_clusters=32)
+    prec = rng.uniform(400, 1200, n).astype(F32)
+    index = jivf.IvfIndex.build(
+        vectors, IvfConfig(num_list=64, num_probe=48), precursor_mz=prec,
+        storage_dtype=np.int8, redundancy=2,
+    )
+    rows = rng.choice(n, 32)
+    queries = vectors[rows] + 0.1 * rng.normal(size=(32, d)).astype(F32)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    q_prec = (prec[rows] + rng.normal(0, 20, 32)).astype(F32)
+    port = _port(index)
+    l, cap, _ = port.padded_vectors.shape
+    assert port.regime(k) == "fullscan" and port.num_probe == 48
+    assert min(48, l) * cap > 2 * k > select_cuda.MAX_SEL
+    q_t, qp_t = torch.from_numpy(queries.astype(F32)), torch.from_numpy(q_prec)
+    kwargs = dict(q_prec=qp_t, charge=2.0, tol_val=600.0, tol_mode="Da")
+    plain = [a.numpy() for a in port.search_device(q_t, k, **kwargs)]
+    e_ids, e_s = index.search_device(queries.astype(F32), k, q_prec=q_prec,
+                                     charge=2.0, tol_val=600.0,
+                                     tol_mode="Da")
+    jax_out = [np.asarray(e_ids), np.asarray(e_s)]
+    calls = _route_on_cpu(monkeypatch)
+    route = [a.numpy() for a in port.search_device(q_t, k, **kwargs)]
+    assert calls["select"] == 1 and calls["k_sel"] == [2 * k]
+    assert route[0].shape == (32, k)
+    assert (route[0] >= 0).sum(1).min() > select_cuda.MAX_SEL // 4
+    for ids in route[0]:
+        row = ids[ids >= 0]
+        assert len(np.unique(row)) == len(row)
+    for other in (plain, jax_out):
+        assert _lanes_equal(route, other) >= 0.999
+        keys = [pivf._key16(torch.tensor(s)).numpy()
+                for s in (route[1], other[1])]
+        assert np.abs(keys[0] - keys[1]).max() <= 1
+
+
 # --------------------------------------------------------------------- #
 # (d) routing
 
@@ -666,35 +838,54 @@ def test_wrapper_takes_cuda_tensors_only():
                               ids.to("meta"), k_sel, k, red)
 
 
-@pytest.mark.parametrize("n,k_sel,k,limit", [
+@pytest.mark.parametrize("n,k_sel,k,outcome", [
     (select_cuda.MAX_LANES + 1, 16, 16, "MAX_LANES"),
     (0, 16, 16, "MAX_LANES"),
-    (49152, select_cuda.MAX_SEL + 1, 2048, "MAX_SEL"),
-    (49152, 0, 16, "MAX_SEL"),
+    (49152, select_cuda.MAX_SEL + 1, 2048, "wide"),
+    (49152, 0, 16, "k_sel = 0"),
     (49152, 16, -1, "k = -1"),
 ])
-def test_limits_raise(n, k_sel, k, limit):
-    with pytest.raises(ValueError, match=limit):
+def test_limits_raise(n, k_sel, k, outcome):
+    """Outside the kernel's limits (lanes a row, k_sel < 1, k < 0) the
+    wrapper raises ValueError naming the limit; a selection of more than
+    MAX_SEL lanes is no limit: its plan is the wide branch."""
+    if outcome == "wide":
+        k_eff = select_cuda.check_limits(n, k_sel, k)
+        assert k_eff == k_sel
+        assert select_cuda.plan(n, k_eff)[0] == "wide"
+        return
+    with pytest.raises(ValueError, match=outcome):
         select_cuda.check_limits(n, k_sel, k)
 
 
 def test_limits_raise_before_the_library_loads(monkeypatch):
     """Beyond a limit the wrapper raises ValueError naming it before the
-    library is built or loaded; at the limits it passes k_eff on."""
+    library is built or loaded; at every selection width it passes k_eff
+    on and its plan picks the branch without the library (the wide one
+    above MAX_SEL, up to k_sel = n = MAX_LANES)."""
     monkeypatch.setattr(select_cuda, "_check", lambda *a: None)
     monkeypatch.setattr(select_cuda, "_library", lambda: pytest.fail(
         "the library was loaded"))
     flat = torch.empty((0, 512 * 96))
     probe = torch.empty((0, 512), dtype=torch.int64)
     ids = torch.empty((4096, 96), dtype=torch.int32)
-    with pytest.raises(ValueError, match="MAX_SEL"):
-        select_cuda.canonical_select(flat, probe, ids,
-                                     select_cuda.MAX_SEL + 1, 2048, True)
+    with pytest.raises(ValueError, match="k_sel = 0"):
+        select_cuda.canonical_select(flat, probe, ids, 0, 2048, True)
+    s, i = select_cuda.canonical_select(flat, probe, ids,
+                                        select_cuda.MAX_SEL + 1, 2048, True)
+    assert s.shape == i.shape == (0, 2048)
     s, i = select_cuda.canonical_select(flat, probe, ids, 1024, 512, True)
     assert s.shape == i.shape == (0, 512)
     assert select_cuda.check_limits(49152, select_cuda.MAX_SEL, 2048) == \
         select_cuda.MAX_SEL
     assert select_cuda.check_limits(100, 4096, 50) == 100
+    for n, k_sel, branch in ((49152, 8192, "wide"),
+                             (196_608, 16_384, "wide_long_row"),
+                             (select_cuda.MAX_LANES, select_cuda.MAX_LANES,
+                              "wide_long_row")):
+        k_eff = select_cuda.check_limits(n, k_sel, 4096)
+        assert k_eff == k_sel
+        assert select_cuda.plan(n, k_eff)[0] == branch
 
 
 def test_search_device_keeps_the_plain_full_scan_on_cpu(monkeypatch):

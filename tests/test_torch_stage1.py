@@ -16,7 +16,14 @@ packages.  The plain version must:
   expression over that prefix, the dense loop over every peak for other
   rows, and the sum of the terms that can differ from +-0 in query-peak
   order, on the main path's layouts (a zero tail), peaks at the windows'
-  float32 edges, duplicated m/z, shuffled rows and non-finite m/z.
+  float32 edges, duplicated m/z, shuffled rows and non-finite m/z;
+* equal, bit for bit, a NumPy emulation of the kernel's wide branch (any
+  Kq and Kc: a warp a pair, the branch rule over the row as it lies in
+  memory, a binary search over the whole row with the same test, the
+  walk or the dense loop, every term summed in query-peak order), on the
+  same cases and at Kc = 257, 300 and 600, Kq up to 300; with its search
+  test mutated (>= tol) it differs on the edge case.  The plain version
+  also agrees with JAX at Kc = 257 and 600, Kq = 50 and 300.
 
 The rows the main path builds (`preprocess_batch`, `build_store`, the
 bench's library) all take the kernel's range search.  CPU tensors never
@@ -75,6 +82,10 @@ CASES = {
     "window": (16, 256, 400, 24, 24, 2, True, "window", 0.25, 64, 0.5),
     "bench_k50": (16, 40, 128, 50, 50, 2, True, "bench", 0.25, 16, 0.04),
     "k56_ragged_tile": (8, 70, 64, 56, 50, 2, True, "bench", 0.25, 70, 0.5),
+    "kc_257": (6, 12, 64, 50, 257, 2, True, "bench", 0.25, 8, 0.5),
+    "kc_257_kq_300": (4, 8, 64, 300, 257, 2, True, "bench", 0.25, 8, 0.5),
+    "kc_600": (4, 8, 64, 50, 600, 2, True, "bench", 0.25, 8, 0.5),
+    "kc_600_kq_300": (3, 8, 64, 300, 600, 2, True, "bench", 0.25, 8, 0.5),
 }
 
 
@@ -106,8 +117,19 @@ SPLIT_CASES = {
 }
 
 
+# Cases of the wide branch's split alone: a row padded past MAX_PADDED
+# with a quarter of the rows shuffled (both branch rules), and the zero
+# tail at Kq = Kc = 300.
+WIDE_SPLIT_CASES = {
+    "kc_300_shuffled": (4, 16, 64, 50, 300, 2, True, "bench", 0.25, 8, 0.5,
+                        {"shuffle": 0.3}),
+    "k300_tail": (4, 12, 64, 300, 300, 3, True, "bench", 0.25, 8, 0.04,
+                  {"tail": True}),
+}
+
+
 def _case(name):
-    case = CASES[name] if name in CASES else SPLIT_CASES[name]
+    case = {**CASES, **SPLIT_CASES, **WIDE_SPLIT_CASES}[name]
     return case[:11], (case[11] if len(case) > 11 else {})
 
 
@@ -308,6 +330,107 @@ def _emulate_kernel(q_mz, q_int, q_prec, l_mz, l_int, l_ann, l_prec, cand,
     return out, fast
 
 
+def _emulate_wide(q_mz, q_int, q_prec, l_mz, l_int, l_ann, l_prec, cand,
+                  num_shifts, shift, tol, search="gt"):
+    """Kernel B4's wide branch in NumPy, all valid pairs at once: the
+    branch rule as a warp checks it over the row where it lies (peak j
+    against peak j - 1); per query peak and window (the shift windows
+    only with |prec_diff| >= tol) on a row that passes, the lower edge
+    by a binary search over [0, Kc) with the plain test (q - c) - off >
+    tol on the staged m/z (+inf where the intensity is not > 0), then the
+    walk from it taking the max while |(q - c) - off| <= tol; on any
+    other row the dense loop over its Kc peaks; every term q_int * vmax
+    added in query-peak order from +0.0.  `search` "ge" is the mutation
+    (q - c) - off >= tol."""
+    b, c = cand.shape
+    kq, kc = q_mz.shape[1], l_mz.shape[1]
+    tol = F32(tol)
+    n_shift = num_shifts - 1 if shift and num_shifts > 1 else 0
+    chg = F32(num_shifts - 1 if shift else 1)
+    rows, cols = np.nonzero(cand >= 0)
+    ids = np.minimum(cand[rows, cols], len(l_mz) - 1)
+    mz, x, ann = l_mz[ids], l_int[ids], l_ann[ids]
+    n_pairs = len(ids)
+    pairs = np.arange(n_pairs)
+    with np.errstate(invalid="ignore", over="ignore"):
+        pos = x > 0
+        prev_pos = np.pad(pos[:, :-1], ((0, 0), (1, 0)),
+                          constant_values=True)
+        prev_mz = np.pad(mz[:, :-1], ((0, 0), (1, 0)))
+        first = np.arange(kc) == 0
+        ok = prev_pos & (np.abs(mz) < np.inf) & (first | (prev_mz <= mz))
+        fast = ~(pos & ~ok).any(1)
+        staged = np.where(pos, mz, F32(np.inf))
+        pd = (q_prec[rows] - l_prec[ids]) * chg
+        shifted = (n_shift > 0) & (np.abs(pd) >= tol)
+        windows = [(np.zeros(n_pairs, F32), np.ones(n_pairs, bool), x)]
+        for s in range(1, n_shift + 1):
+            mult = np.where(ann == s, F32(1), np.where(ann == 0, F32(2 / 3),
+                                                       F32(0)))
+            windows.append((pd / F32(s), shifted, mult * x))
+        cols_k = np.arange(kc)
+        acc = np.zeros(n_pairs, F32)
+        for i in range(kq):
+            q = q_mz[rows, i]
+            v = np.zeros(n_pairs, F32)
+            for off, active, val in windows:
+                g = (q[:, None] - staged) - off[:, None]
+                lo = np.zeros(n_pairs, np.int64)
+                hi = np.full(n_pairs, kc, np.int64)
+                while (lo < hi).any():
+                    open_ = lo < hi
+                    mid = (lo + hi) // 2
+                    at = g[pairs, np.minimum(mid, kc - 1)]
+                    past = at > tol if search == "gt" else at >= tol
+                    lo = np.where(open_ & past, mid + 1, lo)
+                    hi = np.where(open_ & ~past, mid, hi)
+                hit = np.abs(g) <= tol
+                from_edge = cols_k[None, :] >= lo[:, None]
+                alive = from_edge & (np.cumsum(~hit & from_edge, 1) == 0)
+                walk = np.fmax.reduce(np.where(alive, val, F32(0)), axis=1,
+                                      initial=F32(0))
+                dense = np.fmax.reduce(np.where(hit, val, F32(0)), axis=1,
+                                       initial=F32(0))
+                v = np.where(active, np.fmax(v, np.where(fast, walk, dense)),
+                             v)
+            acc = acc + q_int[rows, i] * v
+    out = np.full((b, c), -np.inf, F32)
+    out[rows, cols] = acc * F32(pt_rescore.BOUND_INFLATION)
+    return out, fast
+
+
+@pytest.mark.parametrize("name", ["shifts_1", "shifts_3", "shifts_6",
+                                  "no_allow_shift", "prec_within_tol",
+                                  "kq_lt_kc", "window", "bench_k50",
+                                  "k56_ragged_tile", *SPLIT_CASES,
+                                  "kc_257", "kc_600_kq_300",
+                                  *WIDE_SPLIT_CASES])
+def test_wide_branch_emulation_equals_plain(name):
+    num_shifts, shift, c_chunk, tol = _settings(name)
+    arrays = _inputs(name, all_invalid_rows=(0,))
+    got, fast = _emulate_wide(*arrays, num_shifts, shift, tol)
+    np.testing.assert_array_equal(
+        got, _plain(arrays, num_shifts, shift, c_chunk, tol))
+    if name in ("shuffled", "nonfinite", "kc_300_shuffled"):
+        assert 0 < fast.sum() < len(fast)
+    else:
+        assert fast.all()
+
+
+def test_wide_search_mutation_fails():
+    """The wide branch's search with >= tol in place of the plain test's
+    > tol skips the peaks exactly at the window's edge: the bounds
+    differ on the edge case, so the test's form is load-bearing."""
+    name = "edge_at_tol"
+    num_shifts, shift, c_chunk, tol = _settings(name)
+    arrays = _inputs(name)
+    want = _plain(arrays, num_shifts, shift, c_chunk, tol)
+    np.testing.assert_array_equal(
+        _emulate_wide(*arrays, num_shifts, shift, tol)[0], want)
+    got = _emulate_wide(*arrays, num_shifts, shift, tol, search="ge")[0]
+    assert not np.array_equal(got, want)
+
+
 @pytest.mark.parametrize("name", ["shifts_1", "shifts_3", "shifts_6",
                                   "no_allow_shift", "prec_within_tol",
                                   "kq_lt_kc", "window", "bench_k50",
@@ -402,15 +525,24 @@ def test_padded_width(kc, width):
     assert stage1_cuda.padded_width(kc) == width
 
 
-def test_smem_bytes_and_limit():
+def test_smem_bytes_and_limit(monkeypatch):
     """The wrapper's shared-memory count is the kernel's (53,244 bytes at
-    K = 50: four blocks of eight warps fit an SM), and widths past the
-    limits raise before anything is built."""
+    K = 50: four blocks of eight warps fit an SM); widths past the staged
+    branch's limits (its shared memory, a row padded past MAX_PADDED)
+    take the wide branch, chosen without building or loading anything."""
+    monkeypatch.setattr(stage1_cuda, "_library", lambda: pytest.fail(
+        "the library was loaded"))
     assert stage1_cuda.smem_bytes(50, 50) == 53_244
     assert 4 * (stage1_cuda.smem_bytes(50, 50) + 1024) <= 233_472
     assert stage1_cuda.smem_bytes(50, 256) <= stage1_cuda.SMEM_LIMIT
+    assert stage1_cuda.branch(50, 256) == "staged"
+    assert stage1_cuda.branch(50, 50) == "staged"
     assert stage1_cuda.smem_bytes(300, 256) > stage1_cuda.SMEM_LIMIT
+    assert stage1_cuda.branch(300, 256) == "wide"
     assert stage1_cuda.padded_width(257) > stage1_cuda.MAX_PADDED
+    assert stage1_cuda.branch(50, 257) == "wide"
+    for kq, kc in ((50, 300), (300, 300), (50, 1024), (100_000, 20)):
+        assert stage1_cuda.branch(kq, kc) == "wide"
 
 
 @pytest.mark.parametrize("kq,tile", [(50, 7), (20, 3), (32, 4), (56, 7),
