@@ -99,30 +99,63 @@
 //
 // More than kMaxSel (4,096) lanes selected (the open level's k_sel =
 // redundancy x num_candidates, e.g. 8,192 at 4,096 candidates x2) take
-// the wide branch, a second kernel over the same passes 1-3 (the same
-// code, keys on chip while they fit beside the sort's tile, else read
-// from device memory): the sort words, the sort and the dedup table
-// live in a workspace in device memory that the wrapper allocates, 24
-// bytes a sort word for each block of a persistent grid that walks the
-// rows:
-//   * words: 64-bit key << 32 | (0xffffffff - lane), so the lane needs
-//     no side array and lanes up to 2^22 fit; distinct, and the pad
-//     words 0 sort last;
-//   * the sort: the same descending bitonic network over m words (the
-//     least power of two >= k_eff); the strides below kTileWords (8,192
-//     words, 64 KB) run tile by tile in shared memory (one load and one
-//     store of a tile for all of a size's small strides), the larger
-//     ones as block-wide passes over the workspace (L2-resident: 64 KB
-//     a block at m 8,192);
-//   * the dedup: the same CAS claim and atomicMin on the rank, against a
-//     table of 2 * m slots in the workspace; ranks are decoded and
-//     placed kThreads at a time (a block scan of the kept ranks).
-// Shared memory of the wide branch: max(keys, 65,536) bytes (the keys
-// until pass 3 ends, then the sort's tile) + 1 KB for the histogram;
-// without the keys (rows too long): 65,536 + 1,024.  At the bench's
-// 49,152 lanes: 98,320 + 1,024 = 99,344 B, 2 blocks an SM.  Its speed
-// is recorded, not tuned: the sizes above 4,096 are off the bench's
-// path.
+// the wide branch.  What bounded its first design on this card: one
+// block a row (2 of the 132 SMs busy on two rows of 2^22 lanes), a
+// bitonic network of m log^2 m / 2 compare-exchanges over 64-bit words
+// in device memory (about 10^9 a row at 2^22), and a tail that decoded
+// each rank twice.  The design now, a sequence of launches on the
+// caller's stream over a workspace the wrapper allocates (a group of
+// rows at a time, at most WORK_BUDGET bytes; wide_layout):
+//   * the selection: with enough rows to fill the SMs, one block a row
+//     runs passes 1-3 of select_row (the same code, the keys on chip
+//     while they fit); with too few, each row is split into tiles of at
+//     least kMinTile lanes over about two blocks an SM (wide_tiles), and
+//     passes 1-3 run per (row, tile): the tiles' high-byte histograms
+//     add into the row's with integer atomics, each tile keeps its
+//     low-byte histogram within the high bin and its count above it, a
+//     scan kernel finds the threshold key and gives each tile its first
+//     tie rank and first slot, and pass 3 compacts each tile in lane
+//     order from there.  Either way the row's k_eff items, key << 32 |
+//     lane, leave pass 3 in lane order;
+//   * the canonical order (key descending, lane ascending) is then a
+//     stable sort by the 16-bit key alone: two counting passes of an
+//     8-bit digit, the low byte first, each bucket order descending.  A
+//     pass counts each item tile's digits (kItemTile items a block),
+//     scans the counts over the tiles (each tile's start in each
+//     bucket), and scatters: each warp takes a segment of the tile and
+//     places a round of 32 items, in index order, at its digit's running
+//     start for the warp plus its rank among the round's lanes of that
+//     digit (__match_any_sync), so equal digits keep their order.  About
+//     4 x 8 bytes read and 2 x 8 written an item, against m log^2 m / 2
+//     compare-exchanges;
+//   * the tail: each rank's id is decoded once (probe table, then the
+//     list's ids) and stored in place of its lane; with dedup it goes,
+//     with its rank, into the row's table of the least power of two >=
+//     2 k_eff 64-bit slots (id << 32 | rank: a CAS claims a slot, a 64-bit
+//     atomicMin keeps the least rank, whatever order the blocks run in);
+//     a rank whose id's least rank is another is dropped, the tiles' kept
+//     counts are scanned, and one block scan a tile places the kept ranks;
+//   * up to kRowTail (8,192) lanes selected, the open level's 4,096
+//     candidates x2, the sort and the tail run on one block of
+//     kTailThreads (1,024) a row in shared memory instead
+//     (wide_row_tail_kernel): the row's items read
+//     once, the two digit passes between two arrays of shared memory, a
+//     rank a thread a wave decoded, and the table (32-bit ids and ranks:
+//     shared memory's 64-bit atomics are emulated) filled wave by wave in
+//     rank order, so that a CAS claim alone settles an id but where a
+//     lower rank of the same wave claims it too (atomicMin).
+// Shared memory of the one-block-a-row kernel: the keys while they fit
+// (2 * round_up(n + 3, 8) bytes) + 1 KB for the histogram, else 1 KB; at
+// the bench's 49,152 lanes 99,344 B, 2 blocks an SM.  The row tail: 128
+// KB dynamic (two arrays of 8,192 items, then the table) and 33 KB
+// static, one block of 32 warps an SM.  The other kernels use static
+// shared memory only (at most 17 KB).  Its bound is the row's f32 bytes
+// read once and the outputs written.  What stands between: at the bench's
+// rows pass 1 and the row tail's shared-memory work (the digit passes'
+// __match_any_sync, which more warps did not speed up and ballots slowed,
+// the decode's two dependent loads, the table's atomics); on rows split
+// over many blocks, the digit passes and the table's atomics over device
+// memory.
 //
 // No float atomics and no float arithmetic but the key's decode, so the
 // result does not depend on the order threads run in.  Limits (the
@@ -139,7 +172,6 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBins = 256;
 constexpr int kMaxSel = 4096;          // the on-chip sort's largest k_eff
-constexpr int kTileWords = 8192;       // the wide sort's tile in shared memory
 constexpr int kHistBytes = kBins * 4;  // the wide branch's histogram area
 constexpr int kMaxLanes = 1 << 22;
 constexpr int kMinWords = 128;         // the word area holds the histogram
@@ -149,6 +181,22 @@ constexpr int kLoads = 2;              // float4 loads a thread a step
 constexpr int kSteps = 2;              // steps of 8 keys a thread a chunk
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kFree = 0xffffffffu;  // an empty dedup slot
+// The wide branch: lanes of the least tile of a row split over blocks,
+// items a block in the sort and the tail, ints of a lane tile's entry in a
+// row's meta area, the meta area's fields (the row's high-byte histogram;
+// the threshold key, its ties and the kept ranks; the sort's bucket
+// starts; then the lane tiles and the item tiles), an empty table slot.
+constexpr int kMinTile = 4096;
+constexpr int kItemTile = 4096;
+constexpr int kRowTail = 8192;  // items of a row sorted on one block
+constexpr int kTailThreads = 1024;  // that block's threads
+constexpr int kTailWarps = kTailThreads / 32;
+constexpr int kTileInts = 260;
+constexpr int kMetaHist = 0;
+constexpr int kMetaMisc = 256;
+constexpr int kMetaStart = 272;
+constexpr int kMetaTiles = 528;
+constexpr unsigned long long kEmpty = ~0ull;
 
 struct Params {
   const float* flat;        // (b, n) scores, -inf masked
@@ -156,11 +204,56 @@ struct Params {
   const int* ids;           // (l, cap) library ids, -1 empty
   float* out_s;             // (b, k)
   int* out_i;               // (b, k)
-  unsigned long long* work;  // wide: 3 * words 64-bit words a block
+  unsigned long long* work;  // wide: the items, `words` a row
   int n, p, l, cap, k_eff, k, words, dedup, on_chip;
   int area;                 // bytes of the key / table area
-  int b;                    // rows (the wide grid walks them)
+  int b;                    // rows
 };
+
+// The wide branch's workspace of a group of rows: all their items
+// (Params::work, `words` = round_up(k_eff, 2) a row), then their tables
+// (`slots` a row), then their meta areas (`meta_ints` a row); the split of
+// a row's lanes into tiles of `tile_lanes` (`tiles` blocks a row; 1: the
+// fused kernel) and of its items into `itiles` tiles of kItemTile.
+struct WideArgs {
+  unsigned long long* table;
+  int* meta;
+  long long slots, meta_ints;
+  int tiles, tile_lanes, tiles_max, itiles;
+};
+
+// A row's share of the workspace (ops/select_cuda.py::wide_row_words
+// computes the same): items, table and meta, in 8-byte words.
+struct WideLayout {
+  int kw, tiles_max, itiles;
+  long long slots, meta_ints, row_words;
+};
+
+inline WideLayout wide_layout(long long n, int k_eff) {
+  WideLayout w;
+  w.kw = (k_eff + 1) & ~1;
+  w.slots = 1;
+  while (w.slots < 2LL * k_eff) w.slots <<= 1;
+  w.tiles_max = (int)((n + kMinTile - 1) / kMinTile);
+  w.itiles = (k_eff + kItemTile - 1) / kItemTile;
+  w.meta_ints = kMetaTiles + (long long)kTileInts * w.tiles_max +
+                (long long)kBins * w.itiles + ((w.itiles + 3) & ~3);
+  w.row_words = w.kw + w.slots + w.meta_ints / 2;
+  return w;
+}
+
+// A group of `rows` rows of n lanes over the card's `sms`: tiles a row so
+// that about two blocks an SM run the lane passes (1 while the rows fill
+// them; at most tiles_max, tiles of at least kMinTile lanes), each tile a
+// multiple of 8 lanes (ops/select_cuda.py::wide_grid computes the same).
+inline void wide_tiles(int rows, long long n, int sms, int tiles_max,
+                       int* tiles, int* tile_lanes) {
+  long long t = (2LL * sms + rows - 1) / rows;
+  if (t > tiles_max) t = tiles_max;
+  if (t < 1) t = 1;
+  *tile_lanes = (int)(((n + t - 1) / t + 7) / 8 * 8);
+  *tiles = (int)((n + *tile_lanes - 1) / *tile_lanes);
+}
 
 // The branch and the dynamic shared memory of a row of n lanes with
 // k_eff selected (ops/select_cuda.py::plan computes the same).
@@ -168,8 +261,8 @@ struct Plan {
   int on_chip, words, area, smem;
 };
 
-// The wide branch (k_eff > kMaxSel): the key area holds the keys (on chip)
-// or nothing, then the sort's tile; the histogram lies after it.
+// The wide branch (k_eff > kMaxSel), one block a row: the key area holds
+// the keys (on chip) or nothing; the histogram lies after it.
 inline Plan make_plan(long long n, int k_eff) {
   int m = 1;
   while (m < k_eff) m <<= 1;
@@ -177,10 +270,8 @@ inline Plan make_plan(long long n, int k_eff) {
   pl.words = m < kMinWords ? kMinWords : m;
   const long long keys = 2 * ((n + 3 + 7) / 8 * 8);
   if (k_eff > kMaxSel) {
-    const long long tile = 8LL * kTileWords;
-    const long long area = keys > tile ? keys : tile;
-    pl.on_chip = area + kHistBytes + kStaticReserve <= kSmemLimit;
-    pl.area = (int)(pl.on_chip ? area : tile);
+    pl.on_chip = keys + kHistBytes + kStaticReserve <= kSmemLimit;
+    pl.area = (int)(pl.on_chip ? keys : 0);
     pl.smem = pl.area + kHistBytes;
     return pl;
   }
@@ -417,150 +508,122 @@ __device__ __forceinline__ int table_rank(const unsigned* ids,
   return ranks[h];
 }
 
-// Bitonic sort, descending, of w[0 .. m) in device memory (m a power of
-// two >= 2); every thread of the block calls it.  The strides below S =
-// min(m, kTileWords) run on tiles of S words in shared memory (`tile`),
-// all of a size's small strides between one load and one store of each
-// tile; the larger strides are block-wide passes over w.  The direction
-// of a pair is set by its position in w, as in sort_desc.
-__device__ void sort_desc_wide(unsigned long long* w, int m,
-                               unsigned long long* tile) {
-  const int S = m < kTileWords ? m : kTileWords;
-  const int tid = threadIdx.x;
-  // On each tile, for the sizes lo .. hi: the strides below S, from the
-  // larger down to 1.
-  auto tiles = [&](int lo, int hi) {
-    for (int t = 0; t < m; t += S) {
-      for (int i = tid; i < S; i += kThreads) tile[i] = w[t + i];
-      __syncthreads();
-      for (int size = lo; size <= hi; size <<= 1) {
-        for (int stride = min(size, S) >> 1; stride > 0; stride >>= 1) {
-          for (int q = tid; q < (S >> 1); q += kThreads) {
-            const int a_at = 2 * q - (q & (stride - 1));
-            const int b_at = a_at + stride;
-            const unsigned long long a = tile[a_at], b = tile[b_at];
-            const bool desc = ((t + a_at) & size) == 0;
-            if (desc ? a < b : a > b) {
-              tile[a_at] = b;
-              tile[b_at] = a;
-            }
-          }
-          __syncthreads();
-        }
-      }
-      for (int i = tid; i < S; i += kThreads) w[t + i] = tile[i];
-      __syncthreads();
+// The wide branch's dedup table: one 64-bit slot an id, id << 32 | its
+// least rank (kEmpty when free); `shift` = 32 - log2(slots).  A CAS
+// claims a free slot, atomicMin keeps the least rank of an id already
+// there: the table's contents do not depend on the order of the inserts
+// (which slot an id takes may, which no lookup sees).
+__device__ __forceinline__ void table_insert64(unsigned long long* t,
+                                               unsigned mask, int shift,
+                                               int id, int rank) {
+  const unsigned long long word =
+      ((unsigned long long)(unsigned)id << 32) | (unsigned)rank;
+  unsigned h = slot_of(id, shift);
+  while (true) {
+    const unsigned long long cur = atomicCAS(&t[h], kEmpty, word);
+    if (cur == kEmpty) return;
+    if ((unsigned)(cur >> 32) == (unsigned)id) {
+      atomicMin(&t[h], word);
+      return;
     }
-  };
-  tiles(2, S);
-  for (int size = 2 * S; size <= m; size <<= 1) {
-    for (int stride = size >> 1; stride >= S; stride >>= 1) {
-      for (int q = tid; q < (m >> 1); q += kThreads) {
-        const int lo = 2 * q - (q & (stride - 1));
-        const int hi = lo + stride;
-        const unsigned long long a = w[lo], b = w[hi];
-        const bool desc = (lo & size) == 0;
-        if (desc ? a < b : a > b) {
-          w[lo] = b;
-          w[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-    tiles(size, size);
+    h = (h + 1) & mask;
   }
 }
 
-// The wide branch after pass 3: the k_eff words of row `row` in the
-// block's workspace `ws` (m = p.words of them; then the dedup table's 2 *
-// m ids and 2 * m ranks) are padded with 0, sorted, decoded and, with
-// dedup, kept at each id's least rank; the first k are written.
-__device__ void wide_tail(const Params& p, long long row,
-                          unsigned long long* ws, unsigned long long* tile,
-                          int* warp_sums) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int m = p.words, k_eff = p.k_eff;
-  float* out_s = p.out_s + row * (long long)p.k;
-  int* out_i = p.out_i + row * (long long)p.k;
-  for (int i = k_eff + tid; i < m; i += kThreads) ws[i] = 0ull;
-  __syncthreads();
-  sort_desc_wide(ws, m, tile);
+// The least rank of an id that was inserted.
+__device__ __forceinline__ int table_rank64(const unsigned long long* t,
+                                            unsigned mask, int shift,
+                                            int id) {
+  unsigned h = slot_of(id, shift);
+  while (true) {
+    const unsigned long long cur = t[h];
+    if ((unsigned)(cur >> 32) == (unsigned)id) return (int)(unsigned)cur;
+    h = (h + 1) & mask;
+  }
+}
 
-  // Rank r's score and id (-1 where the score is -inf or the probe id
-  // lies outside [0, L)).
-  auto decode = [&](int r, float* score) -> int {
-    const unsigned long long w = ws[r];
-    const int lane_r = (int)(0xffffffffu - (unsigned)w);
-    *score = key16_to_f32((unsigned)(w >> 32));
-    if (!(*score > -CUDART_INF_F)) return -1;
-    const int rank = lane_r / p.cap;
-    const long long list = p.probe[row * p.p + rank];
-    if (list < 0 || list >= p.l) return -1;
-    return p.ids[list * p.cap + (lane_r - rank * p.cap)];
-  };
-
-  const bool dedup = p.dedup;
-  if (!dedup) {  // k_eff <= k here
-    for (int r = tid; r < k_eff; r += kThreads) {
-      float s;
-      const int id = decode(r, &s);
-      out_s[r] = s;
-      out_i[r] = id;
+// In place, the exclusive prefix sums of a[0], a[stride], ... (count
+// values) in index order; returns their total.  Every thread of the block
+// calls it; `sums` is kWarps values of shared memory.
+template <typename T>
+__device__ T block_scan(T* a, int count, int stride, T* sums) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T carry = 0;
+  for (int base = 0; base < count; base += kThreads) {
+    const int i = base + threadIdx.x;
+    const T v = i < count ? a[(long long)i * stride] : T(0);
+    T incl = v;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const T t = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += t;
     }
-    for (int i = k_eff + tid; i < p.k; i += kThreads) {
-      out_s[i] = -CUDART_INF_F;
-      out_i[i] = -1;
-    }
-    return;
-  }
-
-  unsigned* t_ids = reinterpret_cast<unsigned*>(ws + m);
-  int* t_ranks = reinterpret_cast<int*>(t_ids + 2 * m);
-  const int slots = 2 * m;
-  const unsigned mask = (unsigned)slots - 1u;
-  const int shift = 32 - (__ffs(slots) - 1);
-  for (int i = tid; i < slots; i += kThreads) {
-    t_ids[i] = kFree;
-    t_ranks[i] = k_eff;
-  }
-  __syncthreads();
-  for (int r = tid; r < k_eff; r += kThreads) {
-    float s;
-    const int id = decode(r, &s);
-    if (id >= 0) table_insert(t_ids, t_ranks, mask, shift, id, r);
-  }
-  __syncthreads();
-  // The kept ranks in rank order, kThreads ranks a step (one each).
-  int base = 0;
-  for (int r0 = 0; r0 < k_eff && base < p.k; r0 += kThreads) {
-    const int r = r0 + tid;
-    float s = 0.0f;
-    int id = -1;
-    if (r < k_eff) id = decode(r, &s);
-    const int kept =
-        id >= 0 && table_rank(t_ids, t_ranks, mask, shift, id) == r;
-    const int incl = warp_inclusive(kept);
-    if (lane == 31) warp_sums[warp] = incl;
+    if (lane == 31) sums[warp] = incl;
     __syncthreads();
-    const int w_kept = lane < kWarps ? warp_sums[lane] : 0;
-    const int pos =
-        base + __reduce_add_sync(kFull, lane < warp ? w_kept : 0) + incl - kept;
-    const int total = __reduce_add_sync(kFull, w_kept);
-    __syncthreads();  // warp_sums is read before the next step writes it
-    if (kept && pos < p.k) {
-      out_s[pos] = s;
-      out_i[pos] = id;
+    T before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const T s = sums[w];
+      if (w < warp) before += s;
+      total += s;
     }
-    base += total;
+    if (i < count) a[(long long)i * stride] = carry + before + incl - v;
+    carry += total;
+    __syncthreads();
   }
-  for (int i = min(base, p.k) + tid; i < p.k; i += kThreads) {
-    out_s[i] = -CUDART_INF_F;
-    out_i[i] = -1;
+  return carry;
+}
+
+// Over `rows` rows of kBins counts (row r at c + r * stride, 16-byte
+// aligned): col[d] = the sum of column d; with `prefix`, each count becomes
+// the sum of its column in the rows above it.  Warp w takes a run of rows,
+// lane j the columns 8j .. 8j + 7; `wsum` is kWarps * kBins ints of shared
+// memory.  Every thread of the block calls it; it ends with a barrier.
+__device__ void column_scan(int* c, int rows, int stride, bool prefix,
+                            int* col, int* wsum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (rows + kWarps - 1) / kWarps;
+  const int r0 = min(rows, warp * per), r1 = min(rows, r0 + per);
+  int s[8] = {};
+  for (int r = r0; r < r1; ++r) {
+    const int4* at = reinterpret_cast<const int4*>(c + (long long)r * stride +
+                                                   8 * lane);
+    const int4 x = at[0], y = at[1];
+    s[0] += x.x; s[1] += x.y; s[2] += x.z; s[3] += x.w;
+    s[4] += y.x; s[5] += y.y; s[6] += y.z; s[7] += y.w;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) wsum[warp * kBins + 8 * lane + j] = s[j];
+  __syncthreads();
+  for (int d = threadIdx.x; d < kBins; d += kThreads) {
+    int run = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int v = wsum[w * kBins + d];
+      wsum[w * kBins + d] = run;
+      run += v;
+    }
+    col[d] = run;
+  }
+  __syncthreads();
+  if (prefix) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j] = wsum[warp * kBins + 8 * lane + j];
+    for (int r = r0; r < r1; ++r) {
+      int4* at = reinterpret_cast<int4*>(c + (long long)r * stride + 8 * lane);
+      const int4 x = at[0], y = at[1];
+      at[0] = make_int4(s[0], s[1], s[2], s[3]);
+      at[1] = make_int4(s[4], s[5], s[6], s[7]);
+      s[0] += x.x; s[1] += x.y; s[2] += x.z; s[3] += x.w;
+      s[4] += y.x; s[5] += y.y; s[6] += y.z; s[7] += y.w;
+    }
+    __syncthreads();
   }
 }
 
-// One row: passes 1-3, then (Wide) wide_tail, else the sort, decode and
-// dedup on chip.
+// One row: passes 1-3, then (Wide) nothing more (the wide branch's sort
+// and tail are kernels of their own), else the sort, decode and dedup on
+// chip.
 template <bool Wide>
 __device__ __forceinline__ void select_row(const Params& p, long long row,
                                            unsigned char* smem) {
@@ -575,9 +638,8 @@ __device__ __forceinline__ void select_row(const Params& p, long long row,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = p.n, k_eff = p.k_eff;
-  // Wide: this block's workspace.
-  unsigned long long* ws =
-      Wide ? p.work + (long long)blockIdx.x * 3 * p.words : nullptr;
+  // Wide: the row's items.
+  unsigned long long* ws = Wide ? p.work + row * p.words : nullptr;
   const float* x = p.flat + row * (long long)n;
   float* out_s = p.out_s + row * (long long)p.k;
   int* out_i = p.out_i + row * (long long)p.k;
@@ -684,11 +746,11 @@ __device__ __forceinline__ void select_row(const Params& p, long long row,
   const int ties = need - sel[3];  // lanes at the threshold to take
 
   // Pass 3: the taken lanes to their slots in lane order, as words
-  // key << 16 | (0xffff - slot), the lane beside.  A chunk's one block
-  // scan of (lanes at the threshold, lanes above it), packed in the low
-  // and high 16 bits, gives each thread its first tie rank and its first
-  // slot; the warps' sums alternate between two buffers, so one barrier
-  // a chunk suffices.
+  // key << 16 | (0xffff - slot), the lane beside (Wide: key << 32 |
+  // lane).  A chunk's one block scan of (lanes at the threshold, lanes
+  // above it), packed in the low and high 16 bits, gives each thread its
+  // first tie rank and its first slot; the warps' sums alternate between
+  // two buffers, so one barrier a chunk suffices.
   {
     int tie_base = 0, slot_base = 0;  // over the chunks before
     for (int ch = 0; ch < chunks; ++ch) {
@@ -747,8 +809,7 @@ __device__ __forceinline__ void select_row(const Params& p, long long row,
           const int pos = 8 * (ch * kThreads + warp * 32 + owner) * kSteps + c;
           if (p.on_chip) key = keys[pos];
           if (Wide) {
-            ws[slot] = ((unsigned long long)key << 32) |
-                       (0xffffffffu - (unsigned)(pos - off));
+            ws[slot] = ((unsigned long long)key << 32) | (unsigned)(pos - off);
           } else {
             words[slot] = (key << 16) | (0xffffu - (unsigned)slot);
             lanes[slot] = pos - off;
@@ -760,13 +821,9 @@ __device__ __forceinline__ void select_row(const Params& p, long long row,
       tie_base += eq_total;
     }
   }
+  if (Wide) return;
   // The key area is free from here: the dedup table's slots start empty.
   __syncthreads();
-  if (Wide) {
-    wide_tail(p, row, ws, reinterpret_cast<unsigned long long*>(smem),
-              warp_sums);
-    return;
-  }
   if (p.dedup) {
     for (int i = tid; i < 2 * p.words; i += kThreads) {
       table_ids[i] = kFree;
@@ -879,15 +936,743 @@ __global__ void __launch_bounds__(kThreads, 2)
   select_row<false>(p, blockIdx.x, smem);
 }
 
-// The wide branch: a persistent grid, block g on rows g, g + gridDim.x,
-// ... with workspace g.
+// The wide branch, a row on one block: passes 1-3 of select_row, the
+// taken lanes to the row's items in lane order.
 __global__ void __launch_bounds__(kThreads, 2)
     canonical_select_wide_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  for (long long row = blockIdx.x; row < p.b; row += gridDim.x) {
-    select_row<true>(p, row, smem);
-    __syncthreads();  // the row's last reads of shared memory are done
+  select_row<true>(p, blockIdx.x, smem);
+}
+
+// ---- The wide branch's kernels over (row, tile) blocks ----
+
+__device__ __forceinline__ int* row_meta(const WideArgs& w, long long row) {
+  return w.meta + row * w.meta_ints;
+}
+
+// Lane tile t's entry: its low-byte histogram (kBins ints), then an int64
+// (its count of lanes above the high bin, then its packed first tie rank
+// and count of lanes above the threshold), its first tie rank and its
+// first slot.
+__device__ __forceinline__ int* lane_tile(int* meta, int t) {
+  return meta + kMetaTiles + t * kTileInts;
+}
+
+// The item tiles' digit counts (itiles x kBins), then their kept counts.
+__device__ __forceinline__ int* item_counts(const WideArgs& w, int* meta) {
+  return meta + kMetaTiles + kTileInts * w.tiles_max;
+}
+
+__device__ __forceinline__ int* item_kept(const WideArgs& w, int* meta) {
+  return item_counts(w, meta) + kBins * w.itiles;
+}
+
+// Block (row, lane tile) of a split row: its lanes [lo, hi).
+struct LaneTile {
+  long long row;
+  int t, lo, hi;
+};
+
+__device__ __forceinline__ LaneTile lane_span(const Params& p,
+                                              const WideArgs& w) {
+  LaneTile s;
+  s.row = blockIdx.x / w.tiles;
+  s.t = (int)(blockIdx.x % w.tiles);
+  s.lo = s.t * w.tile_lanes;
+  s.hi = min(p.n, s.lo + w.tile_lanes);
+  return s;
+}
+
+// Pass 1 of a split row: the tile's high-byte histogram, added to the
+// row's (integer atomics: the sum does not depend on the blocks' order).
+__global__ void __launch_bounds__(kThreads)
+    wide_pass1_kernel(const Params p, const WideArgs w) {
+  __shared__ int hist[kBins];
+  const LaneTile s = lane_span(p, w);
+  const float* x = p.flat + s.row * (long long)p.n;
+  for (int i = threadIdx.x; i < kBins; i += kThreads) hist[i] = 0;
+  __syncthreads();
+  for (int j0 = s.lo; j0 < s.hi; j0 += kThreads * kLoads * 2) {
+    float v[kLoads * 2];
+#pragma unroll
+    for (int u = 0; u < kLoads * 2; ++u) {
+      const int j = j0 + u * kThreads + threadIdx.x;
+      v[u] = j < s.hi ? x[j] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads * 2; ++u) {
+      const int j = j0 + u * kThreads + threadIdx.x;
+      add_to_bin(hist, j < s.hi ? key16(v[u]) >> 8 : kBins);
+    }
   }
+  __syncthreads();
+  int* meta = row_meta(w, s.row);
+  for (int i = threadIdx.x; i < kBins; i += kThreads) {
+    if (hist[i]) atomicAdd(&meta[kMetaHist + i], hist[i]);
+  }
+}
+
+// Pass 2 of a split row: the high bin from the row's histogram, then the
+// tile's low-byte histogram within it and its count of lanes above it.
+__global__ void __launch_bounds__(kThreads)
+    wide_pass2_kernel(const Params p, const WideArgs w) {
+  __shared__ int hist[kBins];
+  __shared__ int sel[2];
+  __shared__ int above[kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const LaneTile s = lane_span(p, w);
+  const float* x = p.flat + s.row * (long long)p.n;
+  int* meta = row_meta(w, s.row);
+  for (int i = tid; i < kBins; i += kThreads) hist[i] = 0;
+  if (warp == 0) find_bin(meta + kMetaHist, p.k_eff, &sel[0], &sel[1]);
+  __syncthreads();
+  const unsigned high = (unsigned)sel[0];
+  int count = 0;
+  for (int j0 = s.lo; j0 < s.hi; j0 += kThreads * kLoads * 2) {
+    float v[kLoads * 2];
+#pragma unroll
+    for (int u = 0; u < kLoads * 2; ++u) {
+      const int j = j0 + u * kThreads + tid;
+      v[u] = j < s.hi ? x[j] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads * 2; ++u) {
+      const unsigned key = key16(v[u]);
+      if (j0 + u * kThreads + tid < s.hi) {
+        if ((key >> 8) == high) {
+          atomicAdd(&hist[key & 0xffu], 1);
+        } else if ((key >> 8) > high) {
+          ++count;
+        }
+      }
+    }
+  }
+  count = __reduce_add_sync(kFull, count);
+  if (lane == 0) above[warp] = count;
+  __syncthreads();
+  int* tile = lane_tile(meta, s.t);
+  for (int i = tid; i < kBins; i += kThreads) tile[i] = hist[i];
+  if (tid == 0) {
+    long long sum = 0;
+    for (int i = 0; i < kWarps; ++i) sum += above[i];
+    *reinterpret_cast<long long*>(tile + kBins) = sum;
+  }
+}
+
+// A split row's threshold key and ties (meta misc 0 and 1), and each
+// tile's first tie rank and first slot: the tiles' counts at and above
+// the threshold, scanned in tile order.  One block a row.
+__global__ void __launch_bounds__(kThreads)
+    wide_select_scan_kernel(const Params p, const WideArgs w) {
+  __shared__ int col[kBins];
+  __shared__ int wsum[kWarps * kBins];
+  __shared__ long long sums[kWarps];
+  __shared__ int sel[4];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int* meta = row_meta(w, blockIdx.x);
+  if (warp == 0) find_bin(meta + kMetaHist, p.k_eff, &sel[0], &sel[1]);
+  column_scan(meta + kMetaTiles, w.tiles, kTileInts, false, col, wsum);
+  const int need = p.k_eff - sel[1];
+  if (warp == 0) find_bin(col, need, &sel[2], &sel[3]);
+  __syncthreads();
+  const int low = sel[2];
+  const int ties = need - sel[3];
+  // Each tile's lanes at the threshold and above it, packed in an int64.
+  for (int t = warp; t < w.tiles; t += kWarps) {
+    int* tile = lane_tile(meta, t);
+    long long* packed = reinterpret_cast<long long*>(tile + kBins);
+    int gt = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (8 * lane + j > low) gt += tile[8 * lane + j];
+    }
+    gt = __reduce_add_sync(kFull, gt);
+    const long long above_bin = *packed;
+    const int eq = tile[low];
+    __syncwarp();
+    if (lane == 0) *packed = (long long)eq | ((above_bin + gt) << 32);
+  }
+  __syncthreads();
+  block_scan<long long>(
+      reinterpret_cast<long long*>(meta + kMetaTiles + kBins), w.tiles,
+      kTileInts / 2, sums);
+  for (int t = tid; t < w.tiles; t += kThreads) {
+    int* tile = lane_tile(meta, t);
+    const long long v = *reinterpret_cast<long long*>(tile + kBins);
+    const int eq_before = (int)(v & 0xffffffffLL);
+    tile[kBins + 2] = eq_before;
+    tile[kBins + 3] = (int)(v >> 32) + min(ties, eq_before);
+  }
+  if (tid == 0) {
+    meta[kMetaMisc] = (sel[0] << 8) | low;
+    meta[kMetaMisc + 1] = ties;
+  }
+}
+
+// Pass 3 of a split row: the tile's taken lanes to their slots in lane
+// order, from the tile's first tie rank and first slot, as words key << 32
+// | lane.  Rounds of 8 consecutive lanes a thread; one packed block scan
+// of (lanes at the threshold, lanes above it) a round, as in select_row.
+__global__ void __launch_bounds__(kThreads)
+    wide_pass3_kernel(const Params p, const WideArgs w) {
+  constexpr int E = 8;
+  __shared__ int warp_sums[2 * kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const LaneTile s = lane_span(p, w);
+  const float* x = p.flat + s.row * (long long)p.n;
+  int* meta = row_meta(w, s.row);
+  const int* tile = lane_tile(meta, s.t);
+  const unsigned thresh = (unsigned)meta[kMetaMisc];
+  const int ties = meta[kMetaMisc + 1];
+  int tie_base = tile[kBins + 2], slot_base = tile[kBins + 3];
+  unsigned long long* items = p.work + s.row * p.words;
+  int r = 0;
+  for (int j0 = s.lo; j0 < s.hi; j0 += kThreads * E, ++r) {
+    const int j = j0 + tid * E;
+    unsigned k[E];
+    unsigned eqm = 0u, take = 0u;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const bool in = j + e < s.hi;
+      k[e] = in ? key16(x[j + e]) : 0u;
+      eqm |= (unsigned)(in && k[e] == thresh) << e;
+      take |= (unsigned)(in && k[e] > thresh) << e;
+    }
+    const unsigned mine = __popc(eqm) | (__popc(take) << 16);
+    const unsigned incl = (unsigned)warp_inclusive((int)mine);
+    int* sums = warp_sums + (r & 1) * kWarps;
+    if (lane == 31) sums[warp] = (int)incl;
+    __syncthreads();
+    const int w_sum = lane < kWarps ? sums[lane] : 0;
+    const unsigned before = (unsigned)__reduce_add_sync(
+        kFull, lane < warp ? w_sum : 0) + incl - mine;
+    const unsigned total = (unsigned)__reduce_add_sync(kFull, w_sum);
+    const int eq_before = (int)(before & 0xffffu);
+    int can = min(max(ties - (tie_base + eq_before), 0), __popc(eqm));
+    for (unsigned m = eqm; can > 0; --can, m &= m - 1u) take |= m & (0u - m);
+    int at = slot_base + (int)(before >> 16) +
+             min(max(ties - tie_base, 0), eq_before);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if ((take >> e) & 1u) {
+        items[at++] = ((unsigned long long)k[e] << 32) | (unsigned)(j + e);
+      }
+    }
+    const int eq_total = (int)(total & 0xffffu);
+    slot_base += (int)(total >> 16) + min(max(ties - tie_base, 0), eq_total);
+    tie_base += eq_total;
+  }
+}
+
+// Block (row, item tile): its items [lo, hi) of the row's k_eff.
+struct ItemTile {
+  long long row;
+  int t, lo, hi;
+};
+
+__device__ __forceinline__ ItemTile item_span(const Params& p,
+                                              const WideArgs& w) {
+  ItemTile s;
+  s.row = blockIdx.x / w.itiles;
+  s.t = (int)(blockIdx.x % w.itiles);
+  s.lo = s.t * kItemTile;
+  s.hi = min(p.k_eff, s.lo + kItemTile);
+  return s;
+}
+
+// The digit of an item in the sort's pass at `shift` (0: the key's low
+// byte, 8: its high byte).
+__device__ __forceinline__ unsigned item_digit(unsigned long long v,
+                                               int shift) {
+  return (unsigned)(v >> (32 + shift)) & 0xffu;
+}
+
+// The sort's count: the item tile's histogram of the digit.
+__global__ void __launch_bounds__(kThreads)
+    wide_count_kernel(const Params p, const WideArgs w,
+                      const unsigned long long* src, long long stride,
+                      int shift) {
+  constexpr int U = kItemTile / kThreads;
+  __shared__ int hist[kBins];
+  const ItemTile s = item_span(p, w);
+  const unsigned long long* a = src + s.row * stride;
+  for (int i = threadIdx.x; i < kBins; i += kThreads) hist[i] = 0;
+  unsigned long long v[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int i = s.lo + u * kThreads + threadIdx.x;
+    v[u] = i < s.hi ? a[i] : 0ull;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int i = s.lo + u * kThreads + threadIdx.x;
+    add_to_bin(hist, i < s.hi ? item_digit(v[u], shift) : kBins);
+  }
+  __syncthreads();
+  int* cnt = item_counts(w, row_meta(w, s.row)) + s.t * kBins;
+  for (int i = threadIdx.x; i < kBins; i += kThreads) cnt[i] = hist[i];
+}
+
+// The sort's scan, one block a row: each item tile's count of a digit
+// becomes the count of that digit in the tiles before it, and the
+// buckets' starts, digit 255 first (descending), go to meta's starts.
+__global__ void __launch_bounds__(kThreads)
+    wide_sort_scan_kernel(const Params p, const WideArgs w) {
+  __shared__ int col[kBins];
+  __shared__ int wsum[kWarps * kBins];
+  int* meta = row_meta(w, blockIdx.x);
+  column_scan(item_counts(w, meta), w.itiles, kBins, true, col, wsum);
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int c[8], sum = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      c[j] = col[kBins - 1 - 8 * lane - j];
+      sum += c[j];
+    }
+    int run = warp_inclusive(sum) - sum;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      meta[kMetaStart + kBins - 1 - 8 * lane - j] = run;
+      run += c[j];
+    }
+  }
+}
+
+// Stable ranking by digit for a block: warp w takes the contiguous
+// segment [s0, s1) of the block's items.  warp_counts: the warp's digit
+// counts into `mine` (its row of wc, kBins ints, zeroed here).
+// warp_starts: each warp's start in each bucket, from the buckets' starts
+// for the block (start[d]): wc[w][d] = start[d] + the counts of d in the
+// warps before w.  warp_place: the segment's items to their places, 32 a
+// round in index order: the warp's running start of the item's digit plus
+// its rank among the round's lanes of that digit (__match_any_sync).
+// Equal digits keep their index order: the sort is stable.
+__device__ __forceinline__ void warp_counts(const unsigned long long* src,
+                                            int s0, int s1, int shift,
+                                            int* mine) {
+  const int lane = threadIdx.x & 31;
+  for (int d = lane; d < kBins; d += 32) mine[d] = 0;
+  __syncwarp();
+  for (int i0 = s0; i0 < s1; i0 += 32) {
+    const int i = i0 + lane;
+    const unsigned d = i < s1 ? item_digit(src[i], shift) : kBins;
+    const unsigned peers = __match_any_sync(kFull, d);
+    if (d < kBins && lane == __ffs(peers) - 1) mine[d] += __popc(peers);
+    __syncwarp();
+  }
+}
+
+template <int W = kWarps>
+__device__ __forceinline__ void warp_starts(int* wc, const int* start) {
+  for (int d = threadIdx.x; d < kBins; d += 32 * W) {
+    int run = start[d];
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const int v = wc[w * kBins + d];
+      wc[w * kBins + d] = run;
+      run += v;
+    }
+  }
+}
+
+__device__ __forceinline__ void warp_place(const unsigned long long* src,
+                                           int s0, int s1, int shift,
+                                           int* mine,
+                                           unsigned long long* dst) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lower = (1u << lane) - 1u;
+  for (int i0 = s0; i0 < s1; i0 += 32) {
+    const int i = i0 + lane;
+    const bool in = i < s1;
+    const unsigned long long v = in ? src[i] : 0ull;
+    const unsigned d = in ? item_digit(v, shift) : kBins;
+    const unsigned peers = __match_any_sync(kFull, d);
+    if (in) dst[mine[d] + __popc(peers & lower)] = v;
+    __syncwarp();
+    if (in && lane == __ffs(peers) - 1) mine[d] += __popc(peers);
+    __syncwarp();
+  }
+}
+
+// The items [s0, s1) of this warp's segment when a block's `count` items
+// are split over its W warps (segments of whole rounds of 32).
+template <int W = kWarps>
+__device__ __forceinline__ void warp_segment(int count, int* s0, int* s1) {
+  const int seg = (count + 32 * W - 1) / (32 * W) * 32;
+  *s0 = min(count, (int)(threadIdx.x >> 5) * seg);
+  *s1 = min(count, *s0 + seg);
+}
+
+// The sort's scatter: the item tile's items to their buckets, stable, from
+// the tile's start in each bucket.
+__global__ void __launch_bounds__(kThreads)
+    wide_scatter_kernel(const Params p, const WideArgs w,
+                        const unsigned long long* src, long long src_stride,
+                        unsigned long long* dst, long long dst_stride,
+                        int shift) {
+  __shared__ int start[kBins];
+  __shared__ int wc[kWarps * kBins];
+  const ItemTile s = item_span(p, w);
+  int* meta = row_meta(w, s.row);
+  const int* cnt = item_counts(w, meta) + s.t * kBins;
+  const unsigned long long* a = src + s.row * src_stride + s.lo;
+  int s0, s1;
+  warp_segment(s.hi - s.lo, &s0, &s1);
+  int* mine = wc + (threadIdx.x >> 5) * kBins;
+  for (int i = threadIdx.x; i < kBins; i += kThreads) {
+    start[i] = meta[kMetaStart + i] + cnt[i];
+  }
+  warp_counts(a, s0, s1, shift, mine);
+  __syncthreads();
+  warp_starts(wc, start);
+  __syncthreads();
+  warp_place(a, s0, s1, shift, mine, dst + s.row * dst_stride);
+}
+
+// The wide branch's sort and tail of a row of at most kRowTail items on one
+// block, in shared memory: the items read once, the two digit passes
+// between two arrays of shared memory (warp_counts, the buckets' starts,
+// warp_starts, warp_place), the decode of a rank a thread a wave, and the
+// dedup through a table of the least power of two >= 2 k_eff slots in the
+// arrays' place (a 32-bit id and rank each; shared memory's 64-bit atomics
+// are emulated): a CAS claims, and only a lower rank of the same wave
+// needs an atomicMin; a block scan a wave places the kept ranks.
+__global__ void __launch_bounds__(kTailThreads, 1)
+    wide_row_tail_kernel(const Params p, const WideArgs w) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int start[kBins];
+  __shared__ int wc[kTailWarps * kBins];
+  __shared__ int warp_sums[kTailWarps];
+  constexpr int U = kRowTail / kTailThreads;
+  unsigned long long* a = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* bb = a + kRowTail;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long row = blockIdx.x;
+  const int k_eff = p.k_eff;
+  const unsigned long long* items = p.work + row * p.words;
+  for (int i = tid; i < k_eff; i += kTailThreads) a[i] = items[i];
+  int s0, s1;
+  warp_segment<kTailWarps>(k_eff, &s0, &s1);
+  int* mine = wc + warp * kBins;
+  __syncthreads();
+  for (int shift = 0; shift <= 8; shift += 8) {
+    const unsigned long long* src = shift ? bb : a;
+    unsigned long long* dst = shift ? a : bb;
+    warp_counts(src, s0, s1, shift, mine);
+    __syncthreads();
+    for (int d = tid; d < kBins; d += kTailThreads) {
+      int total = 0;
+#pragma unroll
+      for (int q = 0; q < kTailWarps; ++q) total += wc[q * kBins + d];
+      start[d] = total;
+    }
+    __syncthreads();
+    if (warp == 0) {  // the buckets' starts, digit 255 first
+      int c[8], sum = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        c[j] = start[kBins - 1 - 8 * lane - j];
+        sum += c[j];
+      }
+      int run = warp_inclusive(sum) - sum;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        start[kBins - 1 - 8 * lane - j] = run;
+        run += c[j];
+      }
+    }
+    __syncthreads();
+    warp_starts<kTailWarps>(wc, start);
+    __syncthreads();
+    warp_place(src, s0, s1, shift, mine, dst);
+    __syncthreads();
+  }
+
+  // Each thread decodes the ranks tid, tid + kTailThreads, ... (wave c
+  // holds ranks c * kTailThreads onward): the key's score, the id through
+  // the probe table.
+  unsigned key[U];
+  long long list[U];
+  int id[U];
+#pragma unroll
+  for (int c = 0; c < U; ++c) {
+    const int r = c * kTailThreads + tid;
+    list[c] = -1;
+    key[c] = 0u;
+    id[c] = 0;
+    if (r < k_eff) {
+      const unsigned long long v = a[r];
+      key[c] = (unsigned)(v >> 32);
+      id[c] = (int)(unsigned)v;  // the lane until the id replaces it
+      if (key16_to_f32(key[c]) > -CUDART_INF_F) {
+        list[c] = p.probe[row * p.p + id[c] / p.cap];
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < U; ++c) {
+    const int lane_c = id[c];
+    id[c] = -1;
+    if (list[c] >= 0 && list[c] < p.l) {
+      id[c] = p.ids[list[c] * p.cap + lane_c % p.cap];
+    }
+  }
+  float* out_s = p.out_s + row * (long long)p.k;
+  int* out_i = p.out_i + row * (long long)p.k;
+  if (!p.dedup) {  // k_eff <= k here
+#pragma unroll
+    for (int c = 0; c < U; ++c) {
+      const int r = c * kTailThreads + tid;
+      if (r < k_eff) {
+        out_s[r] = key16_to_f32(key[c]);
+        out_i[r] = id[c];
+      }
+    }
+    for (int i = k_eff + tid; i < p.k; i += kTailThreads) {
+      out_s[i] = -CUDART_INF_F;
+      out_i[i] = -1;
+    }
+    return;
+  }
+  // The dedup: a table of the least power of two >= 2 k_eff slots, a
+  // 32-bit id and rank each, in the arrays' place.  Wave by wave, in rank
+  // order, a CAS claims an id's slot and the claimer stores its rank; an
+  // id already there from an earlier wave has a lower rank, and one from
+  // this wave lowers the slot's rank with atomicMin where its own is
+  // lower (after a barrier, so the claimer's store is seen).  A rank is
+  // kept where its slot keeps it: each id's least rank, whatever order
+  // the threads run in.
+  int slots = 1;
+  while (slots < 2 * k_eff) slots <<= 1;
+  const unsigned mask = (unsigned)slots - 1u;
+  const int hash_shift = 32 - (__ffs(slots) - 1);
+  unsigned* t_ids = reinterpret_cast<unsigned*>(smem);
+  int* t_ranks = reinterpret_cast<int*>(t_ids + slots);
+  __syncthreads();  // every rank is read: the table takes the arrays
+  for (int i = tid; i < slots; i += kTailThreads) t_ids[i] = kFree;
+  __syncthreads();
+  int slot[U];
+#pragma unroll
+  for (int c = 0; c < U; ++c) {
+    const int r = c * kTailThreads + tid;
+    bool lost = false;
+    slot[c] = -1;
+    if (id[c] >= 0) {
+      unsigned h = slot_of(id[c], hash_shift);
+      while (true) {
+        const unsigned cur = atomicCAS(&t_ids[h], kFree, (unsigned)id[c]);
+        if (cur == kFree) {
+          t_ranks[h] = r;
+          break;
+        }
+        if (cur == (unsigned)id[c]) {
+          lost = true;
+          break;
+        }
+        h = (h + 1) & mask;
+      }
+      slot[c] = (int)h;
+    }
+    __syncthreads();
+    if (lost && r < t_ranks[slot[c]]) atomicMin(&t_ranks[slot[c]], r);
+  }
+  __syncthreads();
+  // The kept ranks to their places, wave by wave: a block scan of the
+  // wave's kept flags after the kept ranks of the waves before.
+  int base = 0;
+#pragma unroll
+  for (int c = 0; c < U; ++c) {
+    const int r = c * kTailThreads + tid;
+    const int kept = slot[c] >= 0 && t_ranks[slot[c]] == r;
+    const int incl = warp_inclusive(kept);
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();
+    const int w_kept = lane < kTailWarps ? warp_sums[lane] : 0;
+    const int pos = base + __reduce_add_sync(kFull, lane < warp ? w_kept : 0)
+                    + incl - kept;
+    base += __reduce_add_sync(kFull, w_kept);
+    __syncthreads();  // warp_sums is read before the next wave writes it
+    if (kept && pos < p.k) {
+      out_s[pos] = key16_to_f32(key[c]);
+      out_i[pos] = id[c];
+    }
+  }
+  for (int i = min(base, p.k) + tid; i < p.k; i += kTailThreads) {
+    out_s[i] = -CUDART_INF_F;
+    out_i[i] = -1;
+  }
+}
+
+// The written outputs of a row from position `start` to k: -inf and -1,
+// the row's item tiles in turn.
+__device__ __forceinline__ void pad_row(const Params& p, const WideArgs& w,
+                                        const ItemTile& s, int start) {
+  float* out_s = p.out_s + s.row * (long long)p.k;
+  int* out_i = p.out_i + s.row * (long long)p.k;
+  for (long long i0 = start + (long long)s.t * kItemTile; i0 < p.k;
+       i0 += (long long)w.itiles * kItemTile) {
+    const long long i1 = min(i0 + kItemTile, (long long)p.k);
+    for (long long i = i0 + threadIdx.x; i < i1; i += kThreads) {
+      out_s[i] = -CUDART_INF_F;
+      out_i[i] = -1;
+    }
+  }
+}
+
+// The decode of the sorted items, a rank a thread at a time: its score
+// from the key, its id through the probe table (-1 where the score is
+// -inf or the probe id lies outside [0, L)).  Without dedup (k_eff <= k)
+// the outputs; with it, the id in place of the lane and the id's least
+// rank into the row's table.
+__global__ void __launch_bounds__(kThreads)
+    wide_decode_kernel(const Params p, const WideArgs w) {
+  constexpr int U = kItemTile / kThreads;
+  const int tid = threadIdx.x;
+  const ItemTile s = item_span(p, w);
+  unsigned long long* items = p.work + s.row * p.words;
+  unsigned long long v[U];
+  long long list[U];
+  int id[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int i = s.lo + u * kThreads + tid;
+    v[u] = i < s.hi ? items[i] : 0ull;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    list[u] = -1;
+    if (s.lo + u * kThreads + tid < s.hi &&
+        key16_to_f32((unsigned)(v[u] >> 32)) > -CUDART_INF_F) {
+      const int lane_u = (int)(unsigned)v[u];
+      list[u] = p.probe[s.row * p.p + lane_u / p.cap];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    id[u] = -1;
+    if (list[u] >= 0 && list[u] < p.l) {
+      const int lane_u = (int)(unsigned)v[u];
+      id[u] = p.ids[list[u] * p.cap + lane_u % p.cap];
+    }
+  }
+  if (!p.dedup) {
+    float* out_s = p.out_s + s.row * (long long)p.k;
+    int* out_i = p.out_i + s.row * (long long)p.k;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = s.lo + u * kThreads + tid;
+      if (i < s.hi) {
+        out_s[i] = key16_to_f32((unsigned)(v[u] >> 32));
+        out_i[i] = id[u];
+      }
+    }
+    pad_row(p, w, s, p.k_eff);
+    return;
+  }
+  unsigned long long* table = w.table + s.row * w.slots;
+  const unsigned mask = (unsigned)(w.slots - 1);
+  const int shift = 32 - (__ffsll(w.slots) - 1);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int i = s.lo + u * kThreads + tid;
+    if (i < s.hi) {
+      items[i] = (v[u] & 0xffffffff00000000ull) | (unsigned)id[u];
+      if (id[u] >= 0) table_insert64(table, mask, shift, id[u], i);
+    }
+  }
+}
+
+// The dedup's verdicts: a rank is kept where its id's least rank is it; a
+// dropped rank's id becomes -1.  The item tile's kept count to meta.
+__global__ void __launch_bounds__(kThreads)
+    wide_keep_kernel(const Params p, const WideArgs w) {
+  constexpr int U = kItemTile / kThreads;
+  __shared__ int kept_w[kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const ItemTile s = item_span(p, w);
+  unsigned long long* items = p.work + s.row * p.words;
+  const unsigned long long* table = w.table + s.row * w.slots;
+  const unsigned mask = (unsigned)(w.slots - 1);
+  const int shift = 32 - (__ffsll(w.slots) - 1);
+  int count = 0;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int i = s.lo + u * kThreads + tid;
+    if (i < s.hi) {
+      const unsigned long long v = items[i];
+      const int id = (int)(unsigned)v;
+      if (id >= 0) {
+        if (table_rank64(table, mask, shift, id) == i) {
+          ++count;
+        } else {
+          items[i] = v | 0xffffffffull;
+        }
+      }
+    }
+  }
+  count = __reduce_add_sync(kFull, count);
+  if (lane == 0) kept_w[warp] = count;
+  __syncthreads();
+  if (tid == 0) {
+    int sum = 0;
+    for (int q = 0; q < kWarps; ++q) sum += kept_w[q];
+    item_kept(w, row_meta(w, s.row))[s.t] = sum;
+  }
+}
+
+// The item tiles' first output positions (the kept ranks before each) and
+// the row's kept total (meta misc 2).  One block a row.
+__global__ void __launch_bounds__(kThreads)
+    wide_keep_scan_kernel(const Params p, const WideArgs w) {
+  __shared__ int sums[kWarps];
+  int* meta = row_meta(w, blockIdx.x);
+  const int total = block_scan<int>(item_kept(w, meta), w.itiles, 1, sums);
+  if (threadIdx.x == 0) meta[kMetaMisc + 2] = total;
+}
+
+// The kept ranks to their output positions: a run of U ranks a thread,
+// one block scan of the kept counts in rank order; then the padding.
+__global__ void __launch_bounds__(kThreads)
+    wide_place_kernel(const Params p, const WideArgs w) {
+  constexpr int U = kItemTile / kThreads;
+  __shared__ int warp_sums[kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const ItemTile s = item_span(p, w);
+  int* meta = row_meta(w, s.row);
+  const int base = item_kept(w, meta)[s.t];
+  if (base < p.k) {
+    const unsigned long long* items = p.work + s.row * p.words;
+    float* out_s = p.out_s + s.row * (long long)p.k;
+    int* out_i = p.out_i + s.row * (long long)p.k;
+    const int i0 = s.lo + tid * U;
+    unsigned long long v[U];
+    unsigned kept = 0u;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      v[u] = i0 + u < s.hi ? items[i0 + u] : ~0ull;
+      kept |= (unsigned)((int)(unsigned)v[u] >= 0) << u;
+    }
+    const int kc = __popc(kept);
+    const int incl = warp_inclusive(kc);
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();
+    const int w_kept = lane < kWarps ? warp_sums[lane] : 0;
+    int pos = base + __reduce_add_sync(kFull, lane < warp ? w_kept : 0) +
+              incl - kc;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if ((kept >> u) & 1u) {
+        if (pos < p.k) {
+          out_s[pos] = key16_to_f32((unsigned)(v[u] >> 32));
+          out_i[pos] = (int)(unsigned)v[u];
+        }
+        ++pos;
+      }
+    }
+  }
+  pad_row(p, w, s, min(meta[kMetaMisc + 2], p.k));
 }
 
 // The kernels' static shared memory fits kStaticReserve (checked once).
@@ -973,8 +1758,10 @@ int canonical_select(const float* flat, const long long* probe,
 }
 
 // The wide branch (kMaxSel < k_eff): as canonical_select, with `work` a
-// device array of grid * 3 * m int64 (m the least power of two >= k_eff)
-// and `grid` (1 to b) the blocks that walk the rows.
+// device array of grid rows' workspace (grid * wide_layout(n,
+// k_eff).row_words int64, ops/select_cuda.py::wide_row_words) and `grid`
+// (1 to b) the rows a group: the groups run one after another, each a
+// sequence of launches on `stream`.
 int canonical_select_wide(const float* flat, const long long* probe,
                           const int* ids, float* out_s, int* out_i,
                           long long* work, int b, int n_probe, int n_list,
@@ -995,18 +1782,80 @@ int canonical_select_wide(const float* flat, const long long* probe,
   }
   cudaError_t err = check_static();
   if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
   const Plan pl = make_plan(n, k_eff);
-  const Params p = make_params(
-      flat, probe, ids, out_s, out_i,
-      reinterpret_cast<unsigned long long*>(work), b, n_probe, n_list, cap,
-      k_eff, k, dedup, pl);
+  const WideLayout lay = wide_layout(n, k_eff);
   err = cudaFuncSetAttribute(canonical_select_wide_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              pl.smem);
   if (err != cudaSuccess) return (int)err;
-  canonical_select_wide_kernel<<<grid, kThreads, pl.smem,
-                                 (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  err = cudaFuncSetAttribute(wide_row_tail_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             16 * kRowTail);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  unsigned long long* ws = reinterpret_cast<unsigned long long*>(work);
+  for (int row0 = 0; row0 < b; row0 += grid) {
+    const int rows = b - row0 < grid ? b - row0 : grid;
+    Params q = make_params(flat + row0 * n, probe + (long long)row0 * n_probe,
+                           ids, out_s + (long long)row0 * k,
+                           out_i + (long long)row0 * k, ws, rows, n_probe,
+                           n_list, cap, k_eff, k, dedup, pl);
+    q.words = lay.kw;
+    WideArgs w;
+    w.table = ws + (long long)rows * lay.kw;
+    w.meta = reinterpret_cast<int*>(w.table + rows * lay.slots);
+    w.slots = lay.slots;
+    w.meta_ints = lay.meta_ints;
+    w.tiles_max = lay.tiles_max;
+    w.itiles = lay.itiles;
+    wide_tiles(rows, n, sms, lay.tiles_max, &w.tiles, &w.tile_lanes);
+    const int lane_blocks = rows * w.tiles, item_blocks = rows * w.itiles;
+    if (w.tiles == 1) {
+      canonical_select_wide_kernel<<<rows, kThreads, pl.smem, st>>>(q);
+    } else {
+      err = cudaMemsetAsync(w.meta, 0, 4 * rows * lay.meta_ints, st);
+      if (err != cudaSuccess) return (int)err;
+      wide_pass1_kernel<<<lane_blocks, kThreads, 0, st>>>(q, w);
+      wide_pass2_kernel<<<lane_blocks, kThreads, 0, st>>>(q, w);
+      wide_select_scan_kernel<<<rows, kThreads, 0, st>>>(q, w);
+      wide_pass3_kernel<<<lane_blocks, kThreads, 0, st>>>(q, w);
+    }
+    if (k_eff <= kRowTail) {
+      wide_row_tail_kernel<<<rows, kTailThreads, 16 * kRowTail, st>>>(q,
+                                                                        w);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      continue;
+    }
+    // The canonical order: the low byte's stable pass from the items to
+    // the table area, the high byte's back.
+    for (int shift = 0; shift <= 8; shift += 8) {
+      unsigned long long* src = shift ? w.table : ws;
+      unsigned long long* dst = shift ? ws : w.table;
+      const long long s_stride = shift ? lay.slots : lay.kw;
+      const long long d_stride = shift ? lay.kw : lay.slots;
+      wide_count_kernel<<<item_blocks, kThreads, 0, st>>>(q, w, src,
+                                                          s_stride, shift);
+      wide_sort_scan_kernel<<<rows, kThreads, 0, st>>>(q, w);
+      wide_scatter_kernel<<<item_blocks, kThreads, 0, st>>>(
+          q, w, src, s_stride, dst, d_stride, shift);
+    }
+    if (dedup) {
+      err = cudaMemsetAsync(w.table, 0xff, 8 * rows * lay.slots, st);
+      if (err != cudaSuccess) return (int)err;
+    }
+    wide_decode_kernel<<<item_blocks, kThreads, 0, st>>>(q, w);
+    if (dedup) {
+      wide_keep_kernel<<<item_blocks, kThreads, 0, st>>>(q, w);
+      wide_keep_scan_kernel<<<rows, kThreads, 0, st>>>(q, w);
+      wide_place_kernel<<<item_blocks, kThreads, 0, st>>>(q, w);
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 // The launch plan of a row of n lanes with k_sel selected: the branch (0

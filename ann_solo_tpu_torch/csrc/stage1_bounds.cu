@@ -81,18 +81,44 @@
 // The wide branch: any Kq and Kc.  Rows padded past 256 peaks
 // (kMaxSteps), or rows and query whose staged layout passes the shared
 // memory a block may use (at Kc = 300, Kq = 50 already about 273 KB),
-// take a second kernel that stages nothing: one warp a (query row,
-// candidate slot) pair, its lanes over the query peaks (i = lane, lane +
-// 32, ...), the candidate's row read where it lies in device memory
-// (L1 and L2 hold it for the warp).  The warp checks the branch rule (one
-// ballot a 32 peaks); a row that passes takes, for each query peak and
-// window, a lower-bound binary search over [0, Kc) (ceil(log2(Kc + 1))
-// steps, the plain f32 test on the staged m/z: +inf for a peak of
-// intensity <= 0) and the walk from it; any other row the dense loop over
-// its Kc peaks.  The windows and their offsets are those of loop_vmax.
-// The terms q_int[i] * vmax[i] are added in i order, every one of them:
-// the +-0 terms the other branch skips change nothing.  Its speed is
-// recorded, not tuned: these widths are off the bench's path.
+// take a second kernel, a warp a (query row, candidate slot) pair.  What
+// bounded its first design on this card: each warp re-read its row from
+// device memory for the branch rule and then searched it there, a chain
+// of ceil(log2(Kc + 1)) dependent L2 loads a window and query peak; a row
+// that failed the rule cost every lane Kc x windows loads a query peak;
+// and the terms took 32 dependent shuffles a block of query peaks.  The
+// design now:
+//   * 8 warps a block, each on a contiguous run of pairs (they share
+//     their query rows); a warp's next 32 pairs' ids come in one load a
+//     lane, and pairs with an invalid id write -inf and stage nothing;
+//   * a pair's row is staged in the warp's shared memory by cp.async
+//     (m/z, intensity, annotation; 16 bytes a copy where the row is
+//     aligned; four words skipped every 32, so that the lanes'
+//     binary-lifting probes fall in different banks; kReach words of +inf
+//     after the chunk, so that the reach steps need no bound checks), in
+//     chunks of at most kWideStage peaks (two blocks an SM at Kc >= 480,
+//     three below about 300), double-buffered: the next chunk, or the
+//     next pair's row, arrives while the current one is searched;
+//   * the branch rule is checked once a stage (ballots and a shuffle a
+//     32 peaks) and holds chunk by chunk: where a chunk's positive peaks
+//     are a prefix of it with finite, non-decreasing m/z, the passing
+//     peaks of each window are one range of that prefix, and the search
+//     over it is exact (a peak of intensity <= 0 never raises a maximum;
+//     for a row that fits one chunk the rule is the staged branch's);
+//   * on such a chunk the lanes take runs of consecutive query peaks (at
+//     most kWideR a lane, 32 * kWideR a block): a run's first peak's
+//     edges by binary lifting with the plain test, the next ones, while
+//     they ascend, from the previous edge over kReach peaks first, as the
+//     staged branch does; then the walk.  On any other chunk the lanes
+//     take its peaks and each query peak's max is reduced over the lanes.
+//     vmax is a running max over the chunks in shared memory (exact in
+//     any order);
+//   * each block's terms q_int[i] * vmax[i] are added in i order from
+//     +0.0, the +-0 ones skipped (a ballot a 32): adding +-0 changes a
+//     sum that is never -0 in no way.
+// What bounds it now (PERF.md §6): the instructions the search issues at
+// Kq = Kc = 300 (two query peaks a lane in flight made it slower, so the
+// latency is hidden), the per-pair staging and rule check at Kq = 50.
 //
 // Arithmetic matches the plain PyTorch version (ops/rescore.py::
 // stage1_bounds_plain) bit for bit: IEEE division for prec_diff / s
@@ -117,6 +143,13 @@ constexpr size_t kSmemLimit = 232448;      // shared memory a block may use
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kTwoThirds = (float)(2.0 / 3.0);
 constexpr float kInflation = 1.0f + 1.0f / 1048576.0f;  // 1 + 2^-20, exact
+// The wide branch: pairs a block (a warp each), query peaks a lane a
+// query block at most, peaks a staged chunk at most, and the launch
+// bounds' blocks an SM.
+constexpr int kWideWarps = 8;
+constexpr int kWideR = 8;
+constexpr int kWideStage = 480;
+constexpr int kWideMinBlocks = 3;
 
 struct Params {
   const float* q_mz;
@@ -163,6 +196,29 @@ __host__ __device__ inline size_t smem_bytes(int kq, int kc) {
           (size_t)kSlots * (w.kcp + kReach + 2 * (size_t)kc +
                             kWarps * (size_t)w.qb +
                             kWarps + 2 + 2 * kWarps));
+}
+
+// The wide branch's chunk (peaks staged at once) and a warp's shared
+// memory in 4-byte words: two buffers of the chunk's m/z, intensity and
+// annotation, and the running vmax of a query block.
+__host__ __device__ inline int wide_stage(int kc) {
+  return kc < 1 ? 1 : (kc < kWideStage ? kc : kWideStage);
+}
+
+// Words of a staged array of the chunk: its peaks and kReach words of
+// padding (a multiple of 4), four words skipped every 32 (sw): a multiple
+// of 4, so every array starts 16-byte aligned.
+__host__ __device__ inline int wide_span(int kc) {
+  const int n = (wide_stage(kc) + kReach + 3) & ~3;
+  return n + 4 * ((n + 31) / 32);
+}
+
+__host__ __device__ inline int wide_warp_words(int kc) {
+  return 6 * wide_span(kc) + 32 * kWideR;
+}
+
+__host__ __device__ inline size_t wide_smem_bytes(int kc) {
+  return (size_t)4 * kWideWarps * wide_warp_words(kc);
 }
 
 __device__ __forceinline__ float shift_mult(int ann, int s) {
@@ -620,112 +676,402 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   cp_async_wait_all();
 }
 
-// The staged m/z of a row's peak j: +inf where its intensity is not > 0.
-__device__ __forceinline__ float staged_mz(const float* mz, const float* x,
-                                           int j) {
-  return x[j] > 0.0f ? mz[j] : CUDART_INF_F;
+// ---- The wide branch ----
+
+// Where a staged chunk keeps its peak j: four words skipped every 32, so
+// that the lanes' probes of a binary lifting (positions step - 1 apart
+// from multiples of 2 * step) fall in different banks, and four peaks
+// from a multiple of 4 stay one aligned 16-byte word.
+__device__ __forceinline__ int sw(int j) { return j + ((j >> 5) << 2); }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(at),
+               "l"(src)
+               : "memory");
 }
 
-// The wide branch's vmax of query peak q over a row in device memory (m/z
-// `mz`, intensity `x`, annotation `ann`, kc peaks): loop_vmax's windows;
-// `fast` (the branch rule holds) takes each window's lower edge by a
-// binary search over [0, kc) (the count of peaks with g > tol, which form
-// a prefix) and walks from it while the test passes; else every peak.
-__device__ float wide_vmax(float q, float pd, int n_shift, float tol,
-                           bool shifted, bool fast, const float* mz,
-                           const float* x, const int* ann, int kc) {
-  float v = 0.0f;
-  for (int s = 0; s <= (shifted ? n_shift : 0); ++s) {
-    const float off = s == 0 ? 0.0f : pd / (float)s;
-    int k = 0;
-    if (fast) {
-      int hi = kc;
-      while (k < hi) {
-        const int mid = (k + hi) >> 1;
-        if ((q - staged_mz(mz, x, mid)) - off > tol) {
-          k = mid + 1;
-        } else {
-          hi = mid;
-        }
+// The wide walk: as `walk`, over a staged chunk (positions sw(k)).
+__device__ __forceinline__ float chunk_walk(float q, float off, float tol,
+                                            int s, const float* cm,
+                                            const float* ci, const int* ca,
+                                            int at, int len, float v) {
+  for (int k = at; k < len; ++k) {
+    if (!(fabsf((q - cm[sw(k)]) - off) <= tol)) break;
+    v = fmaxf(v, window_val(s, ca[sw(k)], ci[sw(k)]));
+  }
+  return v;
+}
+
+// The lower edges in `len` staged peaks (m/z `cm`, at sw(j)) whose m/z
+// are finite and do not decrease: for each window, from at[w] on, the
+// count of peaks with g = (q - c) - off > tol (a prefix of them), by
+// binary lifting with the plain test; `top` is the largest power of two
+// <= len (0 when len is 0).
+template <int NS>
+__device__ __forceinline__ void chunk_edges(float q, const float* off,
+                                            float tol, const float* cm,
+                                            int len, int top,
+                                            int (&at)[NS + 1]) {
+  for (int step = top; step > 0; step >>= 1) {
+#pragma unroll
+    for (int w = 0; w <= NS; ++w) {
+      if (at[w] + step <= len &&
+          (q - cm[sw(at[w] + step - 1)]) - off[w] > tol) {
+        at[w] += step;
       }
     }
-    for (; k < kc; ++k) {
-      if (fabsf((q - staged_mz(mz, x, k)) - off) <= tol) {
-        v = fmaxf(v, window_val(s, ann[k], x[k]));
-      } else if (fast) {
-        break;
+  }
+}
+
+// The vmax of query peak q over the positive prefix of a staged chunk
+// (len peaks, finite, non-decreasing m/z; +inf on the kReach words after
+// it), from v on: per window (NS shift windows; 0 for a pair without a
+// shift) the lower edge, from 0 by binary lifting when the lane's last
+// peak does not lie below q (q_prev: NaN for a run's first peak), else
+// from the last peak's edge, which cannot lie above the new one, by
+// kReach / 2, ... 1 steps (the padding passes no test, so no step leaves
+// the prefix) and by lifting from there when the edge lies further; the
+// test at the edge, on one load, settles both that and whether the walk
+// (while the plain test passes) starts.
+template <int NS>
+__device__ __forceinline__ float peak_vmax(float q, float& q_prev,
+                                           int (&edge)[NS + 1],
+                                           const float* off, float tol,
+                                           const float* cm, const float* ci,
+                                           const int* ca, int len, int top,
+                                           float v) {
+  if (q >= q_prev) {
+#pragma unroll
+    for (int step = kReach / 2; step > 0; step >>= 1) {
+#pragma unroll
+      for (int w = 0; w <= NS; ++w) {
+        if ((q - cm[sw(edge[w] + step - 1)]) - off[w] > tol) edge[w] += step;
       }
+    }
+  } else {
+#pragma unroll
+    for (int w = 0; w <= NS; ++w) edge[w] = 0;
+    chunk_edges<NS>(q, off, tol, cm, len, top, edge);
+  }
+  q_prev = q;
+#pragma unroll
+  for (int w = 0; w <= NS; ++w) {
+    float g = (q - cm[sw(edge[w])]) - off[w];
+    if (g > tol) {
+      int at[1] = {edge[w]};
+      chunk_edges<0>(q, off + w, tol, cm, len, top, at);
+      edge[w] = at[0];
+      g = (q - cm[sw(edge[w])]) - off[w];
+    }
+    if (fabsf(g) <= tol) {
+      v = chunk_walk(q, off[w], tol, w, cm, ci, ca, edge[w], len, v);
     }
   }
   return v;
 }
 
-// The wide branch: warp w of the grid on pairs w, w + warps, ... of the
-// (b, c) matrix.
-__global__ void __launch_bounds__(kThreads)
-    stage1_bounds_wide_kernel(const Params p) {
+// A chunk that fails the branch rule: every peak against every query peak
+// of the block, the lanes on the chunk's peaks (consecutive words, no bank
+// conflicts), the query peak's max over the lanes (exact in any order)
+// into vm[t] (over the chunks: `first` starts it).  NS < 0: any shift
+// count, each window's offset the IEEE quotient prec_diff / s.
+template <int NS>
+__device__ void chunk_dense(const float* qm, int cnt, const float* off,
+                            float pd, int n_windows, float tol,
+                            const float* cm, const float* ci, const int* ca,
+                            int len, bool first, float* vm) {
   const int lane = threadIdx.x & 31;
-  const long long warps = (long long)gridDim.x * kWarps;
-  for (long long pair = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-       pair < p.items; pair += warps) {
-    const long long id = p.cand[pair];
-    if (id < 0) {
-      if (lane == 0) p.out[pair] = -CUDART_INF_F;
-      continue;
-    }
-    const long long b = pair / p.c;
-    const long long row = id >= p.n_lib ? p.n_lib - 1 : id;
-    const float* mz = p.lib_mz + row * p.kc;
-    const float* x = p.lib_int + row * p.kc;
-    const int* ann = p.lib_ann + row * p.kc;
-    // The branch rule (ops/stage1_cuda.py::ascending_rows), as the
-    // staging pass of the other kernel checks it.
-    bool bad = false;
-    for (int j0 = 0; j0 < p.kc; j0 += 32) {
-      const int j = j0 + lane;
-      bool mine = false;
-      if (j < p.kc && x[j] > 0.0f) {
-        const bool pos_prev = j == 0 || x[j - 1] > 0.0f;
-        const float m = mz[j];
-        mine = !(pos_prev && fabsf(m) < CUDART_INF_F &&
-                 (j == 0 || mz[j - 1] <= m));
+  for (int t = 0; t < cnt; ++t) {
+    const float q = qm[t];
+    float x = 0.0f;
+    if (NS >= 0) {
+      for (int j = lane; j < len; j += 32) {
+        const float y = ci[sw(j)];
+        const float d = q - cm[sw(j)];
+        if (fabsf(d) <= tol) x = fmaxf(x, y);
+#pragma unroll
+        for (int w = 1; w <= NS; ++w) {
+          if (fabsf(d - off[w]) <= tol) {
+            x = fmaxf(x, shift_mult(ca[sw(j)], w) * y);
+          }
+        }
       }
-      bad = bad || __any_sync(kFull, mine);
-    }
-    const float pd = (p.q_prec[b] - p.lib_prec[row]) * p.chg;
-    const bool shifted = p.n_shift > 0 && fabsf(pd) >= p.tol;
-    const float* qm = p.q_mz + b * p.kq;
-    const float* qi = p.q_int + b * p.kq;
-    float acc = 0.0f;
-    for (int i0 = 0; i0 < p.kq; i0 += 32) {
-      const int i = i0 + lane;
-      float term = 0.0f;
-      if (i < p.kq) {
-        term = qi[i] * wide_vmax(qm[i], pd, p.n_shift, p.tol, shifted, !bad,
-                                 mz, x, ann, p.kc);
+    } else {
+      for (int s = 0; s < n_windows; ++s) {
+        const float o = s == 0 ? 0.0f : pd / (float)s;
+        for (int j = lane; j < len; j += 32) {
+          if (fabsf((q - cm[sw(j)]) - o) <= tol) {
+            x = fmaxf(x, window_val(s, ca[sw(j)], ci[sw(j)]));
+          }
+        }
       }
-      const int n = min(32, p.kq - i0);
-      for (int t = 0; t < n; ++t) acc = acc + __shfl_sync(kFull, term, t);
     }
-    if (lane == 0) p.out[pair] = acc * kInflation;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+    }
+    if (lane == 0) vm[t] = first ? x : fmaxf(vm[t], x);
   }
 }
 
+// The wide branch: a warp a (query row, candidate slot) pair, 8 warps a
+// block, each warp on a contiguous run of the (b, c) pairs, so that its
+// pairs share their query rows.  A pair's library row is staged in the
+// warp's shared memory by cp.async in chunks of at most kWideStage peaks
+// (the whole row when it fits: then once a pair), four words skipped
+// every 32 (sw), double-buffered: the next chunk, or the next pair's row,
+// arrives while the current one is searched.  A stage is checked against
+// the branch rule; a chunk that passes takes the range search over its
+// positive prefix (peak_vmax, a run of consecutive query peaks a lane),
+// any other the dense loop (chunk_dense, the lanes on the chunk's peaks;
+// a peak of intensity <= 0 raises no maximum there either).  The query
+// peaks go in blocks of at most 32 * kWideR, their running vmax in the
+// warp's shared memory; a block's terms q_int[i] * vmax[i] are added in
+// i order from +0.0, the +-0 ones skipped (exact: the sum is never -0).
+template <int NS>
+__global__ void __launch_bounds__(kWideWarps * 32, kWideMinBlocks)
+    stage1_bounds_wide_kernel(const Params p) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int stage = wide_stage(p.kc);
+  const int span = wide_span(p.kc);  // words of a staged array
+  float* base = smem + warp * wide_warp_words(p.kc);
+  float* vm = base + 6 * span;
+  const long long warps = (long long)gridDim.x * kWideWarps;
+  const long long per_warp = (p.items + warps - 1) / warps;
+  const long long first = ((long long)blockIdx.x * kWideWarps + warp) *
+                          per_warp;
+  const long long last = min(p.items, first + per_warp);
+  const int chunks = (p.kc + stage - 1) / stage;
+  const int qblocks = (p.kq + 32 * kWideR - 1) / (32 * kWideR);
+  const int per = qblocks ? (p.kq + qblocks - 1) / qblocks : 0;
+  const int r = (per + 31) / 32;
+  // Stages a pair: the row once when it fits one chunk, else its chunks
+  // again for each query block.
+  const int stages =
+      qblocks == 0 ? 0 : (chunks <= 1 ? chunks : qblocks * chunks);
+
+  // This warp's pairs, 32 at a time: the ids of the next 32 in one load
+  // a lane; the pairs with an invalid id get their -inf on the way.
+  long long look = first, window = 0;
+  unsigned ready = 0u;
+  int ahead = -1;
+  auto next_pair = [&](long long& pair, int& row) -> bool {
+    while (ready == 0u) {
+      if (look >= last) return false;
+      const long long mine = look + lane;
+      ahead = -1;
+      if (mine < last) {
+        const long long id = p.cand[mine];
+        if (id < 0) {
+          p.out[mine] = -CUDART_INF_F;
+        } else {
+          ahead = id >= p.n_lib ? p.n_lib - 1 : (int)id;
+        }
+      }
+      ready = __ballot_sync(kFull, ahead >= 0);
+      window = look;
+      look += 32;
+    }
+    const int t = __ffs(ready) - 1;
+    ready &= ready - 1u;
+    pair = window + t;
+    row = __shfl_sync(kFull, ahead, t);
+    return true;
+  };
+  // The copies of chunk c of library row `row` into buffer `buf`: 16
+  // bytes a copy where the chunk starts 16-byte aligned (every row when Kc
+  // is a multiple of 4), its last len % 4 peaks and other rows 4 bytes a
+  // copy.
+  auto issue = [&](int row, int c, int buf) {
+    float* mz = base + buf * 3 * span;
+    const int j0 = c * stage;
+    const int len = min(stage, p.kc - j0);
+    const size_t at = (size_t)row * p.kc + j0;
+    const int wide = (at & 3) == 0 ? len & ~3 : 0;
+    for (int j = 4 * lane; j < wide; j += 128) {
+      cp_async16(mz + sw(j), p.lib_mz + at + j);
+      cp_async16(mz + span + sw(j), p.lib_int + at + j);
+      cp_async16(mz + 2 * span + sw(j), p.lib_ann + at + j);
+    }
+    for (int j = wide + lane; j < len; j += 32) {
+      cp_async4(mz + sw(j), p.lib_mz + at + j);
+      cp_async4(mz + span + sw(j), p.lib_int + at + j);
+      cp_async4(mz + 2 * span + sw(j), p.lib_ann + at + j);
+    }
+    cp_async_commit();
+  };
+
+  long long pair;
+  int row;
+  bool have = next_pair(pair, row);
+  int buf = 0;
+  if (have && stages) issue(row, 0, buf);
+  // The pair's precursors, loaded a pair ahead.
+  float q_prec = have ? p.q_prec[pair / p.c] : 0.0f;
+  float l_prec = have ? p.lib_prec[row] : 0.0f;
+  while (have) {
+    long long next;
+    int next_row;
+    const bool next_have = next_pair(next, next_row);
+    const float next_q_prec = next_have ? p.q_prec[next / p.c] : 0.0f;
+    const float next_l_prec = next_have ? p.lib_prec[next_row] : 0.0f;
+    const long long b = pair / p.c;
+    const float pd = (q_prec - l_prec) * p.chg;
+    const bool shifted = p.n_shift > 0 && fabsf(pd) >= p.tol;
+    constexpr int kNS = NS > 0 ? NS : 0;
+    float off[kNS + 1];
+    off[0] = 0.0f;
+#pragma unroll
+    for (int s = 1; s <= kNS; ++s) off[s] = pd / (float)s;
+    const float* qm_row = p.q_mz + b * p.kq;
+    const float* qi_row = p.q_int + b * p.kq;
+    float acc = 0.0f;
+    int staged = 0, cur = 0, len = 0, top = 0;
+    bool fast = true;
+    for (int qb = 0; qb < qblocks; ++qb) {
+      const int i0 = qb * per;
+      const int cnt = min(per, p.kq - i0);
+      const int nk = max(0, min(r, cnt - lane * r));
+      for (int c = 0; c < chunks; ++c) {
+        if (chunks > 1 || qb == 0) {
+          // Stage `staged` of the pair has arrived: the branch rule is
+          // checked (its positive peaks a prefix of the chunk, finite and
+          // non-decreasing; peak j against peak j - 1, that one from the
+          // lane below).  Where it holds the search runs over that prefix
+          // (`len` = its P peaks; +inf on the kReach words after it): a
+          // peak of intensity <= 0 never raises a maximum, so leaving it
+          // out is exact.  Else the dense loop over the chunk.  Then the
+          // next stage is copied into the other buffer.
+          cp_async_wait_all();
+          __syncwarp();
+          cur = buf;
+          float* mz = base + cur * 3 * span;
+          const float* xi = mz + span;
+          const int n_chunk = min(stage, p.kc - c * stage);
+          bool bad = false;
+          int positive = 0;
+          float m_last = 0.0f;
+          for (int j0 = 0; j0 < n_chunk; j0 += 32) {
+            const int j = j0 + lane;
+            const float m = j < n_chunk ? mz[sw(j)] : 0.0f;
+            const bool here = j < n_chunk && xi[sw(j)] > 0.0f;
+            const unsigned pos = __ballot_sync(kFull, here);
+            float m_prev = __shfl_up_sync(kFull, m, 1);
+            if (lane == 0) m_prev = m_last;
+            const bool mine = here && !(fabsf(m) < CUDART_INF_F &&
+                                        (j == 0 || m_prev <= m));
+            // The positives of these 32 peaks are their first ones, and
+            // follow nothing but positives.
+            bad = bad || (pos & (pos + 1u)) != 0u || (pos && positive < j0) ||
+                  __any_sync(kFull, mine);
+            positive += __popc(pos);
+            m_last = __shfl_sync(kFull, m, 31);
+          }
+          fast = !bad;
+          len = fast ? positive : n_chunk;
+          top = len ? 1 << (31 - __clz(len)) : 0;
+          if (fast && lane < kReach) mz[sw(len + lane)] = CUDART_INF_F;
+          __syncwarp();
+          buf ^= 1;
+          if (staged + 1 < stages) {
+            issue(row, (staged + 1) % chunks, buf);
+          } else if (next_have && stages) {
+            issue(next_row, 0, buf);
+          }
+          ++staged;
+        }
+        const float* cm = base + cur * 3 * span;
+        const float* ci = cm + span;
+        const int* ca = reinterpret_cast<const int*>(cm + 2 * span);
+        if (!fast) {
+          if (NS < 0) {
+            chunk_dense<-1>(qm_row + i0, cnt, off, pd,
+                            shifted ? p.n_shift + 1 : 1, p.tol, cm, ci, ca,
+                            len, c == 0, vm);
+          } else if (shifted) {
+            chunk_dense<kNS>(qm_row + i0, cnt, off, pd, 0, p.tol, cm, ci,
+                             ca, len, c == 0, vm);
+          } else {
+            chunk_dense<0>(qm_row + i0, cnt, off, pd, 0, p.tol, cm, ci, ca,
+                           len, c == 0, vm);
+          }
+        } else if (NS < 0) {
+          for (int k = 0; k < nk; ++k) {
+            const int t = lane * r + k;
+            const float q = qm_row[i0 + t];
+            float v = c == 0 ? 0.0f : vm[t];
+            for (int s = 0; s <= (shifted ? p.n_shift : 0); ++s) {
+              const float o = s == 0 ? 0.0f : pd / (float)s;
+              int at[1] = {0};
+              chunk_edges<0>(q, &o, p.tol, cm, len, top, at);
+              v = chunk_walk(q, o, p.tol, s, cm, ci, ca, at[0], len, v);
+            }
+            vm[t] = v;
+          }
+        } else {
+          int edge[kNS + 1], edge0[1];
+          float q_prev = CUDART_NAN_F;
+          for (int k = 0; k < nk; ++k) {
+            const int t = lane * r + k;
+            const float q = qm_row[i0 + t];
+            float v = c == 0 ? 0.0f : vm[t];
+            if (shifted) {
+              v = peak_vmax<kNS>(q, q_prev, edge, off, p.tol, cm, ci, ca,
+                                 len, top, v);
+            } else {
+              v = peak_vmax<0>(q, q_prev, edge0, off, p.tol, cm, ci, ca, len,
+                               top, v);
+            }
+            vm[t] = v;
+          }
+        }
+        __syncwarp();
+      }
+      // The block's terms in i order; the +-0 ones change nothing.
+      for (int t0 = 0; t0 < cnt; t0 += 32) {
+        const int t = t0 + lane;
+        const float term = t < cnt ? qi_row[i0 + t] * vm[t] : 0.0f;
+        unsigned m = __ballot_sync(kFull, term != 0.0f);
+        while (m) {
+          const int src = __ffs(m) - 1;
+          m &= m - 1u;
+          acc = acc + __shfl_sync(kFull, term, src);
+        }
+      }
+      __syncwarp();
+    }
+    if (lane == 0) p.out[pair] = acc * kInflation;
+    pair = next;
+    row = next_row;
+    have = next_have;
+    q_prec = next_q_prec;
+    l_prec = next_l_prec;
+  }
+  cp_async_wait_all();
+}
+
 // p.items = b * c pairs here.
+template <int NS>
 cudaError_t launch_wide(const Params& p, cudaStream_t stream) {
-  const auto kernel = stage1_bounds_wide_kernel;
+  const auto kernel = stage1_bounds_wide_kernel<NS>;
+  const size_t smem = wide_smem_bytes(p.kc);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
   int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kWideWarps * 32, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long need = (p.items + kWarps - 1) / kWarps;
+  const long long need = (p.items + kWideWarps - 1) / kWideWarps;
   const long long fit = (long long)sms * per_sm;
-  kernel<<<(int)(need < fit ? need : fit), kThreads, 0, stream>>>(p);
+  kernel<<<(int)(need < fit ? need : fit), kWideWarps * 32, smem, stream>>>(
+      p);
   return cudaGetLastError();
 }
 
@@ -795,7 +1141,14 @@ int stage1_bounds(const float* q_mz, const float* q_int, const float* q_prec,
   const cudaStream_t st = (cudaStream_t)stream;
   if (w.kcp > (1 << kMaxSteps) || smem > kSmemLimit) {
     p.items = (long long)b * c;
-    return (int)launch_wide(p, st);
+    switch (p.n_shift) {
+      case 0: return (int)launch_wide<0>(p, st);
+      case 1: return (int)launch_wide<1>(p, st);
+      case 2: return (int)launch_wide<2>(p, st);
+      case 3: return (int)launch_wide<3>(p, st);
+      case 4: return (int)launch_wide<4>(p, st);
+      default: return (int)launch_wide<-1>(p, st);
+    }
   }
   switch (p.n_shift) {
     case 0: return (int)launch<0>(p, smem, st);

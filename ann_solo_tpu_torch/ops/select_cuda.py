@@ -21,12 +21,23 @@ in shared memory (integer CAS and min).  `plan(n, k_eff)` gives the
 branch and the dynamic shared memory: one block a row with the keys on
 chip while they fit (`SMEM_LIMIT`; every row of the main path, two
 blocks an SM at the bench's 49,152 lanes), else the long-row branch of
-the same kernel, whose passes each read the row from device memory; and
-for more than `MAX_SEL` lanes selected (the open level at 4,096
-candidates x2, k_sel 8,192) the wide branch, a second kernel with the
-same passes whose 64-bit sort words, sort and dedup table live in a
-device-memory workspace this wrapper allocates (`wide_grid` blocks walk
-the rows, 24 bytes a sort word each).
+the same kernel, whose passes each read the row from device memory.
+
+More than `MAX_SEL` lanes selected (the open level at 4,096 candidates
+x2, k_sel 8,192) take the wide branch: a sequence of launches over a
+device-memory workspace this wrapper allocates (`wide_row_words` a row,
+`wide_grid` rows a group).  Passes 1-3 leave a row's selected lanes as
+key << 32 | lane in lane order, one block a row ("wide", "wide_long_row":
+the same code as the first kernel), or, with too few rows to fill the
+SMs, a row split into tiles over about two blocks an SM (integer atomics
+and a scan kernel join the tiles' counts).  The canonical order is then
+a stable counting sort by the 16-bit key, two passes of 8 bits, each
+bucket order descending; each rank's id is decoded once, and the dedup
+keeps each id's least rank through a 64-bit hash table (CAS, then
+atomicMin); a scan places the kept ranks.  Up to `ROW_TAIL` lanes selected
+(4,096 candidates x2) one block a row does the sort and the dedup in
+shared memory; more take kernels over tiles of the items, the table in the
+workspace.
 
 Routing is decided by the tensors, never by a fallback:
 `ops/canonical_select.py::canonical_select` sends CPU tensors to the plain
@@ -48,17 +59,26 @@ from ann_solo_tpu_torch.ops import _build
 # row (`ops/ivf_probe.py::MAX_PROBE_LANES`); the shared memory a block may
 # use on the H100, the part of it the kernel's static arrays may take, and
 # the least count of sort words (their area holds a 1 KB histogram
-# first).  The wide branch: its sort's tile in shared memory (64-bit
-# words), its histogram's bytes, and the device memory its workspace may
-# take in one launch (it bounds the grid).
+# first).  The wide branch: its histogram's bytes, the least lanes of a
+# tile of a split row, the items a block of its sort and tail, the most
+# items of a row sorted and deduplicated on one block in shared memory and
+# that block's threads, the ints of a lane tile's entry and the fixed head
+# of a row's meta area, and the
+# device memory its workspace may take in one launch (it bounds the rows
+# of a group).
 THREADS = 512
 MAX_SEL = 4096
 MAX_LANES = 1 << 22
 SMEM_LIMIT = 232_448
 STATIC_RESERVE = 256
 MIN_WORDS = 128
-TILE_WORDS = 8192
 HIST_BYTES = 1024
+MIN_TILE = 4096
+ITEM_TILE = 4096
+ROW_TAIL = 8192
+ROW_TAIL_THREADS = 1024
+TILE_INTS = 260
+META_HEAD = 528
 WORK_BUDGET = 1 << 30
 # `plan`'s branches by the code the kernel's `canonical_select_plan` gives.
 BRANCHES = ("long_row", "on_chip", "wide", "wide_long_row")
@@ -79,17 +99,14 @@ def plan(n: int, k_eff: int) -> tuple:
     "on_chip" keeps 2 * round_up(n + 3, 8) bytes of keys (the dedup table
     of 16 bytes a word takes the same area later) beside 8 bytes a sort
     word, while that and `STATIC_RESERVE` fit `SMEM_LIMIT`; else
-    "long_row", the table and the words only.  Above it: "wide", the
-    keys or the sort's tile (8 * `TILE_WORDS` bytes), the larger, and
-    the histogram, while that fits; else "wide_long_row", the tile and
-    the histogram."""
+    "long_row", the table and the words only.  Above it, for a row on one
+    block (`wide_grid`'s tiles = 1): "wide", the keys and the histogram,
+    while they fit; else "wide_long_row", the histogram alone."""
     keys = 2 * ((n + 3 + 7) // 8 * 8)
     if k_eff > MAX_SEL:
-        tile = 8 * TILE_WORDS
-        area = max(keys, tile)
-        if area + HIST_BYTES + STATIC_RESERVE <= SMEM_LIMIT:
-            return "wide", area + HIST_BYTES
-        return "wide_long_row", tile + HIST_BYTES
+        if keys + HIST_BYTES + STATIC_RESERVE <= SMEM_LIMIT:
+            return "wide", keys + HIST_BYTES
+        return "wide_long_row", HIST_BYTES
     words = max(sort_width(k_eff), MIN_WORDS)
     table = 16 * words
     on_chip = max(keys, table) + 8 * words
@@ -98,12 +115,31 @@ def plan(n: int, k_eff: int) -> tuple:
     return "long_row", table + 8 * words
 
 
-def wide_grid(b: int, k_eff: int, sms: int) -> int:
-    """Blocks of the wide branch for b rows: two an SM at most, no more
-    than the rows, and no more than `WORK_BUDGET` bytes of workspace at
-    24 bytes a sort word a block (at least one block)."""
-    per_block = 24 * sort_width(k_eff)
-    return max(1, min(b, 2 * sms, WORK_BUDGET // per_block))
+def wide_row_words(n: int, k_eff: int) -> int:
+    """8-byte words of a row's share of the wide branch's workspace, as
+    the kernel's `wide_layout` computes them: its items (k_eff rounded up
+    to even), its table (the least power of two >= 2 * k_eff slots) and
+    its meta area (ints: the fixed head, `TILE_INTS` a lane tile of at
+    least `MIN_TILE` lanes, 256 counts and one kept count an item tile of
+    `ITEM_TILE`)."""
+    tiles_max = -(-n // MIN_TILE)
+    item_tiles = -(-k_eff // ITEM_TILE)
+    meta = (META_HEAD + TILE_INTS * tiles_max + 256 * item_tiles
+            + (item_tiles + 3) // 4 * 4)
+    return (k_eff + 1) // 2 * 2 + sort_width(2 * k_eff) + meta // 2
+
+
+def wide_grid(b: int, n: int, k_eff: int, sms: int) -> tuple:
+    """(rows a group, tiles a row) of the wide branch for b rows of n
+    lanes, k_eff selected, on a card of `sms` SMs: as many rows a group as
+    `WORK_BUDGET` holds (at least one), and tiles enough for about two
+    blocks an SM over the group's rows (1 while the rows fill them; tiles
+    of at least `MIN_TILE` lanes, a multiple of 8 each), as the kernel's
+    `wide_tiles` computes them."""
+    group = max(1, min(b, WORK_BUDGET // (8 * wide_row_words(n, k_eff))))
+    tiles = max(1, min(-(-n // MIN_TILE), -(-2 * sms // group)))
+    tile_lanes = -(-(-(-n // tiles)) // 8) * 8
+    return group, -(-n // tile_lanes)
 
 
 @functools.lru_cache(maxsize=None)
@@ -207,9 +243,9 @@ def canonical_select(flat, probe_ids, padded_ids, k_sel: int, k: int,
     if plan(n, k_eff)[0].startswith("wide"):
         sms = torch.cuda.get_device_properties(
             flat.device).multi_processor_count
-        grid = wide_grid(b, k_eff, sms)
-        work = torch.empty(grid * 3 * sort_width(k_eff), dtype=torch.int64,
-                           device=flat.device)
+        grid = wide_grid(b, n, k_eff, sms)[0]
+        work = torch.empty(grid * wide_row_words(n, k_eff),
+                           dtype=torch.int64, device=flat.device)
         err = lib.canonical_select_wide(
             flat.data_ptr(), probe.data_ptr(), ids.data_ptr(),
             out_s.data_ptr(), out_i.data_ptr(), work.data_ptr(), b,

@@ -38,10 +38,15 @@ to shrink.  The kernel searches instead:
   as possibly non-zero, in order; the others are +-0 and change nothing;
 * any other width (`branch`: a row padded past `MAX_PADDED` peaks, or
   more shared memory than `SMEM_LIMIT`) takes the wide branch, a second
-  kernel that stages nothing: a warp a pair, its lanes over the query
-  peaks, the row read where it lies in device memory, the same branch
-  rule, a binary search over the whole row (ceil(log2(Kc + 1)) steps)
-  and the walk, or the dense loop, and the same sum order.
+  kernel: a warp a pair, `WIDE_WARPS` a block, each pair's row staged in
+  the warp's shared memory by cp.async in chunks of at most `WIDE_STAGE`
+  peaks, double-buffered (the next chunk or pair arrives while the
+  current one is searched); the branch rule checked once a chunk as its
+  m/z become the staged m/z; the lanes on runs of consecutive query
+  peaks (at most `WIDE_R` a lane a block), each edge searched over
+  shared memory, from the previous peak's edge while the peaks ascend;
+  the terms added in query-peak order, the +-0 ones skipped (exact).
+  `wide_smem_bytes(Kc)` is a block's shared memory.
 
 Routing is decided by the tensors, never by a fallback: `_stage1_bounds`
 sends CPU tensors to the plain version and CUDA tensors here, where the
@@ -67,6 +72,11 @@ MAX_BLOCK = 32
 SMEM_LIMIT = 232_448
 MAX_PADDED = 256  # the binary search's steps: 8
 REACH = 8  # peaks searched from the previous query peak's edge
+# The wide branch: pairs a block (a warp each), query peaks a lane a query
+# block at most, peaks a staged chunk at most.
+WIDE_WARPS = 8
+WIDE_R = 8
+WIDE_STAGE = 480
 
 # Kernel launches in this process; reset by whoever wants to count.
 LAUNCHES = 0
@@ -93,6 +103,27 @@ def smem_bytes(kq: int, kc: int) -> int:
     per_slot = (padded_width(kc) + REACH + 2 * kc + WARPS * i_tile(kq)
                 + WARPS + 2 + 2 * WARPS)
     return 4 * (3 * kc * (SLOTS + 1) + SLOTS + 1 + 4 * kq + SLOTS * per_slot)
+
+
+def wide_stage(kc: int) -> int:
+    """Peaks of the wide branch's staged chunk: the whole row up to
+    `WIDE_STAGE` (at least 1)."""
+    return max(1, min(kc, WIDE_STAGE))
+
+
+def wide_span(kc: int) -> int:
+    """4-byte words of one staged array of the wide branch: the chunk's
+    peaks and `REACH` words of +inf padding, rounded up to 4, with four
+    words skipped every 32 (the kernel's bank swizzle)."""
+    n = (wide_stage(kc) + REACH + 3) // 4 * 4
+    return n + 4 * -(-n // 32)
+
+
+def wide_smem_bytes(kc: int) -> int:
+    """Dynamic shared memory of a wide block: a warp's two buffers of a
+    chunk's m/z, intensity and annotation, and a query block's running
+    vmax."""
+    return 4 * WIDE_WARPS * (6 * wide_span(kc) + 32 * WIDE_R)
 
 
 def branch(kq: int, kc: int) -> str:

@@ -47,11 +47,13 @@ CUTS = (
      "  return;\n"),
     ("sort", "  // Each thread decodes a run of ranks",
      "  if (tid == 0) out_i[0] = words[0];\n  return;\n"),
-    ("gather", "  if (!p.dedup) {",
+    ("gather", "  if (!p.dedup) {  // k_eff <= k here\n#pragma unroll\n"
+               "    for (int c = 0; c < 8; ++c) {",
      "  {\n    int sum = 0;\n"
      "    for (int c = 0; c < 8; ++c) sum += ident[c];\n"
      "    if (sum == 0x7fffffff) out_i[0] = sum;\n  }\n  return;\n"),
-    ("insert", "  unsigned kept = 0u;",
+    ("insert", "  unsigned kept = 0u;\n#pragma unroll\n"
+               "  for (int c = 0; c < 8; ++c) {",
      "  if (tid == 0) out_i[0] = table_ranks[0];\n  return;\n"),
 )
 

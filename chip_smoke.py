@@ -69,7 +69,8 @@ Phases, in the order they run (1-3c, 3d, 3e, 4-6, 7, 8, 7b, 10a, 10b,
    0.04 with charge 3), a quarter of the rows shuffled, and non-finite
    m/z and precursors; then the kernel's wide branch: Kc = 257 (a row
    padded past 256), Kq = Kc = 300 and Kc = 1,024 with a quarter of the
-   rows shuffled.  Bounds must be equal bit for bit (rtol 0: the
+   rows shuffled (rows staged in chunks; each line names the staging and
+   the summary line has each wide case's time).  Bounds must be equal bit for bit (rtol 0: the
    same float32 operations, the sum over query peaks in the stated
    order), -inf cells included; the rows and pairs on each of the
    kernel's branches (range search, dense loop) are logged and both must
@@ -108,7 +109,10 @@ Phases, in the order they run (1-3c, 3d, 3e, 4-6, 7, 8, 7b, 10a, 10b,
    int64 keys (the kernels record's `library_ms`; the port never calls it
    on the card), its branch, dynamic shared memory and blocks an SM (the
    kernel's own plan and occupancy, which must equal the wrapper's
-   `plan`);
+   `plan`); a wide case's line names its design (passes 1-3 on one block
+   a row or split over several, the sort and dedup on one block a row or
+   over tiles of items) and the summary line has each wide case's time
+   beside `torch.topk`'s;
 4. the bench (`ann_solo_tpu_torch.bench.run`, what ``python -m
    ann_solo_tpu_torch.bench`` prints): a 131,072-spectrum library (K = 50
    peaks, hash_len 800), auto num_list, num_probe 512, x2 SOAR
@@ -119,9 +123,11 @@ Phases, in the order they run (1-3c, 3d, 3e, 4-6, 7, 8, 7b, 10a, 10b,
    probed lists through B2 and the selection through B5 (no f32 copy of
    the lists, no product over every list).  Then batch 0's select against
    the plain full scan (`_ivf_search_fullscan`) on the card, with the
-   select's split on one super-tile (coarse product, probe sort, B2, B5).
+   select's split on one super-tile (coarse product, probe sort, B2, B5),
+   and again at 4,096 candidates (k_sel 8,192 of 49,152 lanes a row: B5's
+   wide branch on the main path, its launches counted with B5's).
    Gates: self-match hit rate >= 0.95 per batch; B1, B2, B4 and B5
-   launched;
+   launched, B5 in the 4,096-candidate select too; at both widths
    >= 99.9% of (id, score) lanes equal to the plain full scan's, every
    16-bit key within one step, no duplicate ids;
 5. preprocess: a raw 4,096-spectrum block through `preprocess_batch`
@@ -341,6 +347,7 @@ CHARGE = 2
 FRAG_TOL = 0.04
 OPEN_TOL_DA = 500.0
 NUM_CANDIDATES = 512
+WIDE_SELECT_CANDIDATES = 4096  # phase 4's select on B5's wide branch
 NUM_PROBE = 512
 HIT_RATE_GATE = 0.95
 
@@ -1010,6 +1017,21 @@ def stage1_work(arrays, n_shifts, shift, tol):
             n_fast_pairs, len(ids) - n_fast_pairs)
 
 
+def stage1_b4_design(kq, kc):
+    """Kernel B4's branch at these widths, and for the wide one its
+    staging: a warp a pair, the row in chunks of at most WIDE_STAGE peaks
+    in shared memory."""
+    from ann_solo_tpu_torch.ops import stage1_cuda
+
+    branch = stage1_cuda.branch(kq, kc)
+    if branch != "wide":
+        return branch
+    stage = stage1_cuda.wide_stage(kc)
+    return (f"wide (a warp a pair, rows staged in {-(-kc // stage)} "
+            f"chunk(s) of <= {stage} peaks, "
+            f"{stage1_cuda.wide_smem_bytes(kc)} B a block)")
+
+
 def phase_stage1_kernel(dev, cases=STAGE1_CASES, kernel_reps=20,
                         plain_reps=2):
     """Phase 3d: kernel B4, through stage 1's routing
@@ -1093,7 +1115,9 @@ def phase_stage1_kernel(dev, cases=STAGE1_CASES, kernel_reps=20,
             f"{fast_pairs} pairs, dense {dense_rows} rows / {dense_pairs} "
             f"pairs); kernel {ms:.4f} ms, {100 * fields['bound_ms'] / ms:.2f}%"
             f" of its {fields['bound_ms']:.4f} ms bound, plain "
-            f"{plain_ms:.3f} ms; branch {stage1_cuda.branch(kq, kc)}")
+            f"{plain_ms:.3f} ms; branch {stage1_b4_design(kq, kc)}")
+        if stage1_cuda.branch(kq, kc) == "wide":
+            note(f"B4 {name}: {ms:.4f} ms")
         del arrays, args, got, want
     if not (branches > 0).all():
         raise AssertionError(f"B4: rows on the range search and the dense "
@@ -1490,8 +1514,21 @@ def phase_select_kernel(dev, cases=SELECT_CASES, kernel_reps=10,
                 raise AssertionError(f"B5 {name}: the kernel plans {built[:2]}"
                                      f", the wrapper {(branch, smem)}")
             blocks = built[2]
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
         else:
-            blocks = "not measured"
+            blocks, sms = "not measured", 132
+        if branch.startswith("wide"):
+            # The wide design this case takes: passes 1-3 on one block a
+            # row or split over several, the sort and dedup on one block a
+            # row (in shared memory) or over tiles of items.
+            group, tiles = select_cuda.wide_grid(b, n, k_eff, sms)
+            branch += (f" (passes 1-3 on {tiles} blocks a row, sort and "
+                       + ("dedup on one block a row"
+                          if k_eff <= select_cuda.ROW_TAIL
+                          else f"dedup over tiles of {select_cuda.ITEM_TILE}"
+                          " items") + f", {group} rows a group)")
+            note(f"B5 {name}: {ms:.4f} ms vs torch.topk {library_ms:.4f} "
+                 "ms")
         log(f"kernel B5 {name}: B={b} L={l} P={p} cap={cap} ({n} lanes) "
             f"k_sel={k_sel} k={k} redundant={redundant} kind={kind}: "
             f"identical ({float(torch.isfinite(flat).float().mean()):.3f} "
@@ -1522,9 +1559,10 @@ def _check_outputs(best, score, n_cands, matches, n_lib, n_q,
 def phase_slice(dev, n_lib=N_LIBRARY, n_q=N_QUERIES, n_batches=N_BATCHES):
     """Phase 4: the bench workload through `ann_solo_tpu_torch.bench.run`
     (what ``python -m ann_solo_tpu_torch.bench`` prints), then its select
-    on batch 0 against the plain full scan (`fullscan_vs_plain`).  Returns
-    B1's, B2's, B4's and B5's launches of the run and the index, library
-    and settings for phase 5."""
+    on batch 0 against the plain full scan (`fullscan_vs_plain`), at 512
+    candidates and at 4,096 (`wide_select_vs_plain`: B5's wide branch, its
+    launches counted with B5's).  Returns B1's, B2's, B4's and B5's
+    launches of the run and the index, library and settings for phase 5."""
     import torch
 
     from ann_solo_tpu_torch import bench
@@ -1569,7 +1607,7 @@ def phase_slice(dev, n_lib=N_LIBRARY, n_q=N_QUERIES, n_batches=N_BATCHES):
                                   b5_launches) <= 0:
         raise AssertionError(f"B1 launched {launches}, B2 {b2_launches}, "
                              f"B4 {b4_launches}, B5 {b5_launches}")
-    fullscan_vs_plain(dev, out)
+    b5_launches += fullscan_vs_plain(dev, out)
     return launches, b2_launches, b4_launches, b5_launches, out["index"], \
         out["lib"], out["lib_arrays"], out["params"]
 
@@ -1581,7 +1619,8 @@ def fullscan_vs_plain(dev, out, k=NUM_CANDIDATES, reps=5):
     same device: >= 99.9% of (id, score) lanes equal, every 16-bit key
     within one step, no duplicate ids.  Logs the select's split on one
     super-tile (coarse product, probe sort, B2, B5; CUDA events) and
-    each super-tile's share of the batch."""
+    each super-tile's share of the batch.  Then the same at 4,096
+    candidates (`wide_select_vs_plain`), whose B5 launches it returns."""
     import torch
 
     from ann_solo_tpu_torch.index import ivf
@@ -1677,6 +1716,64 @@ def fullscan_vs_plain(dev, out, k=NUM_CANDIDATES, reps=5):
         raise AssertionError(
             f"bench select vs the plain full scan: {same} lanes equal, "
             f"key16 step {key_step}, duplicates {dups}")
+    return wide_select_vs_plain(dev, index, queries, qp, window, reps)
+
+
+def wide_select_vs_plain(dev, index, queries, qp, window, reps,
+                         k=WIDE_SELECT_CANDIDATES):
+    """The bench's select on batch 0 at `k` candidates, what ``--
+    num_candidates 4096`` asks of the open level: k_sel = redundancy * k
+    (8,192 at x2) of each query's 49,152 lanes, B5's wide branch on the
+    card, through `search_device` as the main path calls it, against the
+    plain full scan on the same device (>= 99.9% of (id, score) lanes
+    equal, every 16-bit key within one step, no duplicate ids).  Returns
+    B5's launches in the select (counted from 0 around it)."""
+    import torch
+
+    from ann_solo_tpu_torch.index import ivf
+    from ann_solo_tpu_torch.ops import select_cuda
+
+    p = min(index.num_probe, index.num_list)
+    n = p * index.padded_ids.shape[1]
+    k_eff = min(index.redundancy * k, n)
+    branch = select_cuda.plan(n, k_eff)[0]
+    if not branch.startswith("wide"):
+        raise AssertionError(f"{k} candidates: B5's {branch} branch, not "
+                             "the wide one")
+    select_cuda.LAUNCHES = 0
+    ids, scores = index.search_device(queries, k, **window)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    launches = select_cuda.LAUNCHES
+    select_ms = time_ms(lambda: index.search_device(queries, k, **window),
+                        dev, reps)
+    blocks = index._blocks()
+    args = (float(CHARGE), index.num_probe, k, index.redundancy * k,
+            OPEN_TOL_DA, "Da", index.redundancy > 1)
+    p_s, p_ids = ivf._ivf_search_fullscan(
+        index.scan_block(), *blocks[1:], queries, qp, *args, True)
+    index._scan_block = None
+    same = float(((ids == p_ids.to(torch.int32)) & (scores == p_s))
+                 .float().mean())
+    key_step = int((ivf._key16(scores) - ivf._key16(p_s)).abs().max())
+    dups = _has_duplicates(ids)
+    filled = float((ids >= 0).float().mean())
+    log("wide select vs plain: " + json.dumps({
+        "candidates": k, "k_sel": k_eff, "lanes_a_row": n, "branch": branch,
+        "b5_launches": launches, "select_ms": select_ms, "same_lanes": same,
+        "max_key16_step": key_step, "duplicates": dups,
+        "filled_share": filled}))
+    note(f"select at {k} candidates (k_sel {k_eff} of {n} lanes, B5 "
+         f"{branch}, {launches} launches): {select_ms:.2f} ms a batch, "
+         f"lanes vs plain full scan {same:.5f}, key16 step {key_step}")
+    if same < 0.999 or key_step > 1 or dups:
+        raise AssertionError(
+            f"select at {k} candidates vs the plain full scan: {same} lanes "
+            f"equal, key16 step {key_step}, duplicates {dups}")
+    if dev.type == "cuda" and launches <= 0:
+        raise AssertionError(f"select at {k} candidates: B5 launched "
+                             f"{launches} times")
+    return launches
 
 
 def synth_raw(rng, lib_arrays, n):

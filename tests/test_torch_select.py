@@ -24,15 +24,19 @@ Inputs are made with NumPy from a seed and fed to both packages.
   dedup through the hash table, inserts in a shuffled order, and the
   prefix count of the kept ranks) equals the plain version on those
   cases and on random rows, on every branch and under several insert
-  orders.  The wide branch's split: 64-bit words key << 32 | (2^32 - 1 -
-  lane), the bitonic network with its strides below the 8,192-word tile
-  on tiles and the larger ones over the whole workspace, the dedup table
-  of 2 * m slots in device memory (shuffled inserts), the kept ranks
-  placed 512 a step.  The same emulation with the tie rule mutated (the
-  last lanes at the threshold instead of the first), the dedup's (each
-  id's last rank) or the wide words' lane order (descending) does not.
-  The wrapper's `plan` gives every phase 3e shape its branch and shared
-  memory as the kernel's header states them.
+  orders.  The wide branch: passes 1-3 on one block or over random tile
+  splits of the row (the tiles' histograms added in shuffled orders,
+  each tile's first tie rank and slot from the scan), items key << 32 |
+  lane in lane order, the stable counting sort on the key (two 8-bit
+  digits; warps ranking their segments; blocks and stores in shuffled
+  orders), and the dedup: up to ROW_TAIL items on one block (claims wave
+  by wave in rank order), else a table of 2 * m slots in device memory,
+  the kept ranks placed by tile scans.  The same emulation with the tie
+  rule mutated (the last lanes at the threshold instead of the first),
+  the dedup's (each id's last rank) or an unstable digit pass (a warp's
+  lanes of one digit ranked from the last) does not.  The wrapper's
+  `plan` and `wide_grid` give every phase 3e shape its branch, shared
+  memory, rows a group and tiles a row as the kernel computes them.
 * (c) The full scan's card route (each query's probed lists through B2,
   then B5) run on CPU tensors through their plain versions, against the
   port's plain full scan and the JAX `_ivf_search_fullscan`: >= 99.9% of
@@ -279,35 +283,161 @@ def _sort_desc(words):
     return w
 
 
-def _sort_desc_wide(words):
-    """The wide branch's `sort_desc_wide`: the descending bitonic network
-    on 64-bit words in the kernel's order of stages: every size up to the
-    tile S = min(m, TILE_WORDS) on each tile, then for each larger size
-    its strides of S and above over the whole workspace and its smaller
-    strides on each tile (whose pairs never leave a tile); each pair's
-    direction set by its position in the workspace."""
-    w = words.copy()
-    m = len(w)
-    tile = min(m, select_cuda.TILE_WORDS)
-    q = np.arange(m // 2)
+def _sort_wide(items, rng, rule="stable", tile=None, threads=None):
+    """The wide branch's canonical order of its items (key << 32 | lane,
+    in lane order): two counting passes of an 8-bit digit of the key, the
+    low byte first, each bucket order descending.  A pass counts each
+    tile of `tile` items (ITEM_TILE; the whole row when one block of
+    ROW_TAIL_THREADS sorts it), scans the counts over the tiles (each
+    tile's start in each bucket), then scatters each tile, its blocks in a
+    shuffled order: the block's warps each take a segment of whole rounds
+    of 32 items, count
+    its digits, start each digit at the tile's start plus the counts of
+    the warps before, and place a round's items at the running start of
+    their digit plus their rank among the round's lanes of that digit.
+    `rule` "unstable" is the mutation that ranks a round's lanes of one
+    digit from the last (lane descending)."""
+    k_eff = len(items)
+    tile = tile or select_cuda.ITEM_TILE
+    warps = (threads or select_cuda.THREADS) // 32
+    n_tiles = -(-k_eff // tile)
+    for shift in (32, 40):
+        digit = ((items >> np.uint64(shift)) & np.uint64(0xFF)).astype(
+            np.int64)
+        counts = np.stack([np.bincount(digit[t * tile:(t + 1) * tile],
+                                       minlength=256)
+                           for t in range(n_tiles)])
+        total = counts.sum(0)
+        start = np.cumsum(total[::-1])[::-1] - total  # digit 255 first
+        tile_start = start + np.cumsum(counts, 0) - counts
+        out = np.full(k_eff, EMPTY, np.uint64)
+        for t in rng.permutation(n_tiles):
+            lo, hi = t * tile, min(k_eff, (t + 1) * tile)
+            seg = -(-(hi - lo) // (32 * warps)) * 32
+            run = tile_start[t].copy()
+            segs = [(min(hi, lo + w * seg), min(hi, lo + (w + 1) * seg))
+                    for w in range(warps)]
+            runs = []
+            for s0, s1 in segs:  # each warp's start in each bucket
+                runs.append(run.copy())
+                run += np.bincount(digit[s0:s1], minlength=256)
+            for w in rng.permutation(warps):
+                s0, s1 = segs[w]
+                for r0 in range(s0, s1, 32):
+                    d = digit[r0:min(s1, r0 + 32)]
+                    same = d[:, None] == d[None, :]
+                    lower = np.tri(len(d), k=-1, dtype=bool)
+                    rank = (same & (lower if rule == "stable"
+                                    else lower.T)).sum(1)
+                    at = runs[w][d] + rank
+                    assert (out[at] == EMPTY).all()
+                    out[at] = items[r0:r0 + len(d)]
+                    runs[w] += np.bincount(d, minlength=256)
+        assert (out != EMPTY).all()
+        items = out
+    return items
 
-    def stage(size, stride, on_tiles):
-        lo = 2 * q - (q & (stride - 1))
-        hi = lo + stride
-        if on_tiles:
-            assert (lo // tile == hi // tile).all()
-        a, b = w[lo], w[hi]
-        swap = np.where((lo & size) == 0, a < b, a > b)
-        w[lo], w[hi] = np.where(swap, b, a), np.where(swap, a, b)
 
-    size = 2
-    while size <= m:
-        stride = size >> 1
-        while stride:
-            stage(size, stride, stride < tile)
-            stride >>= 1
-        size <<= 1
-    return w
+def _split_select(lane_keys, k_eff, n_tiles, rng):
+    """Passes 1-3 of a row split over blocks: tiles of round_up(ceil(n /
+    n_tiles), 8) lanes; the tiles' high-byte histograms added in a
+    shuffled order; each tile's low-byte histogram within the high bin and
+    its count above it; the scan's threshold, ties and each tile's first
+    tie rank and first slot; each tile's compaction in rounds of THREADS
+    threads of 8 consecutive lanes (a thread's first tie rank and slot
+    from the packed scan of its round), its blocks in a shuffled order.
+    Returns the items key << 32 | lane in lane order."""
+    n = len(lane_keys)
+    width = -(-(-(-n // n_tiles)) // 8) * 8
+    spans = [(lo, min(n, lo + width)) for lo in range(0, n, width)]
+    hist = np.zeros(256, np.int64)
+    for t in rng.permutation(len(spans)):
+        lo, hi = spans[t]
+        hist += np.bincount(lane_keys[lo:hi] >> 8, minlength=256)
+    high, above = _find_bin(hist, k_eff)
+    need = k_eff - above
+    lows, above_bin = [], []
+    for lo, hi in spans:
+        keys = lane_keys[lo:hi]
+        lows.append(np.bincount(keys[keys >> 8 == high] & 0xFF,
+                                minlength=256))
+        above_bin.append(int((keys >> 8 > high).sum()))
+    low, above2 = _find_bin(np.sum(lows, 0), need)
+    thresh, ties = (high << 8) | low, need - above2
+    eq = np.array([h[low] for h in lows])
+    gt = np.array([a + h[low + 1:].sum() for a, h in zip(above_bin, lows)])
+    tie_first = np.cumsum(eq) - eq
+    slot_first = np.cumsum(gt) - gt + np.minimum(ties, tie_first)
+    items = np.full(k_eff, EMPTY, np.uint64)
+    per = 8 * select_cuda.THREADS
+    for t in rng.permutation(len(spans)):
+        lo, hi = spans[t]
+        tie_base, slot_base = int(tie_first[t]), int(slot_first[t])
+        for j0 in range(lo, hi, per):
+            keys = lane_keys[j0:min(hi, j0 + per)]
+            keys8 = np.pad(keys, (0, per - len(keys)),
+                           constant_values=-1).reshape(-1, 8)
+            at_t, above_t = keys8 == thresh, keys8 > thresh
+            eq_c, gt_c = at_t.sum(1), above_t.sum(1)
+            eq_before = np.cumsum(eq_c) - eq_c
+            gt_before = np.cumsum(gt_c) - gt_c
+            can = np.clip(ties - (tie_base + eq_before), 0, eq_c)
+            take = above_t | (at_t & (np.cumsum(at_t, 1) <= can[:, None]))
+            first = (slot_base + gt_before
+                     + np.clip(ties - tie_base, 0, eq_before))
+            slot = first[:, None] + np.cumsum(take, 1) - take
+            lanes = (j0 + np.arange(per)).reshape(-1, 8)
+            assert (items[slot[take]] == EMPTY).all()
+            items[slot[take]] = ((keys8[take].astype(np.uint64)
+                                  << np.uint64(32))
+                                 | lanes[take].astype(np.uint64))
+            slot_base += int(gt_c.sum()) + min(max(ties - tie_base, 0),
+                                               int(eq_c.sum()))
+            tie_base += int(eq_c.sum())
+    assert (items != EMPTY).all()
+    lane = (items & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    assert (np.diff(lane) > 0).all()  # lane order
+    return items
+
+
+def _wide_place(kept, rng, row_tail=False):
+    """The wide branch's placing of the kept ranks.  Over tiles of
+    ITEM_TILE ranks: each tile's kept count (its blocks in a shuffled
+    order), the exclusive scan over the tiles, then a block scan of runs
+    of ITEM_TILE / THREADS ranks a thread within a tile.  On one block a
+    row (`row_tail`): waves of ROW_TAIL_THREADS consecutive ranks, one a
+    thread, a block scan a wave after the kept ranks of the waves before.
+    Returns
+    the kept ranks in output order."""
+    threads = select_cuda.THREADS
+    out = np.full(int(kept.sum()), -1, np.int64)
+    if row_tail:
+        threads = select_cuda.ROW_TAIL_THREADS
+        base = 0
+        for r0 in range(0, len(kept), threads):
+            wave = kept[r0:r0 + threads]
+            pos = base + np.cumsum(wave) - wave
+            out[pos[wave]] = r0 + np.nonzero(wave)[0]
+            base += int(wave.sum())
+        assert (out >= 0).all()
+        return out
+    tile = select_cuda.ITEM_TILE
+    per = tile // threads
+    n_tiles = -(-len(kept) // tile)
+    counts = np.zeros(n_tiles, np.int64)
+    for t in rng.permutation(n_tiles):
+        counts[t] = kept[t * tile:(t + 1) * tile].sum()
+    base = np.cumsum(counts) - counts
+    for t in rng.permutation(n_tiles):
+        runs = np.pad(kept[t * tile:(t + 1) * tile], (0, tile))[:tile]
+        runs = runs.reshape(-1, per)
+        run = runs.sum(1)
+        pos = base[t] + (np.cumsum(run) - run)[:, None] + np.cumsum(
+            runs, 1) - runs
+        ranks = (t * tile + np.arange(tile)).reshape(-1, per)
+        out[pos[runs]] = ranks[runs]
+    assert (out >= 0).all()
+    return out
 
 
 def _dedup_keep(ident, words, rng, rule="least"):
@@ -343,18 +473,56 @@ def _dedup_keep(ident, words, rng, rule="least"):
     return keep
 
 
+def _wave_dedup_keep(ident, words, rng, rule="least"):
+    """The row tail's dedup: 2 * words slots, the same hash and probing;
+    the ranks in waves of ROW_TAIL_THREADS in rank order, each wave's
+    claims in an order drawn from `rng`: a CAS claims a free slot and the
+    claimer stores its rank; after the wave's barrier an id that found its
+    slot taken in this wave lowers the slot's rank to its own where lower
+    (the mutation "most": raises it).  A rank is kept where its slot holds
+    it."""
+    slots = 2 * words
+    shift = 32 - (slots.bit_length() - 1)
+    ids = np.full(slots, -1, np.int64)
+    ranks = np.zeros(slots, np.int64)
+    keep_slot = np.full(len(ident), -1, np.int64)
+    threads = select_cuda.ROW_TAIL_THREADS
+    for r0 in range(0, len(ident), threads):
+        lost = []
+        for r in r0 + rng.permutation(min(threads, len(ident) - r0)):
+            i = int(ident[r])
+            if i < 0:
+                continue
+            h = ((i * 0x9E3779B1) & 0xFFFFFFFF) >> shift
+            while ids[h] not in (-1, i):
+                h = (h + 1) & (slots - 1)
+            if ids[h] == -1:
+                ids[h], ranks[h] = i, r
+            else:
+                lost.append((r, h))
+            keep_slot[r] = h
+        for r, h in lost:
+            if (r < ranks[h]) == (rule == "least") and ranks[h] >= r0:
+                ranks[h] = r
+    return (keep_slot >= 0) & (ranks[np.maximum(keep_slot, 0)]
+                               == np.arange(len(ident)))
+
+
 def _emulate_row(x, probe, padded_ids, k_sel, k, redundant, rng, off=0,
                  branch="on_chip", tie_rule="first", dedup_rule="least",
-                 lane_rule="asc"):
+                 digit_rule="stable", tiles=2):
     """One row through the kernel's steps: pass 1 keys each lane once
     (into the on-chip key array at position lane + off, whose other
     positions hold whatever shared memory held) and counts the high
     bytes; passes 2 and 3 read the key array ("on_chip", "wide") or key
     the row again ("long_row", "wide_long_row") in steps of eight
-    positions.  The wide branches then sort 64-bit words in the
-    workspace (`_sort_desc_wide`; `lane_rule` "desc" is the mutation
-    that orders a key's lanes descending) and dedup through a table of 2
-    * m slots."""
+    positions; "wide_split" runs passes 1-3 over `tiles` tiles of the row
+    (`_split_select`).  The wide branches leave their items key << 32 |
+    lane in lane order, sort them by the key (`_sort_wide`; `digit_rule`
+    "unstable" is the mutation), decode each rank's id once and dedup
+    through a table of the least power of two >= 2 * k_eff slots, then
+    place the kept ranks (`_wide_place`): up to ROW_TAIL items on one
+    block a row, else in tiles of ITEM_TILE."""
     n = len(x)
     l, cap = padded_ids.shape
     k_eff = min(k_sel, n)
@@ -363,6 +531,51 @@ def _emulate_row(x, probe, padded_ids, k_sel, k, redundant, rng, off=0,
     if k_eff == 0:
         return out_s, out_i
     lane_keys = _key16_np(x)
+    wide = branch.startswith("wide")
+    if branch == "wide_split":
+        words = _split_select(lane_keys, k_eff, tiles, rng)
+    else:
+        words, lanes = _fused_passes(x, lane_keys, k_eff, rng, off, branch,
+                                     tie_rule)
+    # Up to ROW_TAIL items one block sorts and places a row's.
+    tile = k_eff if k_eff <= select_cuda.ROW_TAIL else None
+    if wide:
+        words = _sort_wide(words, rng, digit_rule, tile,
+                           tile and select_cuda.ROW_TAIL_THREADS)
+        lane = (words & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        score = _key16_to_f32_np((words >> np.uint64(32)).astype(np.int64))
+    else:
+        words = _sort_desc(words)[:k_eff]
+        lane = lanes[0xFFFF - (words & 0xFFFF)].astype(np.int64)
+        score = _key16_to_f32_np((words >> 16).astype(np.int64))
+    rank = lane // cap
+    lists = probe[rank]
+    ok = (score > -np.inf) & (lists >= 0) & (lists < l)
+    ident = np.where(ok, padded_ids[np.clip(lists, 0, l - 1),
+                                    lane - rank * cap], -1).astype(np.int32)
+    if not (redundant or k_eff > k):
+        out_s[:k_eff], out_i[:k_eff] = score, ident
+        return out_s, out_i
+    if wide and tile is not None:
+        keep = _wave_dedup_keep(ident, select_cuda.sort_width(k_eff), rng,
+                                dedup_rule)
+    else:
+        keep = _dedup_keep(ident, select_cuda.sort_width(k_eff) if wide else
+                           max(select_cuda.sort_width(k_eff),
+                               select_cuda.MIN_WORDS), rng, dedup_rule)
+    kept = (_wide_place(keep, rng, row_tail=tile is not None) if wide
+            else np.nonzero(keep)[0])
+    kept = kept[:k]
+    out_s[:len(kept)], out_i[:len(kept)] = score[kept], ident[kept]
+    return out_s, out_i
+
+
+def _fused_passes(x, lane_keys, k_eff, rng, off, branch, tie_rule):
+    """Passes 1-3 of a row on one block: the words of the taken lanes in
+    lane order (key << 16 | (0xffff - slot) beside a slot -> lane array,
+    at least MIN_WORDS of them, the pad words 0; the wide branches: k_eff
+    items key << 32 | lane and no array)."""
+    n = len(x)
     steps8 = (off + n + 7) // 8
     width = 8 * steps8
     valid = np.zeros(width, bool)
@@ -405,12 +618,11 @@ def _emulate_row(x, probe, padded_ids, k_sel, k, redundant, rng, off=0,
     at_t = valid8 & (keys8 == thresh)
     above_t = valid8 & (keys8 > thresh)
     if wide:
-        words_n = select_cuda.sort_width(k_eff)
-        words = np.zeros(words_n, np.uint64)  # the pad words are 0
+        words = np.zeros(k_eff, np.uint64)
     else:
         words_n = max(select_cuda.sort_width(k_eff), select_cuda.MIN_WORDS)
         words = np.zeros(words_n, np.uint32)
-    lanes = rng.integers(0, n, words_n)
+    lanes = rng.integers(0, n, len(words))
     n_ties = int(at_t.sum())
     tie_base = slot_base = 0
     for ch in range(chunks):
@@ -436,54 +648,40 @@ def _emulate_row(x, probe, padded_ids, k_sel, k, redundant, rng, off=0,
         taken = (per * (ch * threads + np.nonzero(take)[0])
                  + np.nonzero(take)[1] - off)
         if wide:
-            low = 0xFFFFFFFF - taken if lane_rule == "asc" else taken
             words[at] = ((keys8[ch][take].astype(np.uint64) << np.uint64(32))
-                         | low.astype(np.uint64))
+                         | taken.astype(np.uint64))
         else:
             words[at] = (keys8[ch][take] << 16) | (0xFFFF - at)
             lanes[at] = taken
         slot_base += int(take.sum())
         tie_base += int(eq.sum())
     assert slot_base == k_eff
-    if wide:
-        words = _sort_desc_wide(words)[:k_eff]
-        low = (words & np.uint64(0xFFFFFFFF)).astype(np.int64)
-        lane = 0xFFFFFFFF - low if lane_rule == "asc" else low
-        score = _key16_to_f32_np((words >> np.uint64(32)).astype(np.int64))
-    else:
-        words = _sort_desc(words)[:k_eff]
-        lane = lanes[0xFFFF - (words & 0xFFFF)].astype(np.int64)
-        score = _key16_to_f32_np((words >> 16).astype(np.int64))
-    rank = lane // cap
-    lists = probe[rank]
-    ok = (score > -np.inf) & (lists >= 0) & (lists < l)
-    ident = np.where(ok, padded_ids[np.clip(lists, 0, l - 1),
-                                    lane - rank * cap], -1).astype(np.int32)
-    if not (redundant or k_eff > k):
-        out_s[:k_eff], out_i[:k_eff] = score, ident
-        return out_s, out_i
-    kept = np.nonzero(_dedup_keep(ident, words_n, rng, dedup_rule))[0][:k]
-    out_s[:len(kept)], out_i[:len(kept)] = score[kept], ident[kept]
-    return out_s, out_i
+    return words, lanes
 
 
 def _emulate(flat, probe_ids, padded_ids, k_sel, k, redundant, seed=5,
              **rules):
     """Every row; row r starts at lane r * n of a 16-byte aligned block,
-    so its misalignment is r * n mod 4 lanes."""
+    so its misalignment is r * n mod 4 lanes; "wide_split" splits each
+    row into a random count of tiles (2 to 9, tiles of at least 8
+    lanes)."""
     rng = np.random.default_rng(seed)
     n = flat.shape[1]
     rows = [_emulate_row(flat[r], probe_ids[r], padded_ids, k_sel, k,
-                         redundant, rng, off=r * n % 4, **rules)
+                         redundant, rng, off=r * n % 4,
+                         tiles=int(rng.integers(2, min(10, -(-n // 8)) + 1)),
+                         **rules)
             for r in range(len(flat))]
     return (np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]))
 
 
 # Every case on the branches the kernel gives its width, and on the wide
-# branch (which takes any width) too.
+# branch (which takes any width) too, a row on one block and split.
 EMULATED = [(name, branch) for name in sorted(CASES)
-            for branch in (("wide", "wide_long_row") if name in WIDE_CASES
-                           else ("on_chip", "long_row", "wide"))]
+            for branch in (("wide", "wide_long_row", "wide_split")
+                           if name in WIDE_CASES
+                           else ("on_chip", "long_row", "wide",
+                                 "wide_split"))]
 
 
 @pytest.mark.parametrize("name,branch", EMULATED)
@@ -511,7 +709,8 @@ def test_kernel_emulation_equals_plain_random(seed):
     flat = np.where(rng.random((b, n)) < rng.random(), F32(-np.inf), flat)
     args = (flat, probe, ids, k_sel, k, redundant)
     want = _plain(*args)
-    for branch in ("on_chip", "long_row", "wide", "wide_long_row"):
+    for branch in ("on_chip", "long_row", "wide", "wide_long_row",
+                   "wide_split"):
         _assert_same(_emulate(*args, seed=seed, branch=branch), want)
 
 
@@ -527,9 +726,9 @@ def test_dedup_table_order_free(seed):
         _assert_same(_emulate(*args, seed=100 * seed + order), want)
     args = _case("k_8192", seed=seed)
     want = _plain(*args)
-    for order in range(2):
+    for order, branch in enumerate(("wide", "wide_split")):
         _assert_same(_emulate(*args, seed=100 * seed + order,
-                              branch="wide"), want)
+                              branch=branch), want)
 
 
 def test_tie_rule_mutation_fails():
@@ -541,24 +740,33 @@ def test_tie_rule_mutation_fails():
         _assert_same(_emulate(*args, tie_rule="last"), _plain(*args))
 
 
-def test_dedup_rule_mutation_fails():
+@pytest.mark.parametrize("name,branch", [("copies", "on_chip"),
+                                         ("k_8192", "wide")])
+def test_dedup_rule_mutation_fails(name, branch):
     """Keeping each id's last rank (atomicMax) instead of its first
-    changes the result: the table's min is load-bearing."""
-    args = _case("copies")
+    changes the result: the table's min is load-bearing, in the first
+    kernel and in the wide row tail's waves."""
+    args = _case(name)
+    _assert_same(_emulate(*args, branch=branch), _plain(*args))
     with pytest.raises(AssertionError):
-        _assert_same(_emulate(*args, dedup_rule="most"), _plain(*args))
+        _assert_same(_emulate(*args, branch=branch, dedup_rule="most"),
+                     _plain(*args))
 
 
 @pytest.mark.parametrize("name", ["ties_x1", "k_all_16384"])
 def test_wide_lane_order_mutation_fails(name):
-    """The wide words order a key's lanes ascending through 2^32 - 1 -
-    lane; the lane itself (descending) changes the result where ties are
-    selected: that half of the word is load-bearing."""
+    """The wide branch's digit passes must be stable: a key's lanes stay
+    ascending only because each pass keeps equal digits in order.  A
+    scatter that ranks a warp's lanes of one digit from the last (ties
+    broken by lane descending) changes the result where ties are
+    selected, on one block and split."""
     args = _case(name)
     want = _plain(*args)
-    _assert_same(_emulate(*args, branch="wide"), want)
-    with pytest.raises(AssertionError):
-        _assert_same(_emulate(*args, branch="wide", lane_rule="desc"), want)
+    for branch in ("wide", "wide_split"):
+        _assert_same(_emulate(*args, branch=branch), want)
+        with pytest.raises(AssertionError):
+            _assert_same(_emulate(*args, branch=branch,
+                                  digit_rule="unstable"), want)
 
 
 def _select_cases():
@@ -593,8 +801,15 @@ PLANS = {
     "long_row": ("long_row", 49_152), "k_max": ("on_chip", 131_088),
     "odd": ("on_chip", 86_896),
     "k_4097": ("wide", 99_344), "k_wide": ("wide", 99_344),
-    "k_all": ("wide", 132_112), "long_k16384": ("wide_long_row", 66_560),
-    "k_lanes_max": ("wide_long_row", 66_560),
+    "k_all": ("wide", 132_112), "long_k16384": ("wide_long_row", 1_024),
+    "k_lanes_max": ("wide_long_row", 1_024),
+}
+# Rows a group and tiles a row of the wide cases on the H100's 132 SMs:
+# a row on one block while the rows fill about two blocks an SM, else
+# split; every case's rows in one group.
+WIDE_GRIDS = {
+    "k_4097": (1024, 1), "k_wide": (4096, 1), "k_all": (256, 2),
+    "long_k16384": (256, 2), "k_lanes_max": (2, 132),
 }
 
 
@@ -605,16 +820,21 @@ def test_plan_of_each_select_case(name):
     2,048) takes the long-row branch; the bench's rows leave room for two
     blocks an SM (233,472 bytes, 1 KB reserved a block), on the wide
     branch too; more than MAX_SEL lanes selected take the wide branch,
-    keys on chip beside nothing but the histogram (the sort's tile takes
-    their area after pass 3), long_k16384's 196,608 lanes and
-    k_lanes_max's 2^22 without them."""
-    _, _, _, p, cap, k_sel, _, _, _ = _select_cases()[name]
+    keys on chip beside nothing but the histogram, long_k16384's 196,608
+    lanes and k_lanes_max's 2^22 without them (the histogram alone); the
+    wide cases' groups and tiles (`WIDE_GRIDS`) keep each case's rows in
+    one group, split k_all's, long_k16384's and k_lanes_max's rows and
+    keep k_4097's and k_wide's on one block each."""
+    _, b, _, p, cap, k_sel, _, _, _ = _select_cases()[name]
     n = p * cap
     plan = select_cuda.plan(n, min(k_sel, n))
     assert plan == PLANS[name]
     assert plan[1] + select_cuda.STATIC_RESERVE <= 232_448
     if name in ("bench_k512", "bench_k1024", "odd", "k_wide"):
         assert 2 * (plan[1] + select_cuda.STATIC_RESERVE + 1024) <= 233_472
+    if name in WIDE_GRIDS:
+        assert select_cuda.wide_grid(b, n, min(k_sel, n), 132) == \
+            WIDE_GRIDS[name]
 
 
 def test_plan_long_rows():
@@ -627,25 +847,48 @@ def test_plan_long_rows():
     assert select_cuda.plan(111_997, 1024) == ("on_chip", 232_192)
     assert select_cuda.plan(111_998, 1024)[0] == "long_row"
     # The wide branch: 2 * round_up(n + 3, 8) + 1,024 + 256 <= 232,448 up
-    # to n = 115,581; every row of up to 2^22 lanes in 66,560 bytes.
+    # to n = 115,581; every longer row of up to 2^22 lanes in 1,024 bytes.
     assert select_cuda.plan(115_581, 8192) == ("wide", 232_192)
-    assert select_cuda.plan(115_582, 8192) == ("wide_long_row", 66_560)
+    assert select_cuda.plan(115_582, 8192) == ("wide_long_row", 1_024)
     assert select_cuda.plan(select_cuda.MAX_LANES, select_cuda.MAX_LANES) \
-        == ("wide_long_row", 66_560)
-    assert select_cuda.plan(5000, 4097) == ("wide", 66_560)
+        == ("wide_long_row", 1_024)
+    assert select_cuda.plan(5000, 4097) == ("wide", 11_040)
 
 
-@pytest.mark.parametrize("b,k_eff,sms,grid", [
-    (4096, 8192, 132, 264), (256, 65536, 132, 256), (3, 4097, 132, 3),
-    (64, 1 << 22, 132, 10), (1, 1 << 22, 132, 1), (4096, 1 << 20, 132, 42),
+@pytest.mark.parametrize("b,n,k_eff,sms,grid", [
+    (4096, 49152, 8192, 132, (4096, 1)), (256, 65536, 65536, 132, (256, 2)),
+    (3, 5000, 4097, 132, (3, 2)), (64, 1 << 22, 1 << 22, 132, (10, 27)),
+    (1, 1 << 22, 1 << 22, 132, (1, 264)), (2, 1 << 22, 1 << 22, 132,
+                                           (2, 132)),
+    (4096, 1 << 20, 1 << 20, 132, (41, 7)), (1, 8192, 8192, 132, (1, 2)),
 ])
-def test_wide_grid(b, k_eff, sms, grid):
-    """The wide branch's blocks: two an SM, no more than the rows, and a
-    workspace of 24 bytes a sort word a block within WORK_BUDGET (1 GiB:
-    ten blocks at 2^22 lanes selected)."""
-    assert select_cuda.wide_grid(b, k_eff, sms) == grid
-    words = select_cuda.sort_width(k_eff)
-    assert grid == 1 or grid * 24 * words <= select_cuda.WORK_BUDGET
+def test_wide_grid(b, n, k_eff, sms, grid):
+    """The wide branch's groups and tiles: as many rows a group as the
+    1 GiB WORK_BUDGET holds at `wide_row_words` a row (ten at 2^22 lanes
+    selected), and a row split into tiles of a multiple of 8 lanes, at
+    least MIN_TILE, over about two blocks an SM when the group's rows are
+    fewer (1 once they fill them)."""
+    group, tiles = select_cuda.wide_grid(b, n, k_eff, sms)
+    assert (group, tiles) == grid
+    row = 8 * select_cuda.wide_row_words(n, k_eff)
+    assert group == 1 or group * row <= select_cuda.WORK_BUDGET
+    assert tiles <= min(-(-n // select_cuda.MIN_TILE),
+                        max(1, -(-2 * sms // group)))
+
+
+def test_wide_row_words():
+    """A row's share of the wide workspace, as the kernel lays it out:
+    k_eff items (even), the least power of two >= 2 * k_eff table slots,
+    and the meta area (the head, 260 ints a lane tile of MIN_TILE, 256
+    counts and a kept count an item tile of ITEM_TILE, rounded to 4)."""
+    # k_wide: 8,192 items, 16,384 slots, 528 + 260 * 12 + 256 * 2 + 4.
+    assert select_cuda.wide_row_words(49152, 8192) == \
+        8192 + 16384 + (528 + 3120 + 512 + 4) // 2
+    assert select_cuda.wide_row_words(4097, 4097) == \
+        4098 + 16384 + (528 + 260 * 2 + 256 * 2 + 4) // 2
+    big = select_cuda.wide_row_words(1 << 22, 1 << 22)
+    assert big == (1 << 22) + (1 << 23) + (528 + 260 * 1024 + 257 * 1024) // 2
+    assert 2 * 8 * big <= select_cuda.WORK_BUDGET
 
 
 # --------------------------------------------------------------------- #

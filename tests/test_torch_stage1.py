@@ -18,12 +18,15 @@ packages.  The plain version must:
   order, on the main path's layouts (a zero tail), peaks at the windows'
   float32 edges, duplicated m/z, shuffled rows and non-finite m/z;
 * equal, bit for bit, a NumPy emulation of the kernel's wide branch (any
-  Kq and Kc: a warp a pair, the branch rule over the row as it lies in
-  memory, a binary search over the whole row with the same test, the
-  walk or the dense loop, every term summed in query-peak order), on the
-  same cases and at Kc = 257, 300 and 600, Kq up to 300; with its search
-  test mutated (>= tol) it differs on the edge case.  The plain version
-  also agrees with JAX at Kc = 257 and 600, Kq = 50 and 300.
+  Kq and Kc: a warp a pair, the row staged in chunks of at most
+  WIDE_STAGE peaks, the branch rule checked chunk by chunk, runs of
+  consecutive query peaks a lane searched by binary lifting and the
+  reach from the last edge with the same test, the walk or the dense
+  loop, the +-0 terms skipped and the others summed in query-peak
+  order), on the same cases and at Kc = 257, 300 and 600, Kq up to 300,
+  also staged in chunks of 7 to 128 peaks; with its search test mutated
+  (>= tol) it differs on the edge case.  The plain version also agrees
+  with JAX at Kc = 257 and 600, Kq = 50 and 300.
 
 The rows the main path builds (`preprocess_batch`, `build_store`, the
 bench's library) all take the kernel's range search.  CPU tensors never
@@ -331,20 +334,30 @@ def _emulate_kernel(q_mz, q_int, q_prec, l_mz, l_int, l_ann, l_prec, cand,
 
 
 def _emulate_wide(q_mz, q_int, q_prec, l_mz, l_int, l_ann, l_prec, cand,
-                  num_shifts, shift, tol, search="gt"):
-    """Kernel B4's wide branch in NumPy, all valid pairs at once: the
-    branch rule as a warp checks it over the row where it lies (peak j
-    against peak j - 1); per query peak and window (the shift windows
-    only with |prec_diff| >= tol) on a row that passes, the lower edge
-    by a binary search over [0, Kc) with the plain test (q - c) - off >
-    tol on the staged m/z (+inf where the intensity is not > 0), then the
-    walk from it taking the max while |(q - c) - off| <= tol; on any
-    other row the dense loop over its Kc peaks; every term q_int * vmax
-    added in query-peak order from +0.0.  `search` "ge" is the mutation
-    (q - c) - off >= tol."""
+                  num_shifts, shift, tol, search="gt", stage=None):
+    """Kernel B4's wide branch in NumPy, all valid pairs at once: a pair's
+    row staged in chunks of `stage` peaks (`stage1_cuda.wide_stage(Kc)`
+    by default); the branch rule checked on each chunk (its positive
+    peaks a prefix of it, finite, non-decreasing: peak j against peak
+    j - 1 of the chunk), and the search over that prefix, here as the
+    chunk's m/z with +inf for a peak of intensity not > 0 (the same
+    edges: +inf passes no test).
+    The query peaks in blocks of at most 32 * WIDE_R, a run of
+    consecutive peaks a lane; on a chunk that passes, per window (the
+    shift windows only with |prec_diff| >= tol) the lower edge with the
+    plain test (q - c) - off > tol: by binary lifting over the chunk for
+    a run's first peak and after a peak whose m/z does not ascend, else
+    three steps (4, 2, 1) from the previous peak's edge and the lifting
+    from there when the test still holds at the edge (at most four shift
+    windows; with more, the lifting from 0 for every peak); then the walk
+    taking the max while |(q - c) - off| <= tol; on any other chunk every
+    peak of it.  vmax is the max over the chunks; the terms q_int * vmax
+    are added in query-peak order from +0.0, the +-0 ones skipped.
+    `search` "ge" is the mutation (q - c) - off >= tol."""
     b, c = cand.shape
     kq, kc = q_mz.shape[1], l_mz.shape[1]
     tol = F32(tol)
+    stage = stage or stage1_cuda.wide_stage(kc)
     n_shift = num_shifts - 1 if shift and num_shifts > 1 else 0
     chg = F32(num_shifts - 1 if shift else 1)
     rows, cols = np.nonzero(cand >= 0)
@@ -352,14 +365,11 @@ def _emulate_wide(q_mz, q_int, q_prec, l_mz, l_int, l_ann, l_prec, cand,
     mz, x, ann = l_mz[ids], l_int[ids], l_ann[ids]
     n_pairs = len(ids)
     pairs = np.arange(n_pairs)
+    block = 32 * stage1_cuda.WIDE_R
+    per = -(-kq // -(-kq // block)) if kq else 0
+    run = -(-per // 32)
     with np.errstate(invalid="ignore", over="ignore"):
         pos = x > 0
-        prev_pos = np.pad(pos[:, :-1], ((0, 0), (1, 0)),
-                          constant_values=True)
-        prev_mz = np.pad(mz[:, :-1], ((0, 0), (1, 0)))
-        first = np.arange(kc) == 0
-        ok = prev_pos & (np.abs(mz) < np.inf) & (first | (prev_mz <= mz))
-        fast = ~(pos & ~ok).any(1)
         staged = np.where(pos, mz, F32(np.inf))
         pd = (q_prec[rows] - l_prec[ids]) * chg
         shifted = (n_shift > 0) & (np.abs(pd) >= tol)
@@ -368,35 +378,64 @@ def _emulate_wide(q_mz, q_int, q_prec, l_mz, l_int, l_ann, l_prec, cand,
             mult = np.where(ann == s, F32(1), np.where(ann == 0, F32(2 / 3),
                                                        F32(0)))
             windows.append((pd / F32(s), shifted, mult * x))
-        cols_k = np.arange(kc)
+        vmax = np.zeros((n_pairs, kq), F32)
+        fast_rows = np.ones(n_pairs, bool)
+        for j0 in range(0, kc, stage):
+            j1 = min(kc, j0 + stage)
+            ln = j1 - j0
+            top = 1 << (ln.bit_length() - 1)
+            cpos, cmz = pos[:, j0:j1], mz[:, j0:j1]
+            prev_pos = np.pad(cpos[:, :-1], ((0, 0), (1, 0)),
+                              constant_values=True)
+            prev_mz = np.pad(cmz[:, :-1], ((0, 0), (1, 0)))
+            first = np.arange(ln) == 0
+            ok = prev_pos & (np.abs(cmz) < np.inf) & (first | (prev_mz <= cmz))
+            fast = ~(cpos & ~ok).any(1)
+            fast_rows &= fast
+            cm = staged[:, j0:j1]
+            cols_k = np.arange(ln)
+            for off, active, val in windows:
+                cval = val[:, j0:j1]
+                edge = np.zeros(n_pairs, np.int64)
+                q_prev = np.full(n_pairs, np.nan, F32)
+                for i in range(kq):
+                    q = q_mz[rows, i]
+                    g = (q[:, None] - cm) - off[:, None]
+                    past = g > tol if search == "gt" else g >= tol
+
+                    def test(at):
+                        return (at < ln) & past[pairs, np.minimum(at, ln - 1)]
+
+                    first_of_run = (i % per) % run == 0
+                    reach = ((not first_of_run) & (q >= q_prev)
+                             & (n_shift <= 4))
+                    at = np.where(reach, edge, 0)
+                    for step in (4, 2, 1):
+                        at = np.where(reach & (at + step <= ln)
+                                      & test(at + step - 1), at + step, at)
+                    lift = ~reach | test(at)
+                    step = top
+                    while step:
+                        at = np.where(lift & (at + step <= ln)
+                                      & test(at + step - 1), at + step, at)
+                        step //= 2
+                    edge, q_prev = at, q
+                    hit = np.abs(g) <= tol
+                    from_edge = cols_k[None, :] >= at[:, None]
+                    alive = from_edge & (np.cumsum(~hit & from_edge, 1) == 0)
+                    walk = np.fmax.reduce(np.where(alive, cval, F32(0)),
+                                          axis=1, initial=F32(0))
+                    dense = np.fmax.reduce(np.where(hit, cval, F32(0)),
+                                           axis=1, initial=F32(0))
+                    vmax[:, i] = np.where(active, np.fmax(
+                        vmax[:, i], np.where(fast, walk, dense)), vmax[:, i])
         acc = np.zeros(n_pairs, F32)
         for i in range(kq):
-            q = q_mz[rows, i]
-            v = np.zeros(n_pairs, F32)
-            for off, active, val in windows:
-                g = (q[:, None] - staged) - off[:, None]
-                lo = np.zeros(n_pairs, np.int64)
-                hi = np.full(n_pairs, kc, np.int64)
-                while (lo < hi).any():
-                    open_ = lo < hi
-                    mid = (lo + hi) // 2
-                    at = g[pairs, np.minimum(mid, kc - 1)]
-                    past = at > tol if search == "gt" else at >= tol
-                    lo = np.where(open_ & past, mid + 1, lo)
-                    hi = np.where(open_ & ~past, mid, hi)
-                hit = np.abs(g) <= tol
-                from_edge = cols_k[None, :] >= lo[:, None]
-                alive = from_edge & (np.cumsum(~hit & from_edge, 1) == 0)
-                walk = np.fmax.reduce(np.where(alive, val, F32(0)), axis=1,
-                                      initial=F32(0))
-                dense = np.fmax.reduce(np.where(hit, val, F32(0)), axis=1,
-                                       initial=F32(0))
-                v = np.where(active, np.fmax(v, np.where(fast, walk, dense)),
-                             v)
-            acc = acc + q_int[rows, i] * v
+            term = q_int[rows, i] * vmax[:, i]
+            acc = np.where(term != 0, acc + term, acc)
     out = np.full((b, c), -np.inf, F32)
     out[rows, cols] = acc * F32(pt_rescore.BOUND_INFLATION)
-    return out, fast
+    return out, fast_rows
 
 
 @pytest.mark.parametrize("name", ["shifts_1", "shifts_3", "shifts_6",
@@ -417,6 +456,27 @@ def test_wide_branch_emulation_equals_plain(name):
         assert fast.all()
 
 
+@pytest.mark.parametrize("name,stage", [
+    ("kc_257", 100), ("kc_600_kq_300", 128), ("kc_300_shuffled", 64),
+    ("k300_tail", 96), ("edge_at_tol", 16), ("shuffled", 7),
+    ("nonfinite", 8), ("window_tail", 10), ("shifts_6", 9),
+])
+def test_wide_branch_chunked_emulation_equals_plain(name, stage):
+    """The wide branch with its rows staged in several chunks (a small
+    stage forces it at these widths; on the card rows past WIDE_STAGE
+    peaks are): the branch rule chunk by chunk, the searches and walks
+    within each chunk, vmax their max; equal to the plain version bit for
+    bit, and a shuffled row has chunks on both branches."""
+    num_shifts, shift, c_chunk, tol = _settings(name)
+    arrays = _inputs(name, all_invalid_rows=(0,))
+    assert arrays[3].shape[1] > stage
+    got, fast = _emulate_wide(*arrays, num_shifts, shift, tol, stage=stage)
+    np.testing.assert_array_equal(
+        got, _plain(arrays, num_shifts, shift, c_chunk, tol))
+    if name in ("shuffled", "kc_300_shuffled"):
+        assert 0 < fast.sum() < len(fast)
+
+
 def test_wide_search_mutation_fails():
     """The wide branch's search with >= tol in place of the plain test's
     > tol skips the peaks exactly at the window's edge: the bounds
@@ -428,6 +488,9 @@ def test_wide_search_mutation_fails():
     np.testing.assert_array_equal(
         _emulate_wide(*arrays, num_shifts, shift, tol)[0], want)
     got = _emulate_wide(*arrays, num_shifts, shift, tol, search="ge")[0]
+    assert not np.array_equal(got, want)
+    got = _emulate_wide(*arrays, num_shifts, shift, tol, search="ge",
+                        stage=16)[0]
     assert not np.array_equal(got, want)
 
 
@@ -543,6 +606,27 @@ def test_smem_bytes_and_limit(monkeypatch):
     assert stage1_cuda.branch(50, 257) == "wide"
     for kq, kc in ((50, 300), (300, 300), (50, 1024), (100_000, 20)):
         assert stage1_cuda.branch(kq, kc) == "wide"
+
+
+@pytest.mark.parametrize("kc,stage,span,blocks", [
+    (257, 257, 304, 3), (300, 300, 348, 3), (1024, 480, 552, 2),
+    (600, 480, 552, 2), (1, 1, 16, 3), (100_000, 480, 552, 2),
+])
+def test_wide_smem_bytes(kc, stage, span, blocks):
+    """The wide branch's staging: a chunk of at most WIDE_STAGE peaks, each
+    staged array its peaks and REACH words of padding, rounded up to 4,
+    with four words skipped every 32 (a multiple of 4 words, so every
+    array starts 16-byte aligned); a block's shared memory (two buffers
+    of three arrays and a query block's vmax a warp) leaves three blocks
+    an SM at Kc 257 and 300 and two at a full chunk (233,472 bytes an SM,
+    1 KB reserved a block)."""
+    assert stage1_cuda.wide_stage(kc) == stage
+    assert stage1_cuda.wide_span(kc) == span and span % 4 == 0
+    smem = stage1_cuda.wide_smem_bytes(kc)
+    assert smem == 4 * stage1_cuda.WIDE_WARPS * (
+        6 * span + 32 * stage1_cuda.WIDE_R)
+    assert smem <= stage1_cuda.SMEM_LIMIT
+    assert min(3, 233_472 // (smem + 1024)) == blocks
 
 
 @pytest.mark.parametrize("kq,tile", [(50, 7), (20, 3), (32, 4), (56, 7),
