@@ -19,11 +19,17 @@ kernel at every K or raise.  The port drops the JAX package's width rule
 on purpose (more than 128 peaks take its XLA path,
 `shifted_dot_pallas.py:336-338`): that rule exists for the TPU's VMEM,
 which holds the kernel's K x K blocks, and nothing on this card needs it.
-Above `MAX_KERNEL_PEAKS` (`branch`) the kernel's wide branch takes the
-pair: the candidate peaks in 128-column tiles of registers, the match
-state in device memory (a workspace allocated here), the same picks in
-the same order, where the plain version would build the whole K x K
-matrix step by step (53.58 ms against the kernel's 0.2308 ms at K = 50).
+Above `MAX_KERNEL_PEAKS` (`branch`) the kernel's wide branch
+takes the pair: a block a pair, a query peak a thread; a pair on the
+search rule (`search_pairs`: the rows the engine builds) finds each query
+peak's passing candidate peaks by a binary search in each m/z window of
+its sorted row instead of walking all K x K entries, and the greedy runs
+in shared memory (a rank sort of the positive entries and one warp's
+walk, or each row's best live entries when they overflow the list); the
+same picks in the same order, where the plain version would build the
+whole K x K matrix step by step.  Past the shared memory (about K =
+8,500) the pair's state lives in a device-memory workspace allocated
+here, sized by the kernel's library; `wide_plan` reports the layout.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch.nn.functional as F
 
 from ann_solo_tpu_torch.ops import _build
 from ann_solo_tpu_torch.ops.shifted_dot import shifted_dot_full_plain
+from ann_solo_tpu_torch.ops.stage1_cuda import ascending_rows
 
 # Peaks a pair of the register branch; more take the wide branch.
 MAX_KERNEL_PEAKS = 128
@@ -56,6 +63,11 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p,
     ]
+    lib.shifted_dot_workspace_bytes.restype = ctypes.c_size_t
+    lib.shifted_dot_workspace_bytes.argtypes = [ctypes.c_int] * 3
+    lib.shifted_dot_wide_plan.restype = ctypes.c_int
+    lib.shifted_dot_wide_plan.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
     lib.shifted_dot_error_string.restype = ctypes.c_char_p
     lib.shifted_dot_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -67,6 +79,40 @@ def branch(k: int) -> str:
     return "registers" if k <= MAX_KERNEL_PEAKS else "wide"
 
 
+WIDE_PLAN_KEYS = ("threads", "smem_bytes", "workspace_bytes",
+                  "blocks_per_sm", "list_entries", "row_depth")
+
+
+def wide_plan(k: int, num_shifts: int) -> dict:
+    """The built wide kernel's launch at K peaks, as its library plans it
+    (`shifted_dot_wide_plan`, the card only): threads a block (a query
+    peak a thread, in whole warps, at most 1,024), dynamic shared memory
+    a block (0 when the state is in the workspace), workspace bytes a
+    pair, blocks an SM, the positive entries the list sorts on chip and
+    the entries the overflow path caches a row."""
+    lib = _library()
+    plan = (ctypes.c_longlong * len(WIDE_PLAN_KEYS))()
+    err = lib.shifted_dot_wide_plan(k, num_shifts, plan)
+    if err != 0:
+        msg = lib.shifted_dot_error_string(err).decode()
+        raise RuntimeError(f"shifted_dot_wide_plan failed: {msg} ({err})")
+    return dict(zip(WIDE_PLAN_KEYS, plan))
+
+
+def search_pairs(q_int, c_mz, c_int, fragment_mz_tolerance: float):
+    """(P,) bool: the wide kernel's branch rule for each pair.  True (the
+    m/z windows are searched) when the candidate peaks of positive
+    intensity are a prefix of the row with finite, non-decreasing m/z
+    (`stage1_cuda.ascending_rows`, B4's rule), every intensity of the pair
+    is finite (so no entry is NaN) and so is the tolerance; False (the
+    dense walk over all K x K entries) else.  The kernel checks the same
+    rule on the rows it stages."""
+    tol = torch.tensor(fragment_mz_tolerance, dtype=torch.float32)
+    return (ascending_rows(c_mz, c_int)
+            & torch.isfinite(q_int).all(1) & torch.isfinite(c_int).all(1)
+            & bool(torch.isfinite(tol)))
+
+
 @torch.no_grad()
 def _launch(q_mz, q_int, c_mz, c_int, c_ann, q_prec, c_prec, charge,
             tol: float, num_shifts: int, allow_shift: bool):
@@ -75,14 +121,15 @@ def _launch(q_mz, q_int, c_mz, c_int, c_ann, q_prec, c_prec, charge,
     p, k = q_mz.shape
     total = torch.empty(p, dtype=torch.float32, device=q_mz.device)
     match = torch.empty((p, k), dtype=torch.int32, device=q_mz.device)
-    taken = (torch.empty((p, k), dtype=torch.int32, device=q_mz.device)
-             if branch(k) == "wide" else None)
+    n_work = lib.shifted_dot_workspace_bytes(p, k, num_shifts)
+    work = (torch.empty(n_work, dtype=torch.uint8, device=q_mz.device)
+            if n_work else None)
     stream = torch.cuda.current_stream(q_mz.device).cuda_stream
     err = lib.shifted_dot_greedy(
         q_mz.data_ptr(), q_int.data_ptr(), c_mz.data_ptr(), c_int.data_ptr(),
         c_ann.data_ptr(), q_prec.data_ptr(), c_prec.data_ptr(),
         charge.data_ptr(), total.data_ptr(), match.data_ptr(),
-        None if taken is None else taken.data_ptr(), p, k, tol, num_shifts,
+        None if work is None else work.data_ptr(), p, k, tol, num_shifts,
         int(bool(allow_shift)), stream,
     )
     if err != 0:

@@ -25,10 +25,22 @@ Phases, in the order they run (1-3c, 3d, 3e, 4-6, 7, 8, 7b, 10a, 10b,
    match-extraction (4,096 pairs) shapes of the bench workload plus
    ragged, unequal-width, tie-heavy, K = 20 / 128 and dense (every entry
    positive) cases, then the kernel's wide branch (K above 128): K = 129
-   (ties), 300 and 1,024, and a dense K = 200 set (more positive entries
-   than its list holds: the recompute path).  Totals must be equal bit
+   (ties), 300 and 1,024, a dense K = 200 set (more positive entries
+   than its list holds: the overflow path), the engine's full-C greedy
+   chunk (8,192 pairs at K = 300), Kq 300 against Kc 200 (zero tails), a
+   quarter of the rows shuffled (the dense rule), non-finite m/z and
+   precursors with peaks at the float32 window edges (tol 2^-5),
+   non-finite and negative intensities, a dense K = 300 set whose
+   rows all prefer the same column in turn, an odd K = 2,001 (the
+   state's layout stays aligned at any K) and K = 9,000 with 40 positive
+   peaks a side at a dense tolerance (state in a device-memory
+   workspace, the overflow path).  Totals must be equal bit
    for bit (rtol 0: both sum the same float32 terms in the same order)
-   and the match tables identical; each case logs its branch;
+   and the match tables identical; each case logs its branch, and a wide
+   case its pairs on the search and the dense rule (both taken over the
+   phase), its positive entries a pair, its time a call and the
+   kernel's own (a CUDA graph's replay) beside the bound of what its
+   search does on these inputs (`b1_work`), and the old dense count;
 3b. kernel B2 vs plain: the probe-gather scan against its plain version at
    the 2.1M-spectrum tile shape (B = 1,024, P = 64, cap = 768, D = 800,
    int8, +-500 Da), bf16 storage with a ppm window, a ragged shape
@@ -81,7 +93,9 @@ Phases, in the order they run (1-3c, 3d, 3e, 4-6, 7, 8, 7b, 10a, 10b,
    run's probes touch, for B4 the library rows its ids name) over 3.35
    TB/s and its operations over the peak rate of their type (bf16 tensor
    cores for B2 and B3, f32 for B1: B1's matrix build alone, since
-   the greedy walks only positive entries; for B4 the f32 instruction
+   the greedy walks only positive entries, and on its wide branch the
+   search's subtractions and compares at the f32 instruction rate,
+   33.5 T/s (`b1_work`); for B4 the f32 instruction
    rate, 33.5 T/s, and the merge of each pair's sorted peaks that these
    inputs need, beside the old dense count at 67 TFLOP/s; for B5 the
    lanes, the probe table, an id a selected lane and the outputs, and
@@ -352,8 +366,10 @@ NUM_PROBE = 512
 HIT_RATE_GATE = 0.95
 
 # (name, pairs, query peaks, library peaks, charge, allow_shift, ties,
-# fragment tolerance).  "dense": a tolerance wider than the m/z range, so
-# every one of the K x K entries is positive.
+# fragment tolerance[, variant]).  "dense": a tolerance wider than the m/z
+# range, so every one of the K x K entries is positive.  Variants
+# (`b1_variant`) edit the rows after `synth_pairs`; "k300_tail" pads its
+# 200 library peaks to 300 with zeros (`pad_peaks`).
 KERNEL_CASES = (
     ("stage2", 32768, 50, 50, 2, True, False, FRAG_TOL),
     ("matches", 4096, 50, 50, 2, True, True, FRAG_TOL),
@@ -366,7 +382,20 @@ KERNEL_CASES = (
     ("k300", 1024, 300, 300, 2, True, False, FRAG_TOL),
     ("k1024", 64, 1024, 1024, 2, True, False, FRAG_TOL),
     ("dense_k200", 64, 200, 200, 2, True, False, 5000.0),
+    ("k300_chunk", 8192, 300, 300, 2, True, False, FRAG_TOL),
+    ("k300_tail", 1024, 300, 200, 2, True, False, FRAG_TOL),
+    ("k300_shuffled", 1024, 300, 300, 2, True, False, FRAG_TOL, "shuffled"),
+    ("k300_nonfinite", 1024, 300, 300, 2, True, False, 2.0 ** -5,
+     "nonfinite"),
+    ("k300_intensities", 256, 300, 300, 2, True, False, FRAG_TOL,
+     "intensities"),
+    ("dense_k300_skew", 64, 300, 300, 2, True, False, 5000.0, "skew"),
+    ("k2001_odd", 16, 2001, 2001, 2, True, False, FRAG_TOL),
+    ("k9000_workspace", 2, 9000, 9000, 2, True, False, 5000.0, "few"),
 )
+# Plain-version comparisons of B1 run in pieces of at most this many
+# K x K entries (the k300_chunk case's matrices take gigabytes).
+PLAIN_PAIR_ENTRIES = 2 ** 27
 
 # Kernel B2 cases: (name, B, L, P, cap, D, storage, tol_val, tol_mode,
 # exact data, probe table).  Probe tables: "random" (each query its own
@@ -666,6 +695,37 @@ def time_ms(fn, dev, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def time_graph_ms(fn, dev, reps: int) -> float:
+    """Mean milliseconds of `fn()` on the device alone: `reps` calls
+    captured in one CUDA graph, timed over three replays after one, so
+    the host's launch time between calls is left out (on the CPU:
+    `time_ms`)."""
+    import torch
+
+    if dev.type != "cuda":
+        return time_ms(fn, dev, reps)
+    fn()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(stop) / (3 * reps)
+
+
 def bound(name, case, ms, n_bytes, ops, flops_per_s):
     """The least time the card could take for a kernel's work: the larger
     of its bytes (each input read once, each output written once) over the
@@ -714,6 +774,105 @@ def synth_pairs(rng, p, kq, kc, charge, ties):
         c_int.astype(f32), rng.integers(0, charge + 1, (p, kc)).astype(
             np.int32), q_prec, c_prec, np.full(p, charge, np.int32),
     )
+
+
+def b1_variant(rng, pairs, variant, tol, charge):
+    """Kernel B1 case edits, in place on `synth_pairs`' NumPy arrays:
+    * "edges": for each pair, candidate peaks at the float32 edges of one
+      query peak's direct window and of one shift window (`_b1_edges`);
+    * "shuffled": a quarter of the candidate rows permuted (off the
+      search rule: the dense walk);
+    * "nonfinite": "edges", then NaN and +-inf m/z in a sixteenth of the
+      candidate rows (the dense walk) and an eighth of the query rows,
+      and an infinite library precursor in a few pairs;
+    * "intensities": NaN, +inf or negative intensities in a few query or
+      candidate rows (NaN entries, or a gap in the positive prefix);
+    * "skew": candidate intensities descending along each row, so that at
+      a dense tolerance every row prefers the same column in turn;
+    * "few": only the first 40 candidate peaks (a prefix: the search
+      rule holds) and 40 query peaks of positive intensity, so that at a
+      dense tolerance 1,600 positive entries (past the on-chip list) lie
+      on 40 rows and columns and the greedy takes 40 steps."""
+    q_mz, q_int, c_mz, c_int, c_ann, q_prec, c_prec, _ = pairs
+    f32 = np.float32
+    p, kc = c_mz.shape
+    kq = q_mz.shape[1]
+    if variant in ("edges", "nonfinite"):
+        _b1_edges(rng, f32(tol), charge, pairs)
+    if variant == "shuffled":
+        rows = np.nonzero(rng.random(p) < 0.25)[0]
+        perm = rng.permuted(np.tile(np.arange(kc), (len(rows), 1)), axis=1)
+        for arr in (c_mz, c_int, c_ann):
+            arr[rows] = np.take_along_axis(arr[rows], perm, 1)
+    if variant == "nonfinite":
+        bad = np.array([np.nan, np.inf, -np.inf], f32)
+        rows = rng.choice(p, max(1, p // 16), replace=False)
+        c_mz[rows, rng.integers(0, kc, len(rows))] = rng.choice(bad, len(rows))
+        rows = rng.choice(p, max(1, p // 8), replace=False)
+        q_mz[rows, rng.integers(0, kq, len(rows))] = rng.choice(bad, len(rows))
+        c_prec[rng.choice(p, max(1, p // 64), replace=False)] = np.inf
+    if variant == "intensities":
+        for arr, k in ((q_int, kq), (c_int, kc)):
+            rows = rng.choice(p, max(2, p // 16), replace=False)
+            arr[rows, rng.integers(0, k, len(rows))] = rng.choice(
+                np.array([np.nan, np.inf, -0.5], f32), len(rows))
+    if variant == "skew":
+        c_int[:] = -np.sort(-c_int, 1)
+    if variant == "few":
+        n = min(40, kc, kq)
+        c_int[:, n:] = 0.0
+        drop = rng.permuted(np.tile(np.arange(kq), (p, 1)), axis=1)[:, n:]
+        np.put_along_axis(q_int, drop, f32(0.0), 1)
+
+
+def _b1_edges(rng, tol, charge, pairs):
+    """`b1_variant`'s "edges", in place: for each pair, one query peak of
+    intensity 1 and, on both edges of its direct window and of one shift
+    window (when |prec_diff| >= tol), the outermost candidate m/z that
+    passes the plain float32 test (intensity 1; annotation = the shift,
+    so the entry is 1) and the next one out, which fails it; then two
+    duplicated m/z, and the row sorted again.  At a tolerance of 2^-5
+    the direct window's outermost peaks lie at |q - c| = tol exactly."""
+    q_mz, q_int, c_mz, c_int, c_ann, q_prec, c_prec, _ = pairs
+    f32 = np.float32
+    p, kc = c_mz.shape
+    for r in range(p):
+        i = rng.integers(0, min(12, q_mz.shape[1]))
+        q = q_mz[r, i]
+        pd = f32((q_prec[r] - c_prec[r]) * f32(charge))
+        shift = int(rng.integers(1, max(charge, 1) + 1))
+        windows = [(0, f32(0.0))]
+        if abs(pd) >= tol and charge >= 1:
+            windows.append((shift, f32(pd / f32(shift))))
+        placed = []
+        for w, off in windows:
+            def passes(c):
+                d = f32(q - c)
+                return abs(d if w == 0 else f32(d - off)) <= tol
+            for out in (-np.inf, np.inf):  # the low and the high edge
+                c = f32(f32(q - off) + f32(tol if out > 0 else -tol))
+                for _ in range(8):
+                    if passes(c):
+                        break
+                    c = np.nextafter(c, f32(-out))
+                for _ in range(8):
+                    beyond = np.nextafter(c, f32(out))
+                    if not passes(beyond):
+                        break
+                    c = beyond
+                placed += [(c, w, True), (np.nextafter(c, f32(out)), w,
+                                          False)]
+        at = rng.choice(kc, len(placed) + 2, replace=False)
+        for (c, w, passing), j in zip(placed, at):
+            c_mz[r, j] = c
+            if passing:
+                c_int[r, j] = 1.0
+                c_ann[r, j] = w
+        c_mz[r, at[-2:]] = c_mz[r, at[:2]]
+        q_int[r, i] = 1.0
+        order = np.argsort(c_mz[r], kind="stable")
+        for arr in (c_mz, c_int, c_ann):
+            arr[r] = arr[r, order]
 
 
 def synth_stage1(rng, b, c, n_lib, kq, kc, charge, cand_rows="bench",
@@ -906,14 +1065,99 @@ def phase_build(names=("shifted_dot", "ivf_probe_scan", "ivf_chunked_scan",
          f"(nvcc and g++ in parallel) in {time.perf_counter() - t0:.2f} s")
 
 
-def phase_kernel(dev, cases=KERNEL_CASES, kernel_reps=20, plain_reps=3):
-    """Kernel vs plain version on the same tensors; returns the record of
-    the stage-2 shape (times) and the largest total difference."""
+def b1_plain(args, chunk):
+    """`shifted_dot_full_plain` over pieces of `chunk` pairs."""
     import torch
 
+    from ann_solo_tpu_torch.ops.shifted_dot import shifted_dot_full_plain
+
+    p = args[0].shape[0]
+    parts = [shifted_dot_full_plain(*(a[s:s + chunk] for a in args[:8]),
+                                    *args[8:]) for s in range(0, p, chunk)]
+    return (torch.cat([t for t, _ in parts]),
+            torch.cat([m for _, m in parts]))
+
+
+def b1_work(args, chunk, list_entries):
+    """What B1's wide kernel does for these inputs, from this run's
+    arrays (in pieces of `chunk` pairs): the operations of the search
+    design, the pairs on the search and the dense rule, the positive
+    entries and the pairs whose positive entries overflow the on-chip
+    list of `list_entries` (the kernel's plan).  Operations: for a pair on the search rule, each query peak of
+    positive intensity takes, in each active window (the direct one; each
+    shift s <= charge when |prec_diff| >= tol), a binary search over the
+    prefix of positive candidate peaks (bit_length(n_pos) probes) and a
+    walk over its passing range plus the failing edge, a subtraction and
+    a compare a step (one subtraction more for a shift window); then each
+    peak passing any window is evaluated once, 5 operations a window and
+    2 for the product (the old count's entry); a query peak of negative
+    intensity walks its whole row.  A dense-rule pair: every entry
+    evaluated.  The greedy's sort and walk over the positive entries are
+    left out."""
+    import torch
+
+    from ann_solo_tpu_torch.ops import shifted_dot_cuda
+    from ann_solo_tpu_torch.ops.shifted_dot import pair_score_matrix
+
+    qm, qi, cm, ci, ca, qp, cp, chg, tol, num_shifts, shift = args
+    p, k = qm.shape
+    f32 = torch.float32
+    tol_t = torch.tensor(tol, dtype=f32, device=qm.device)
+    search = shifted_dot_cuda.search_pairs(qi, cm, ci, tol)
+    n_pos = (ci > 0).sum(1)
+    pd = (qp - cp) * chg.to(f32)
+    shifted = (pd.abs() >= tol_t) & bool(shift and num_shifts > 1)
+    n_shift = torch.where(shifted, chg.clamp(0, num_shifts - 1), 0)
+    probes = torch.log2(n_pos.to(torch.float64) + 1).ceil()
+    per_entry = (5 * (n_shift + 1) + 2).to(torch.float64)
+    ops, positives, overflow = 0.0, 0, 0
+    cols = torch.arange(k, device=qm.device)
+    for s in range(0, p, chunk):
+        sl = slice(s, s + chunk)
+        diff = qm[sl, :, None] - cm[sl, None, :]
+        prefix = (cols[None, :] < n_pos[sl, None])[:, None, :]
+        walk = torch.zeros(diff.shape[:2], dtype=torch.float64,
+                           device=qm.device)
+        any_pass = torch.zeros_like(diff, dtype=torch.bool)
+        for w in range(int(n_shift.max()) + 1 if p else 1):
+            g = diff if w == 0 else diff - (pd[sl] / torch.tensor(
+                float(w), dtype=f32, device=qm.device))[:, None, None]
+            active = (n_shift[sl] >= w)[:, None]
+            passes = (g.abs() <= tol_t) & prefix & active[:, :, None]
+            step_ops = 2 if w == 0 else 3
+            walk += torch.where(
+                active, (probes[sl, None] + passes.sum(2) + 1) * step_ops,
+                0.0)
+            any_pass |= passes
+        rows = torch.where(
+            qi[sl] > 0, walk + any_pass.sum(2) * per_entry[sl, None],
+            torch.where(qi[sl] < 0, k * per_entry[sl, None], 0.0))
+        ops += float(torch.where(search[sl], rows.sum(1),
+                                 k * k * per_entry[sl]).sum())
+        n = (pair_score_matrix(*(a[sl] for a in args[:8]), *args[8:])
+             > 0).sum((1, 2))
+        positives += int(n.sum())
+        overflow += int((n > list_entries).sum())
+    n_search = int(search.sum())
+    return {"ops": ops, "search": n_search, "dense": p - n_search,
+            "positives": positives / max(p, 1), "overflow": overflow}
+
+
+def phase_kernel(dev, cases=KERNEL_CASES, kernel_reps=20, plain_reps=3):
+    """Kernel vs plain version on the same tensors; returns the record of
+    the stage-2 shape (times) and the largest total difference.  On the
+    wide branch each case logs the pairs on the search and the dense rule
+    (both must be taken over the phase), its positive entries a pair, its
+    pairs past the on-chip list, its time a call through the wrapper and
+    the kernel's own (`time_graph_ms`) beside the restated bound
+    (`b1_work`); the wide kernel's launch plan at each K, as its library
+    reports it (`shifted_dot_cuda.wide_plan`), is logged and must fit the
+    card."""
+    import torch
+
+    from ann_solo_tpu_torch.ops import shifted_dot_cuda
     from ann_solo_tpu_torch.ops.shifted_dot import (
         pair_score_matrix as shifted_dot_scores_matrix,
-        shifted_dot_full_plain,
     )
     from ann_solo_tpu_torch.ops.shifted_dot_cuda import (
         branch,
@@ -921,59 +1165,122 @@ def phase_kernel(dev, cases=KERNEL_CASES, kernel_reps=20, plain_reps=3):
         shifted_dot_full,
     )
 
+    plans = {}
+    for k, charge in sorted({(max(c[2], c[3]), c[4]) for c in cases
+                             if branch(max(c[2], c[3])) == "wide"}):
+        plan = plans[k] = shifted_dot_cuda.wide_plan(k, charge + 1)
+        if not (plan["blocks_per_sm"] >= 1 and plan["row_depth"] >= 1
+                and (plan["smem_bytes"] > 0) != (plan["workspace_bytes"] > 0)
+                and plan["workspace_bytes"] % 16 == 0):
+            raise AssertionError(f"B1 wide plan at K = {k}: {plan}")
+        where = (f"{plan['smem_bytes']} bytes of dynamic shared memory"
+                 if plan["smem_bytes"] else
+                 f"{plan['workspace_bytes']} bytes of device memory")
+        log(f"B1 wide plan at K = {k}: {plan['threads']} threads and "
+            f"{where} a block, {plan['blocks_per_sm']} blocks "
+            f"({plan['blocks_per_sm'] * plan['threads'] // 32} warps) an "
+            f"SM; a list of {plan['list_entries']} entries, "
+            f"{plan['row_depth']} cached a row past it")
+        note(f"B1 wide at K = {k}: {plan['blocks_per_sm']} blocks of "
+             f"{plan['threads']} threads an SM, {where} a block")
     rng = np.random.default_rng(2024)
     record = {"max_abs_err": 0.0}
-    for name, p, kq, kc, charge, shift, ties, tol in cases:
-        arrays = [
-            torch.from_numpy(a).to(dev)
-            for a in synth_pairs(rng, p, kq, kc, charge, ties)
-        ]
+    rules = np.zeros(2, np.int64)  # wide pairs on the search, dense rule
+    for name, p, kq, kc, charge, shift, ties, tol, *rest in cases:
+        variant = rest[0] if rest else None
+        pairs = synth_pairs(rng, p, kq, kc, charge, ties)
+        if variant:
+            b1_variant(rng, pairs, variant, tol, charge)
+        arrays = [torch.from_numpy(a).to(dev) for a in pairs]
         qm, qi, cm, ci, ca = pad_peaks(*arrays[:5])
+        k = qm.shape[1]
         args = (qm, qi, cm, ci, ca, *arrays[5:], tol, charge + 1, shift)
+        chunk = max(1, PLAIN_PAIR_ENTRIES // (k * k))
         total, match = shifted_dot_full(*args)
-        p_total, p_match = shifted_dot_full_plain(*args)
+        p_total, p_match = b1_plain(args, chunk)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        err = float((total - p_total).abs().max())
+        both = torch.isfinite(total) & torch.isfinite(p_total)
+        err = float((total - p_total)[both].abs().max()) \
+            if bool(both.any()) else 0.0
         record["max_abs_err"] = max(record["max_abs_err"], err)
         n_match = int((p_match >= 0).sum())
-        if not (torch.equal(total, p_total) and torch.equal(match, p_match)):
+        if not (torch.equal(total.view(torch.int32),
+                            p_total.view(torch.int32))
+                and torch.equal(match, p_match)):
             raise AssertionError(
                 f"kernel != plain at {name}: max |d total| {err}, "
+                f"{int((total != p_total).sum())} totals and "
                 f"{int((match != p_match).sum())} match entries differ"
             )
         ms = time_ms(lambda: shifted_dot_full(*args), dev, kernel_reps)
-        plain_ms = time_ms(
-            lambda: shifted_dot_full_plain(*args), dev, plain_reps
-        )
-        # The function's least work, at the unpadded widths: per shift a
-        # difference, a second difference, |.|, a compare and a max for
-        # each of the Kq x Kc entries, then the intensity product (2).
-        # The greedy needs no pass over the matrix (the kernel walks the
-        # positive entries).  The count logged beside it also charges a
-        # dense greedy: a compare and a select per entry, once per match
-        # and once to stop.
-        n_shifts = charge + 1 if shift else 1
-        ops = p * kq * kc * (5 * n_shifts + 2)
-        dense_greedy = (n_match + p) * kq * kc * 2
+        plain_ms = time_ms(lambda: b1_plain(args, chunk), dev, plain_reps)
         n_bytes = tensor_bytes(*args[:8], total, match)
-        fields = bound("B1", name, ms, n_bytes, ops, F32_FLOPS)
+        # The old count, at the unpadded widths: per shift a difference,
+        # a second difference, |.|, a compare and a max for each of the
+        # Kq x Kc entries, then the intensity product (2).  The greedy
+        # needs no pass over the matrix (the kernel walks the positive
+        # entries).  The register branch keeps it; the wide branch is
+        # held to what its search does on these inputs (`b1_work`), at
+        # the f32 instruction rate.
+        n_shifts = charge + 1 if shift else 1
+        old = p * kq * kc * (5 * n_shifts + 2)
+        if branch(k) == "wide":
+            # Small pair counts finish faster than the wrapper launches
+            # them: the kernel's own time is a graph replay's.
+            call_ms = ms
+            ms = time_graph_ms(lambda: shifted_dot_full(*args), dev,
+                               kernel_reps)
+            list_entries = plans[k]["list_entries"]
+            work = b1_work(args, chunk, list_entries)
+            rules += (work["search"], work["dense"])
+            fields = bound("B1", name, ms, n_bytes, work["ops"],
+                           F32_INSTR_PER_S)
+            old_ms = max(n_bytes / HBM_BYTES_PER_S, old / F32_FLOPS) * 1e3
+            log(f"bound B1 {name}, the old count: {old:.4g} ops at "
+                f"{F32_FLOPS:.3g} FLOP/s -> {old_ms:.4f} ms, "
+                f"{100.0 * old_ms / ms:.2f}% of it")
+            if fields["bound_ms"] > ms:
+                raise AssertionError(f"B1 {name}: {ms:.4f} ms below its "
+                                     f"bound {fields['bound_ms']:.4f} ms: "
+                                     "the count is wrong")
+            n_pos = work["positives"]
+            rule = (f"rules: search {work['search']} pairs, dense "
+                    f"{work['dense']}; {work['overflow']} pairs past the "
+                    f"{list_entries}-entry list; "
+                    f"{call_ms:.4f} ms a call through the wrapper")
+            note(f"B1 {name}: {ms:.4f} ms ({call_ms:.4f} a call), "
+                 f"{100 * fields['bound_ms'] / ms:.2f}% of its "
+                 f"{fields['bound_ms']:.4f} ms bound")
+        else:
+            fields = bound("B1", name, ms, n_bytes, old, F32_FLOPS)
+            n_pos = int((shifted_dot_scores_matrix(*args) > 0).sum()) / p
+            rule = "rules: none (the register branch)"
         if name == cases[0][0]:  # the stage-2 shape goes in the record
+            # The count logged beside it also charges a dense greedy: a
+            # compare and a select per entry, once per match and once to
+            # stop.
+            dense_greedy = (n_match + p) * kq * kc * 2
             log(f"bound B1 {name}, the old count with the dense greedy: "
-                f"{ops + dense_greedy:.4g} ops -> "
-                f"{(ops + dense_greedy) / F32_FLOPS * 1e3:.4f} ms")
+                f"{old + dense_greedy:.4g} ops -> "
+                f"{(old + dense_greedy) / F32_FLOPS * 1e3:.4f} ms")
             record.update(ms=ms, plain_ms=plain_ms, **fields)
             note(f"B1 {name} (P={p}, K={kq}): {ms:.4f} ms, plain "
                  f"{plain_ms:.2f} ms, {100 * fields['bound_ms'] / ms:.2f}% "
                  f"of its {fields['bound_ms']:.4f} ms bound")
-        # Positive entries a pair: the list the kernel walks.
-        n_pos = int((shifted_dot_scores_matrix(*args) > 0).sum()) / p
-        log(f"kernel {name}: P={p} K={qm.shape[1]} charge={charge} "
-            f"shift={shift} ties={ties} tol={tol}: identical ({n_match} "
-            f"matches, {n_pos:.1f} positive entries a pair); kernel "
-            f"{ms:.4f} ms, {100 * fields['bound_ms'] / ms:.2f}% of its "
+        log(f"kernel {name}: P={p} Kq={kq} Kc={kc} K={k} charge={charge} "
+            f"shift={shift} ties={ties} tol={tol} variant={variant}: "
+            f"identical ({n_match} matches, {n_pos:.1f} positive entries a "
+            f"pair); kernel {ms:.4f} ms, "
+            f"{100 * fields['bound_ms'] / ms:.2f}% of its "
             f"{fields['bound_ms']:.4f} ms bound, plain {plain_ms:.3f} ms; "
-            f"branch {branch(qm.shape[1])}")
+            f"branch {branch(k)}; {rule}")
+    if any(branch(max(c[2], c[3])) == "wide" for c in cases) \
+            and not (rules > 0).all():
+        raise AssertionError(f"B1 wide: pairs on the search and the dense "
+                             f"rule {rules.tolist()}: both must be taken")
+    note(f"{len(cases)} cases bit-identical; wide pairs on the search rule "
+         f"{rules[0]}, on the dense rule {rules[1]}")
     return record
 
 

@@ -215,14 +215,15 @@ def test_wide_peaks_take_plain_path(monkeypatch):
         assert shifted_dot_cuda.branch(k) == "wide"
 
 
-@pytest.mark.parametrize("k", [129, 300])
+@pytest.mark.parametrize("k", [129, 300, 1024])
 def test_plain_matches_jax_wide(k):
-    """At K = 129 and 300 the plain version (the kernel's CPU route)
-    against the JAX package's XLA path: totals within the stated
+    """At K = 129, 300 and 1,024 the plain version (the kernel's CPU
+    route) against the JAX package's XLA path: totals within the stated
     tolerance and the same peak pairs in the same selection order."""
     charge = 3
-    arrays = _batch(60 + k, 16, k - 2, charge, mods=(0.0, 16.0, 79.97))
-    assert arrays[0].shape == (16, k)
+    n = 16 if k < 1024 else 3
+    arrays = _batch(60 + k, n, k - 2, charge, mods=(0.0, 16.0, 79.97))
+    assert arrays[0].shape == (n, k)
     exp_total, exp_q, exp_c = jax_best_match(*arrays, 0.02, charge + 1, True)
     total, sel_q, sel_c = pt.shifted_dot_best_match(
         *_t(arrays), 0.02, charge + 1, True)
@@ -300,103 +301,3 @@ def test_greedy_over_positives_is_the_greedy(p, kq, kc, charge, ties, tol,
     assert torch.equal(pt.match_table(got[1], got[2], qm.shape[1]), table)
     if ties:  # equal scores compete, so the tie rule is exercised
         assert int(n_pos.sum()) > len(torch.unique(scores[scores > 0]))
-
-
-# --------------------------------------------------------------------- #
-# The kernel's wide branch (K > 128): positive entries listed tile by tile
-
-
-def _wide_greedy(scores, list_cap=1024, overflow="recompute"):
-    """Kernel B1's wide branch on (P, K, K) score matrices, pair by pair:
-    the positive entries listed in (128-column tile, row, column) order,
-    the first `list_cap` stored; each step the live entry first in (value
-    desc, i asc, j asc) order, from the list when every positive entry
-    fits in it, else over every live entry recomputed; its value added to
-    the total in float32; stop when none is positive.  `overflow` "list"
-    is the mutation that walks the stored list even when entries did not
-    fit.  Returns (total (P,), match (P, K))."""
-    s = scores.numpy()
-    p, kq, kc = s.shape
-    total = np.zeros(p, np.float32)
-    match = np.full((p, kq), -1, np.int32)
-    for pi in range(p):
-        m = s[pi]
-        li, lj = np.nonzero(m > 0)
-        order = np.lexsort((lj, li, lj // shifted_dot_cuda.MAX_KERNEL_PEAKS))
-        li, lj = li[order][:list_cap], lj[order][:list_cap]
-        lv = m[li, lj]
-        listed = int((m > 0).sum()) <= list_cap or overflow == "list"
-        row_free = np.ones(kq, bool)
-        col_free = np.ones(kc, bool)
-        t = np.float32(0)
-        for _ in range(kq):
-            if listed:
-                live = row_free[li] & col_free[lj]
-                if not live.any():
-                    break
-                ci, cj, cv = li[live], lj[live], lv[live]
-                at = np.lexsort((cj, ci, -cv))[0]
-                bi, bj, bv = ci[at], cj[at], cv[at]
-            else:
-                live = np.where(row_free[:, None] & col_free[None, :]
-                                & (m > 0), m, -np.inf)
-                bi, bj = np.unravel_index(int(np.argmax(live)), live.shape)
-                bv = live[bi, bj]
-            if not bv > 0:
-                break
-            t = np.float32(t + bv)
-            match[pi, bi] = bj
-            row_free[bi] = col_free[bj] = False
-        total[pi] = t
-    return total, match
-
-
-# (pairs, K, charge, ties, tolerance, list entries): K just past the
-# register branch with ties, K = 300, a dense set (every entry positive:
-# the recompute path), and a list too short for K = 129 with ties (the
-# recompute path at the usual tolerance).
-@pytest.mark.parametrize("p,k,charge,ties,tol,cap", [
-    (48, 129, 2, True, 0.04, 1024),
-    (32, 300, 2, False, 0.04, 1024),
-    (4, 150, 2, False, 5000.0, 1024),
-    (24, 129, 3, True, 0.04, 16),
-], ids=["k129_ties", "k300", "dense_k150", "k129_recompute"])
-def test_wide_branch_emulation_is_the_greedy(p, k, charge, ties, tol, cap):
-    """The wide branch's split (the tile-ordered list, or the recompute
-    path when it overflows) gives `shifted_dot_full_plain`'s totals and
-    match tables bit for bit.  (The list's tile order differs from the
-    flat order only between entries of different tiles and rows, which
-    never conflict, so the greedy's picks cannot depend on it; the
-    kernel compares (value, i, j) all the same.)"""
-    cs = _chip_smoke()
-    rng = np.random.default_rng(p * 1000 + k + charge)
-    arrays = _t(cs.synth_pairs(rng, p, k, k, charge, ties))
-    args = (*arrays, tol, charge + 1, True)
-    scores = pt.pair_score_matrix(*args)
-    n_pos = (scores > 0).reshape(p, -1).sum(1)
-    if tol > 100:
-        assert bool((n_pos > 1024).all())
-    elif cap < 1024:
-        assert int(n_pos.max()) > cap
-    else:
-        assert 0 < int(n_pos.max()) <= cap
-    total, match = _wide_greedy(scores, cap)
-    want_total, want_match = pt.shifted_dot_full_plain(*args)
-    np.testing.assert_array_equal(total.view(np.uint32),
-                                  want_total.numpy().view(np.uint32))
-    np.testing.assert_array_equal(match, want_match.numpy())
-
-
-def test_wide_list_overflow_mutation_fails():
-    """Walking the stored list of a pair whose positive entries did not
-    all fit, instead of recomputing them, changes the totals: the
-    overflow rule is load-bearing."""
-    cs = _chip_smoke()
-    rng = np.random.default_rng(24 * 1000 + 129 + 3)
-    arrays = _t(cs.synth_pairs(rng, 24, 129, 129, 3, True))
-    args = (*arrays, 0.04, 4, True)
-    scores = pt.pair_score_matrix(*args)
-    want_total, _ = pt.shifted_dot_full_plain(*args)
-    assert np.array_equal(_wide_greedy(scores, 16)[0], want_total.numpy())
-    mutated, _ = _wide_greedy(scores, 16, overflow="list")
-    assert not np.array_equal(mutated, want_total.numpy())
