@@ -16,7 +16,10 @@
 //   mult_s = 1 if c_ann[j] == s, 2/3 if c_ann[j] == 0, else 0.
 //
 // An invalid id writes -inf and reads no peaks; an id >= n_lib reads row
-// n_lib - 1, as the reference clips it.
+// n_lib - 1, as the reference clips it.  Every max propagates NaN, as the
+// plain version's torch.maximum and amax do: a NaN window value that
+// passes its test (a NaN intensity, or 0 * +-inf in a shift window whose
+// multiplier is 0) makes vmax[i], and so the bound, NaN.
 //
 // Why this design.  The first port compared all Kq x Kc peak pairs once
 // per window (7,500 entry-windows a pair at K = 50 and three windows) at
@@ -25,13 +28,15 @@
 // zero tail, and at tol 0.02-0.04 Da almost every compare fails:
 //
 // * the branch rule (ops/stage1_cuda.py::ascending_rows): a row whose
-//   peaks of positive intensity are a prefix of it, with finite,
-//   non-decreasing m/z, takes the range search over that prefix; any
-//   other row the dense loop over all its peaks, as a
-//   per-thread branch of the same kernel, so the kernel has no
-//   precondition on its caller.  A peak of intensity <= 0 (or NaN) never
+//   intensities are finite and whose peaks of positive intensity are a
+//   prefix of it, with finite, non-decreasing m/z, takes the range search
+//   over that prefix; any other row the dense loop over all its peaks, as
+//   a per-thread branch of the same kernel, so the kernel has no
+//   precondition on its caller.  A peak of finite intensity <= 0 never
 //   raises a maximum that starts at +0, so leaving it out is exact: the
-//   staged m/z of such a peak is +inf, which no test passes;
+//   staged m/z of such a peak is +inf, which no test passes (a peak of
+//   NaN or -inf intensity, which can make a NaN value, keeps its m/z, and
+//   its row takes the dense loop);
 // * the range search: for an ascending prefix the peaks that pass window
 //   w for query peak i are one contiguous range, because fl(q - c) does
 //   not increase as c grows and fl(y - off) does not decrease as y grows,
@@ -229,6 +234,12 @@ __device__ __forceinline__ float window_val(int s, int ann, float x) {
   return s == 0 ? x : shift_mult(ann, s) * x;
 }
 
+// max(v, x) as torch.maximum takes it: NaN when either is (fmaxf would
+// drop a NaN value).
+__device__ __forceinline__ float nan_max(float v, float x) {
+  return (x > v || x != x) ? x : v;
+}
+
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(at),
@@ -285,13 +296,14 @@ __device__ __forceinline__ void lower_edges(float q, const float* off,
 // The max of window s's values over the peaks from `at` on (below kc)
 // while the plain version's test passes.  Past the positive prefix the
 // staged m/z is +inf, which passes no test but at tol = +inf, and then the
-// value (<= 0 or NaN) raises no maximum.
+// value (finite, <= 0: the row's intensities are finite) raises no
+// maximum.
 __device__ __forceinline__ float walk(float q, float off, float tol, int s,
                                       const float* cm, const float* ci,
                                       const int* ca, int at, int kc, float v) {
   for (int k = at; k < kc; ++k) {
     if (!(fabsf((q - cm[k * kSlots]) - off) <= tol)) break;
-    v = fmaxf(v, window_val(s, ca[k * kSlots], ci[k * kSlots]));
+    v = nan_max(v, window_val(s, ca[k * kSlots], ci[k * kSlots]));
   }
   return v;
 }
@@ -363,8 +375,8 @@ __device__ __forceinline__ void range_block(const float* qm, int i0, int i1,
 // vmax of a tile of kTile query peaks (NaN past the thread's block: no
 // test passes) over any column: every one of its kc peaks against every
 // query peak of the tile, the peak's shifted products computed once.  A
-// peak of intensity <= 0 (or NaN) never raises a maximum that starts at
-// +0, so the column needs no compaction.
+// peak of finite intensity <= 0 never raises a maximum that starts at
+// +0 (its staged m/z is +inf), so the column needs no compaction.
 template <int NS>
 __device__ __forceinline__ void dense_vmax(const float (&q)[kTile],
                                            const float* off, float tol,
@@ -385,11 +397,11 @@ __device__ __forceinline__ void dense_vmax(const float (&q)[kTile],
 #pragma unroll
     for (int u = 0; u < kTile; ++u) {
       const float d = q[u] - c;
-      if (fabsf(d) <= tol) v[u] = fmaxf(v[u], x);
+      if (fabsf(d) <= tol) v[u] = nan_max(v[u], x);
       if (shifted) {
 #pragma unroll
         for (int w = 1; w <= NS; ++w) {
-          if (fabsf(d - off[w]) <= tol) v[u] = fmaxf(v[u], ct[w - 1]);
+          if (fabsf(d - off[w]) <= tol) v[u] = nan_max(v[u], ct[w - 1]);
         }
       }
     }
@@ -411,7 +423,7 @@ __device__ float loop_vmax(float q, float pd, int n_shift, float tol,
     } else {
       for (int k = 0; k < kc; ++k) {
         if (fabsf((q - cm[k * kSlots]) - off) <= tol) {
-          v = fmaxf(v, window_val(s, ca[k * kSlots], ci[k * kSlots]));
+          v = nan_max(v, window_val(s, ca[k * kSlots], ci[k * kSlots]));
         }
       }
     }
@@ -547,9 +559,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
     // Staging from the raw stage to the searched layout (lane = slot on
     // both sides: no bank conflicts), with the branch rule checked on
-    // neighbouring peaks: the range search when the positive peaks are a
-    // prefix of the row (none after a peak of intensity <= 0) whose m/z
-    // are finite and non-decreasing; any other row: the dense loop.
+    // neighbouring peaks: the range search when the intensities are
+    // finite and the positive peaks are a prefix of the row (none after a
+    // peak of intensity <= 0) whose m/z are finite and non-decreasing;
+    // any other row: the dense loop.  A peak of finite intensity <= 0 is
+    // staged with m/z +inf.
     if (row >= 0 && j0 < j1) {
       float m_prev = 0.0f;
       bool pos_prev = true;
@@ -561,10 +575,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       for (int j = j0; j < j1; ++j) {
         const float m = raw_mz[j * kRawStride + lane];
         const float x = raw_int[j * kRawStride + lane];
-        cmz[j * kSlots + lane] = x > 0.0f ? m : CUDART_INF_F;
+        const bool finite = fabsf(x) < CUDART_INF_F;
+        cmz[j * kSlots + lane] = x > 0.0f || !finite ? m : CUDART_INF_F;
         cint[j * kSlots + lane] = x;
         cann[j * kSlots + lane] = raw_ann[j * kRawStride + lane];
         const bool here = x > 0.0f;
+        ok = ok && finite;
         if (here) {
           ok = ok && pos_prev && fabsf(m) < CUDART_INF_F &&
                (j == 0 || m_prev <= m);
@@ -698,7 +714,7 @@ __device__ __forceinline__ float chunk_walk(float q, float off, float tol,
                                             int at, int len, float v) {
   for (int k = at; k < len; ++k) {
     if (!(fabsf((q - cm[sw(k)]) - off) <= tol)) break;
-    v = fmaxf(v, window_val(s, ca[sw(k)], ci[sw(k)]));
+    v = nan_max(v, window_val(s, ca[sw(k)], ci[sw(k)]));
   }
   return v;
 }
@@ -789,11 +805,11 @@ __device__ void chunk_dense(const float* qm, int cnt, const float* off,
       for (int j = lane; j < len; j += 32) {
         const float y = ci[sw(j)];
         const float d = q - cm[sw(j)];
-        if (fabsf(d) <= tol) x = fmaxf(x, y);
+        if (fabsf(d) <= tol) x = nan_max(x, y);
 #pragma unroll
         for (int w = 1; w <= NS; ++w) {
           if (fabsf(d - off[w]) <= tol) {
-            x = fmaxf(x, shift_mult(ca[sw(j)], w) * y);
+            x = nan_max(x, shift_mult(ca[sw(j)], w) * y);
           }
         }
       }
@@ -802,16 +818,16 @@ __device__ void chunk_dense(const float* qm, int cnt, const float* off,
         const float o = s == 0 ? 0.0f : pd / (float)s;
         for (int j = lane; j < len; j += 32) {
           if (fabsf((q - cm[sw(j)]) - o) <= tol) {
-            x = fmaxf(x, window_val(s, ca[sw(j)], ci[sw(j)]));
+            x = nan_max(x, window_val(s, ca[sw(j)], ci[sw(j)]));
           }
         }
       }
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
-      x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+      x = nan_max(x, __shfl_xor_sync(kFull, x, o));
     }
-    if (lane == 0) vm[t] = first ? x : fmaxf(vm[t], x);
+    if (lane == 0) vm[t] = first ? x : nan_max(vm[t], x);
   }
 }
 
@@ -824,8 +840,8 @@ __device__ void chunk_dense(const float* qm, int cnt, const float* off,
 // arrives while the current one is searched.  A stage is checked against
 // the branch rule; a chunk that passes takes the range search over its
 // positive prefix (peak_vmax, a run of consecutive query peaks a lane),
-// any other the dense loop (chunk_dense, the lanes on the chunk's peaks;
-// a peak of intensity <= 0 raises no maximum there either).  The query
+// any other the dense loop (chunk_dense, the lanes on the chunk's peaks,
+// every max propagating NaN).  The query
 // peaks go in blocks of at most 32 * kWideR, their running vmax in the
 // warp's shared memory; a block's terms q_int[i] * vmax[i] are added in
 // i order from +0.0, the +-0 ones skipped (exact: the sum is never -0).
@@ -937,13 +953,14 @@ __global__ void __launch_bounds__(kWideWarps * 32, kWideMinBlocks)
       for (int c = 0; c < chunks; ++c) {
         if (chunks > 1 || qb == 0) {
           // Stage `staged` of the pair has arrived: the branch rule is
-          // checked (its positive peaks a prefix of the chunk, finite and
-          // non-decreasing; peak j against peak j - 1, that one from the
-          // lane below).  Where it holds the search runs over that prefix
-          // (`len` = its P peaks; +inf on the kReach words after it): a
-          // peak of intensity <= 0 never raises a maximum, so leaving it
-          // out is exact.  Else the dense loop over the chunk.  Then the
-          // next stage is copied into the other buffer.
+          // checked (its intensities finite, its positive peaks a prefix
+          // of the chunk, finite and non-decreasing; peak j against peak
+          // j - 1, that one from the lane below).  Where it holds the
+          // search runs over that prefix (`len` = its P peaks; +inf on the
+          // kReach words after it): a peak of finite intensity <= 0 never
+          // raises a maximum, so leaving it out is exact.  Else the dense
+          // loop over the chunk.  Then the next stage is copied into the
+          // other buffer.
           cp_async_wait_all();
           __syncwarp();
           cur = buf;
@@ -956,12 +973,14 @@ __global__ void __launch_bounds__(kWideWarps * 32, kWideMinBlocks)
           for (int j0 = 0; j0 < n_chunk; j0 += 32) {
             const int j = j0 + lane;
             const float m = j < n_chunk ? mz[sw(j)] : 0.0f;
-            const bool here = j < n_chunk && xi[sw(j)] > 0.0f;
+            const float x = j < n_chunk ? xi[sw(j)] : 0.0f;
+            const bool here = x > 0.0f;
             const unsigned pos = __ballot_sync(kFull, here);
             float m_prev = __shfl_up_sync(kFull, m, 1);
             if (lane == 0) m_prev = m_last;
-            const bool mine = here && !(fabsf(m) < CUDART_INF_F &&
-                                        (j == 0 || m_prev <= m));
+            const bool mine = !(fabsf(x) < CUDART_INF_F) ||
+                              (here && !(fabsf(m) < CUDART_INF_F &&
+                                         (j == 0 || m_prev <= m)));
             // The positives of these 32 peaks are their first ones, and
             // follow nothing but positives.
             bad = bad || (pos & (pos + 1u)) != 0u || (pos && positive < j0) ||

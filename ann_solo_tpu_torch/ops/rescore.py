@@ -26,7 +26,7 @@ from ann_solo_tpu_torch.ops.shifted_dot_cuda import (
     gather_pair_scores,
     pad_peaks,
 )
-from ann_solo_tpu_torch.ops.topk import stable_topk_desc
+from ann_solo_tpu_torch.ops.topk import topk_desc_nan_last
 
 # The factored bound's product order q * (mult * c) can round one ulp
 # below stage 2's (mult * q) * c per term; inflating by 1 + 2^-20 keeps
@@ -136,12 +136,16 @@ def _stage2_dense(
 ):
     """Greedy-score every query's top-`t` candidates by bound; winner by
     argmax (first maximum), certified when it reaches the t-th bound.
+    A NaN bound (a non-finite intensity) makes its pair invalid here; the
+    bounds are ranked as `lax.top_k` ranks them, but with every NaN last
+    (`topk_desc_nan_last`), where the reference on the CPU ranks the NaN
+    that inf * 0 makes, so the finite bounds compete for the t places.
 
     Returns (best_idx (B,), best_score (B,), cert (B,) bool, n_cands (B,)).
     """
     b, c = cand_ids.shape
     dev = cand_ids.device
-    ub_sel, pos = stable_topk_desc(ub, t)  # (B, T)
+    ub_sel, pos = topk_desc_nan_last(ub, t)  # (B, T)
     ids_sel = torch.gather(cand_ids, 1, pos)
     n_cands = (cand_ids >= 0).sum(1).to(torch.int32)
     pq = torch.arange(b, device=dev).repeat_interleave(t)

@@ -8,10 +8,16 @@ Port of `ann_solo_tpu/ops/shifted_dot.py` (semantics of the reference
     shifts s of the annotation rule (shift 0: 1; shift s >= 1: 1 if the
     candidate peak's annotation charge is s, 2/3 if it is 0, else 0).
     Shift s has m/z offset ``prec_diff / s`` and applies only when
-    ``allow_shift``, ``|prec_diff| >= tol`` and ``s <= charge``;
+    ``allow_shift``, ``|prec_diff| >= tol`` and ``s <= charge``.  Without
+    shifts (``not (allow_shift and num_shifts > 1)``) the entry follows
+    the direct rule ``(q_int[i] if |q_mz[i] - c_mz[j]| <= tol else 0) *
+    c_int[j]``, as the reference computes it: there its multiplier is a
+    converted predicate, which XLA rewrites into that select, so an entry
+    whose m/z does not match is 0 even where q_int is NaN or +-inf;
 2.  the greedy one-to-one assignment: an iterated argmax over the
     flattened matrix, ties to the lowest flat index, zeroing the chosen
-    row and column, until no positive entry is left.
+    row and column, until no positive entry is left.  A pair with a NaN
+    entry takes nothing: its first argmax is NaN, which is not > 0.
 
 The CUDA kernel (`csrc/shifted_dot.cu`) runs step 2 over each pair's
 positive entries alone (`greedy_over_positives`, the same function).
@@ -50,23 +56,28 @@ def pair_score_matrix(
     shifted_active = allow_shift & (prec_diff.abs() >= tol)  # (P,)
 
     diff0 = q_mz[:, :, None] - c_mz[:, None, :]
-    best_mult = (diff0.abs() <= tol).to(f32)
-    if allow_shift and num_shifts > 1:
-        ann = c_ann[:, None, :]  # (P, 1, K)
-        one = torch.ones((), dtype=f32, device=q_mz.device)
+    if not (allow_shift and num_shifts > 1):
+        # The direct rule, chosen by the flags alone (a pair with no
+        # active shift under `allow_shift` keeps the product).
         zero = torch.zeros((), dtype=f32, device=q_mz.device)
-        two_thirds = torch.tensor(TWO_THIRDS, dtype=f32, device=q_mz.device)
-        for s in range(1, num_shifts):
-            s_t = torch.tensor(float(s), dtype=f32, device=q_mz.device)
-            offset = prec_diff / s_t  # (P,) IEEE quotient
-            within = (diff0 - offset[:, None, None]).abs() <= tol
-            mult = torch.where(
-                ann == s, one, torch.where(ann == 0, two_thirds, zero)
-            )  # (P, 1, K)
-            active = (shifted_active & (s <= charge))[:, None, None]
-            best_mult = torch.maximum(
-                best_mult, torch.where(within & active, mult, zero)
-            )
+        return torch.where(diff0.abs() <= tol, q_int[:, :, None],
+                           zero) * c_int[:, None, :]
+    best_mult = (diff0.abs() <= tol).to(f32)
+    ann = c_ann[:, None, :]  # (P, 1, K)
+    one = torch.ones((), dtype=f32, device=q_mz.device)
+    zero = torch.zeros((), dtype=f32, device=q_mz.device)
+    two_thirds = torch.tensor(TWO_THIRDS, dtype=f32, device=q_mz.device)
+    for s in range(1, num_shifts):
+        s_t = torch.tensor(float(s), dtype=f32, device=q_mz.device)
+        offset = prec_diff / s_t  # (P,) IEEE quotient
+        within = (diff0 - offset[:, None, None]).abs() <= tol
+        mult = torch.where(
+            ann == s, one, torch.where(ann == 0, two_thirds, zero)
+        )  # (P, 1, K)
+        active = (shifted_active & (s <= charge))[:, None, None]
+        best_mult = torch.maximum(
+            best_mult, torch.where(within & active, mult, zero)
+        )
     return best_mult * q_int[:, :, None] * c_int[:, None, :]
 
 
@@ -113,12 +124,14 @@ def greedy_over_positives(scores: torch.Tensor):
     entry whose row and column are still free picks the same entries in
     the same order as the iterated argmax: at each of its steps the live
     entries are the positive ones with a free row and column, and an entry
-    skipped once never comes alive again.  Same outputs as
+    skipped once never comes alive again.  A pair with a NaN entry takes
+    nothing, as the kernel flags it while it compacts.  Same outputs as
     `greedy_assignment`, bit for bit (``total += value`` in selection
     order).  For tests and `chip_smoke.py`; the search never calls it."""
     p, kq, kc = scores.shape
     dev = scores.device
     flat = scores.reshape(p, kq * kc)
+    clean = ~torch.isnan(flat).any(1)
     n_max = int((flat > 0).sum(1).max()) if p else 0
     # A stable sort of the negated values: ties keep the lower flat index.
     order = torch.sort(-flat, dim=1, stable=True).indices[:, :n_max]
@@ -135,7 +148,7 @@ def greedy_over_positives(scores: torch.Tensor):
         v = values[:, t]
         i = order[:, t] // kc
         j = order[:, t] - i * kc
-        take = (v > 0.0) & row_free[pairs, i] & col_free[pairs, j]
+        take = (v > 0.0) & clean & row_free[pairs, i] & col_free[pairs, j]
         total = total + torch.where(take, v, torch.zeros_like(v))
         # Pairs that take nothing write -1 into the spare column n_iter.
         slot = torch.where(take, taken, n_iter)

@@ -101,15 +101,15 @@ def wide_plan(k: int, num_shifts: int) -> dict:
 
 def search_pairs(q_int, c_mz, c_int, fragment_mz_tolerance: float):
     """(P,) bool: the wide kernel's branch rule for each pair.  True (the
-    m/z windows are searched) when the candidate peaks of positive
-    intensity are a prefix of the row with finite, non-decreasing m/z
-    (`stage1_cuda.ascending_rows`, B4's rule), every intensity of the pair
-    is finite (so no entry is NaN) and so is the tolerance; False (the
-    dense walk over all K x K entries) else.  The kernel checks the same
-    rule on the rows it stages."""
+    m/z windows are searched) when the candidate row takes B4's rule
+    (`stage1_cuda.ascending_rows`: finite intensities, the peaks of
+    positive intensity a prefix of the row with finite, non-decreasing
+    m/z), the query's intensities are finite too (so no entry is NaN)
+    and so is the tolerance; False (the dense walk over all K x K
+    entries) else.  The kernel checks the same rule on the rows it
+    stages."""
     tol = torch.tensor(fragment_mz_tolerance, dtype=torch.float32)
-    return (ascending_rows(c_mz, c_int)
-            & torch.isfinite(q_int).all(1) & torch.isfinite(c_int).all(1)
+    return (ascending_rows(c_mz, c_int) & torch.isfinite(q_int).all(1)
             & bool(torch.isfinite(tol)))
 
 

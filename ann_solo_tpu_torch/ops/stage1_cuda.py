@@ -11,13 +11,16 @@ The first port compared all Kq x Kc peak pairs for each window and
 already issued at about a third of the card's FP32 rate, so the work had
 to shrink.  The kernel searches instead:
 
-* the branch rule (`ascending_rows`): a row whose peaks of positive
-  intensity are a prefix of it, with finite, non-decreasing m/z, takes
-  the range search over that prefix; any other row the dense loop over
-  all its peaks, as a per-thread branch of the same kernel.  Leaving out
-  a peak of intensity <= 0 is exact: it never raises a maximum that
-  starts at +0.  The rows the main path builds (`preprocess_batch`, the
-  store, the bench's library) all take the range search;
+* the branch rule (`ascending_rows`): a row whose intensities are
+  finite and whose peaks of positive intensity are a prefix of it, with
+  finite, non-decreasing m/z, takes the range search over that prefix;
+  any other row the dense loop over all its peaks, as a per-thread branch
+  of the same kernel.  Leaving out a peak of finite intensity <= 0 is
+  exact: it never raises a maximum that starts at +0.  Every max
+  propagates NaN, as the plain version's do, so a NaN window value that
+  passes its test (a NaN intensity, or 0 * +-inf) makes the bound NaN.
+  The rows the main path builds (`preprocess_batch`, the store, the
+  bench's library) all take the range search;
 * the range search: for query peak i and window w (direct, or shift s
   when |prec_diff| >= tol) the passing peaks of an ascending row are one
   contiguous range, because fl(q - c) does not increase as c grows and
@@ -137,14 +140,16 @@ def branch(kq: int, kc: int) -> str:
 
 def ascending_rows(lib_mz: torch.Tensor, lib_int: torch.Tensor):
     """(N,) bool: the kernel's branch rule for each library row.  True
-    (range search) when its peaks of positive intensity are a prefix of
-    the row (none follows a peak of intensity <= 0 or NaN) and their m/z
-    are finite and non-decreasing; False (dense loop) else."""
+    (range search) when its intensities are finite, its peaks of positive
+    intensity are a prefix of the row (none follows a peak of intensity
+    <= 0) and their m/z are finite and non-decreasing; False (dense loop)
+    else."""
     pos = lib_int > 0
     after_gap = pos[:, 1:] & ~pos[:, :-1]
     descent = pos[:, 1:] & ~(lib_mz[:, :-1] <= lib_mz[:, 1:])
     return (~after_gap.any(1) & ~descent.any(1)
-            & (~pos | torch.isfinite(lib_mz)).all(1))
+            & (~pos | torch.isfinite(lib_mz)).all(1)
+            & torch.isfinite(lib_int).all(1))
 
 
 @functools.lru_cache(maxsize=None)

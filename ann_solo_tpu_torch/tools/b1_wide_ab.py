@@ -1,7 +1,8 @@
-"""Kernel B1's wide branch (K > 128) timed on the card, for comparisons.
+"""Kernel B1 timed on the card, for comparisons (wide cases by default).
 
-Runs `shifted_dot_cuda.shifted_dot_full` on wide cases of
-`chip_smoke.py`'s phase 3 (`KERNEL_CASES`, its pair generators), checks
+Runs `shifted_dot_cuda.shifted_dot_full` on cases of `chip_smoke.py`'s
+phase 3 (`KERNEL_CASES`, its pair generators; by default the wide
+branch's, K > 128, and any of the register branch's by name), checks
 each against `shifted_dot_full_plain` bit for bit, and times it two
 ways: a call through the wrapper (`time_ms`, the host's launch
 included) and the kernel alone, its calls captured in a CUDA graph

@@ -24,13 +24,17 @@ Phases, in the order they run (1-3c, 3d, 3e, 4-6, 7, 8, 7b, 10a, 10b,
    PyTorch version on the card, at the stage-2 (32,768 pairs) and
    match-extraction (4,096 pairs) shapes of the bench workload plus
    ragged, unequal-width, tie-heavy, K = 20 / 128 and dense (every entry
-   positive) cases, then the kernel's wide branch (K above 128): K = 129
+   positive) cases, non-finite and negative intensities at K = 50 with
+   and without shifts and at a dense tolerance (more positive entries
+   than the list holds: the recompute path), then the kernel's wide
+   branch (K above 128): K = 129
    (ties), 300 and 1,024, a dense K = 200 set (more positive entries
    than its list holds: the overflow path), the engine's full-C greedy
    chunk (8,192 pairs at K = 300), Kq 300 against Kc 200 (zero tails), a
    quarter of the rows shuffled (the dense rule), non-finite m/z and
    precursors with peaks at the float32 window edges (tol 2^-5),
-   non-finite and negative intensities, a dense K = 300 set whose
+   non-finite and negative intensities with and without shifts (the
+   direct rule's +inf entries), a dense K = 300 set whose
    rows all prefer the same column in turn, an odd K = 2,001 (the
    state's layout stays aligned at any K) and K = 9,000 with 40 positive
    peaks a side at a dense tolerance (state in a device-memory
@@ -78,15 +82,18 @@ Phases, in the order they run (1-3c, 3d, 3e, 4-6, 7, 8, 7b, 10a, 10b,
    against Kc = 20; then the rows the main path has and the kernel's
    edges: preprocess's zero tail (bench and window rows), peaks at the
    float32 edges of the windows with duplicated m/z (at tol 2^-5 and at
-   0.04 with charge 3), a quarter of the rows shuffled, and non-finite
-   m/z and precursors; then the kernel's wide branch: Kc = 257 (a row
+   0.04 with charge 3), a quarter of the rows shuffled, non-finite m/z
+   and precursors, and NaN and +-inf intensities with and without shifts
+   (NaN and +inf bounds); then the kernel's wide branch: Kc = 257 (a row
    padded past 256), Kq = Kc = 300 and Kc = 1,024 with a quarter of the
-   rows shuffled (rows staged in chunks; each line names the staging and
-   the summary line has each wide case's time).  Bounds must be equal bit for bit (rtol 0: the
-   same float32 operations, the sum over query peaks in the stated
-   order), -inf cells included; the rows and pairs on each of the
-   kernel's branches (range search, dense loop) are logged and both must
-   be taken, and each case's kernel branch (staged or wide).  Phases
+   rows shuffled or with non-finite intensities (rows staged in chunks;
+   each line names the staging and the summary line has each wide case's
+   time).  Bounds must be equal bit for bit (rtol 0: the same float32
+   operations, the sum over query peaks in the stated order), -inf and
+   NaN cells included (a NaN's sign and payload aside); the rows and
+   pairs on each of the kernel's branches (range search, dense loop) are
+   logged and both must be taken, and each case's kernel branch (staged
+   or wide).  Phases
    3-3d log each kernel's time
    beside its bound: the larger of its bytes (each input read once, each
    output written once; for B2 and B3 only the lists and chunks this
@@ -389,6 +396,14 @@ KERNEL_CASES = (
      "nonfinite"),
     ("k300_intensities", 256, 300, 300, 2, True, False, FRAG_TOL,
      "intensities"),
+    ("k50_intensities", 4096, 50, 50, 2, True, False, FRAG_TOL,
+     "intensities"),
+    ("noshift_k50_intensities", 4096, 50, 50, 2, False, False, FRAG_TOL,
+     "intensities"),
+    ("dense_k50_intensities", 1024, 50, 50, 2, True, False, 5000.0,
+     "intensities"),
+    ("noshift_k300_intensities", 256, 300, 300, 2, False, False, FRAG_TOL,
+     "intensities"),
     ("dense_k300_skew", 64, 300, 300, 2, True, False, 5000.0, "skew"),
     ("k2001_odd", 16, 2001, 2001, 2, True, False, FRAG_TOL),
     ("k9000_workspace", 2, 9000, 9000, 2, True, False, 5000.0, "few"),
@@ -520,10 +535,16 @@ STAGE1_CASES = (
      {"shuffle": 0.25}),
     ("nonfinite", 512, 512, 131072, 50, 50, 2, True, "bench",
      {"nonfinite": True}),
+    ("intensities", 512, 512, 131072, 50, 50, 2, True, "bench",
+     {"intensities": True}),
+    ("intensities_noshift", 512, 512, 131072, 50, 50, 2, False, "bench",
+     {"intensities": True}),
     ("kc_257", 512, 256, 16384, 50, 257, 2, True, "bench"),
     ("kc_300_kq_300", 256, 256, 16384, 300, 300, 2, True, "bench"),
     ("kc_1024", 64, 64, 16384, 50, 1024, 2, True, "bench",
      {"shuffle": 0.25}),
+    ("kc_1024_intensities", 64, 64, 16384, 50, 1024, 2, True, "bench",
+     {"intensities": True}),
 )
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, 700 W) for the
@@ -785,8 +806,11 @@ def b1_variant(rng, pairs, variant, tol, charge):
     * "nonfinite": "edges", then NaN and +-inf m/z in a sixteenth of the
       candidate rows (the dense walk) and an eighth of the query rows,
       and an infinite library precursor in a few pairs;
-    * "intensities": NaN, +inf or negative intensities in a few query or
-      candidate rows (NaN entries, or a gap in the positive prefix);
+    * "intensities": NaN, +-inf or negative intensities in a few query or
+      candidate rows (NaN entries, or a gap in the positive prefix); half
+      of those query peaks move to an m/z that no candidate peak matches
+      at any shift (without shifts their row's entries stay 0, never
+      0 * inf), the other half onto a candidate peak's own m/z;
     * "skew": candidate intensities descending along each row, so that at
       a dense tolerance every row prefers the same column in turn;
     * "few": only the first 40 candidate peaks (a prefix: the search
@@ -812,10 +836,16 @@ def b1_variant(rng, pairs, variant, tol, charge):
         q_mz[rows, rng.integers(0, kq, len(rows))] = rng.choice(bad, len(rows))
         c_prec[rng.choice(p, max(1, p // 64), replace=False)] = np.inf
     if variant == "intensities":
+        bad = np.array([np.nan, np.inf, -np.inf, -0.5], f32)
         for arr, k in ((q_int, kq), (c_int, kc)):
-            rows = rng.choice(p, max(2, p // 16), replace=False)
-            arr[rows, rng.integers(0, k, len(rows))] = rng.choice(
-                np.array([np.nan, np.inf, -0.5], f32), len(rows))
+            rows = rng.choice(p, max(4, p // 16), replace=False)
+            cols = rng.integers(0, k, len(rows))
+            arr[rows, cols] = rng.choice(bad, len(rows))
+            if arr is q_int:
+                q_mz[rows[::2], cols[::2]] = f32(5000.0)  # past every peak
+                near = rows[1::2]
+                q_mz[near, cols[1::2]] = c_mz[
+                    near, rng.integers(0, kc, len(near))]
     if variant == "skew":
         c_int[:] = -np.sort(-c_int, 1)
     if variant == "few":
@@ -877,7 +907,7 @@ def _b1_edges(rng, tol, charge, pairs):
 
 def synth_stage1(rng, b, c, n_lib, kq, kc, charge, cand_rows="bench",
                  close_prec=0.25, tail=False, edges=None, shuffle=0.0,
-                 nonfinite=False):
+                 nonfinite=False, intensities=False):
     """Kernel B4 inputs in NumPy: a library of `n_lib` spectra (`kc` peaks,
     annotations 0..charge) and `b` queries, each made from a library row
     with direct, shifted (by mod / s, s = 1..charge, as a precursor
@@ -899,7 +929,12 @@ def synth_stage1(rng, b, c, n_lib, kq, kc, charge, cand_rows="bench",
     * `shuffle`: the share of library rows whose peaks are permuted
       (unsorted: the kernel's dense branch);
     * `nonfinite`: NaN and +-inf m/z in about 2% of the library rows and
-      an eighth of the queries, and an infinite precursor in a few rows."""
+      an eighth of the queries, and an infinite precursor in a few rows;
+    * `intensities`: NaN, +inf and -inf in turn as the intensity of a
+      matched peak of the source rows of a sixteenth of the queries (at
+      least 3) and of a peak of an eighth of the queries (at least 3),
+      half of those moved to an m/z that no library peak matches at any
+      shift."""
     f32 = np.float32
     lib_mz = np.sort(rng.uniform(100, 1500, (n_lib, kc)), 1).astype(f32)
     lib_int = rng.uniform(0.05, 1.0, (n_lib, kc)).astype(f32)
@@ -954,6 +989,15 @@ def synth_stage1(rng, b, c, n_lib, kq, kc, charge, cand_rows="bench",
         q_mz[rows, rng.integers(0, kq, len(rows))] = rng.choice(bad, len(rows))
         lib_prec[rng.choice(n_lib, max(1, n_lib // 200), replace=False)] = \
             np.inf
+    if intensities:
+        bad = np.array([np.nan, np.inf, -np.inf], f32)
+        rows = np.unique(src[rng.choice(b, max(3, b // 16), replace=False)])
+        lib_int[rows, rng.integers(0, a, len(rows))] = bad[
+            np.arange(len(rows)) % 3]
+        rows = rng.choice(b, max(3, b // 8), replace=False)
+        cols = rng.integers(0, kq, len(rows))
+        q_int[rows, cols] = bad[np.arange(len(rows)) % 3]
+        q_mz[rows[::2], cols[::2]] = f32(5000.0)  # past every peak
     return (q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec,
             cand.astype(np.int64))
 
@@ -1205,6 +1249,21 @@ def phase_kernel(dev, cases=KERNEL_CASES, kernel_reps=20, plain_reps=3):
             if bool(both.any()) else 0.0
         record["max_abs_err"] = max(record["max_abs_err"], err)
         n_match = int((p_match >= 0).sum())
+        nonfinite = ""
+        if variant == "intensities":
+            # Pairs with an infinite total (a +inf entry taken), and pairs
+            # with a non-finite query intensity that still take a finite
+            # positive total (without shifts: the direct rule's zeros).
+            bad_q = ~torch.isfinite(qi).all(1)
+            n_inf = int(torch.isinf(p_total).sum())
+            n_kept = int((bad_q & torch.isfinite(p_total)
+                          & (p_total > 0)).sum())
+            nonfinite = (f"; {n_inf} infinite totals, {n_kept} pairs with "
+                         "a non-finite query intensity keep a finite "
+                         "positive total")
+            if not shift and not (n_inf > 0 and n_kept > 0):
+                raise AssertionError(f"B1 {name}: the direct rule is not "
+                                     f"exercised{nonfinite}")
         if not (torch.equal(total.view(torch.int32),
                             p_total.view(torch.int32))
                 and torch.equal(match, p_match)):
@@ -1274,13 +1333,14 @@ def phase_kernel(dev, cases=KERNEL_CASES, kernel_reps=20, plain_reps=3):
             f"pair); kernel {ms:.4f} ms, "
             f"{100 * fields['bound_ms'] / ms:.2f}% of its "
             f"{fields['bound_ms']:.4f} ms bound, plain {plain_ms:.3f} ms; "
-            f"branch {branch(k)}; {rule}")
+            f"branch {branch(k)}; {rule}{nonfinite}")
     if any(branch(max(c[2], c[3])) == "wide" for c in cases) \
             and not (rules > 0).all():
         raise AssertionError(f"B1 wide: pairs on the search and the dense "
                              f"rule {rules.tolist()}: both must be taken")
     note(f"{len(cases)} cases bit-identical; wide pairs on the search rule "
          f"{rules[0]}, on the dense rule {rules[1]}")
+    record["cases"] = [c[0] for c in cases]
     return record
 
 
@@ -1344,7 +1404,7 @@ def phase_stage1_kernel(dev, cases=STAGE1_CASES, kernel_reps=20,
     """Phase 3d: kernel B4, through stage 1's routing
     (`rescore._stage1_bounds`: the kernel on the card, the plain version on
     the CPU), against its plain version on the same tensors: bounds equal
-    bit for bit, -inf cells included.  Logs the rows and pairs on each of
+    bit for bit, -inf and NaN cells included.  Logs the rows and pairs on each of
     the kernel's branches (`stage1_cuda.ascending_rows`) and gates on both
     being taken over the phase.  Returns the record of the bench chunk
     (times) and the largest difference (0)."""
@@ -1367,6 +1427,7 @@ def phase_stage1_kernel(dev, cases=STAGE1_CASES, kernel_reps=20,
     rng = np.random.default_rng(3)
     record = {"max_abs_err": 0.0}
     branches = np.zeros(2, np.int64)  # rows on the range search, dense
+    nan_cells = 0
     for name, b, c, n_lib, kq, kc, charge, shift, rows, *rest in cases:
         opts = dict(rest[0]) if rest else {}
         tol = opts.pop("tol", FRAG_TOL)
@@ -1380,16 +1441,25 @@ def phase_stage1_kernel(dev, cases=STAGE1_CASES, kernel_reps=20,
         want = stage1_bounds_plain(*args)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        if not torch.equal(torch.isinf(got), torch.isinf(want)):
-            raise AssertionError(f"B4 {name}: the -inf cells differ")
+        if not (torch.equal(torch.isinf(got), torch.isinf(want))
+                and torch.equal(torch.isnan(got), torch.isnan(want))):
+            raise AssertionError(f"B4 {name}: the -inf or NaN cells differ")
         finite = torch.isfinite(want)
         err = float((got[finite] - want[finite]).abs().max()) \
             if bool(finite.any()) else 0.0
         record["max_abs_err"] = max(record["max_abs_err"], err)
-        if not torch.equal(got, want):
+        n_nan = int(torch.isnan(want).sum())
+        nan_cells += n_nan
+        # Equal bit for bit, but for the sign and payload of a NaN.
+        differ = (got != want) & ~torch.isnan(want)
+        if bool(differ.any()):
             raise AssertionError(
                 f"B4 {name}: kernel != plain, max |d| {err}, "
-                f"{int((got != want).sum())} cells differ")
+                f"{int(differ.sum())} cells differ")
+        if opts.get("intensities") and not (
+                n_nan > 0 and bool(torch.isposinf(want).any())):
+            raise AssertionError(f"B4 {name}: {n_nan} NaN bounds and no "
+                                 "+inf: the non-finite intensities miss")
         ms = time_ms(lambda: _stage1_bounds(*args), dev, kernel_reps)
         plain_ms = time_ms(lambda: stage1_bounds_plain(*args), dev,
                            plain_reps)
@@ -1418,7 +1488,7 @@ def phase_stage1_kernel(dev, cases=STAGE1_CASES, kernel_reps=20,
             f"shifts={n_shifts} shift={shift} rows={rows} tol={tol} "
             f"options={opts or 'none'}: identical "
             f"({fast_pairs + dense_pairs} valid pairs, {int(finite.sum())} "
-            f"finite; branches: range search {fast_rows} rows / "
+            f"finite, {n_nan} NaN; branches: range search {fast_rows} rows / "
             f"{fast_pairs} pairs, dense {dense_rows} rows / {dense_pairs} "
             f"pairs); kernel {ms:.4f} ms, {100 * fields['bound_ms'] / ms:.2f}%"
             f" of its {fields['bound_ms']:.4f} ms bound, plain "
@@ -1430,9 +1500,9 @@ def phase_stage1_kernel(dev, cases=STAGE1_CASES, kernel_reps=20,
         raise AssertionError(f"B4: rows on the range search and the dense "
                              f"branch {branches.tolist()}: both must be "
                              "taken")
-    note(f"{len(cases)} cases bit-identical, -inf cells included; rows on "
-         f"the range search {branches[0]}, on the dense branch "
-         f"{branches[1]}")
+    note(f"{len(cases)} cases bit-identical, -inf and {nan_cells} NaN "
+         f"cells included; rows on the range search {branches[0]}, on the "
+         f"dense branch {branches[1]}")
     return record
 
 
@@ -4181,6 +4251,8 @@ def run_phases():
             "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"),
         })
+        if "cases" in rec:  # the cases held bit-identical to the plain
+            kernels[-1]["cases"] = rec["cases"]
     return kernels, smi
 
 

@@ -46,10 +46,13 @@ def _chip_smoke():
     return module
 
 
-def _entries(qm, qi, cm, ci, ca, off, n_shift, tol):
+def _entries(qm, qi, cm, ci, ca, off, n_shift, tol, direct):
     """entry(i, j) as the kernel computes it, elementwise; `off` has the
-    shift offsets on its last axis (off[..., s - 1] = prec_diff / s)."""
+    shift offsets on its last axis (off[..., s - 1] = prec_diff / s);
+    `direct`: the direct rule (no shifts), a select of q_int."""
     diff = qm - cm
+    if direct:
+        return np.where(np.abs(diff) <= tol, qi, F32(0)) * ci
     mult = (np.abs(diff) <= tol).astype(F32)
     for s in range(1, off.shape[-1] + 1):
         within = (np.abs(diff - off[..., s - 1]) <= tol) & (s <= n_shift)
@@ -130,8 +133,9 @@ def _candidates(arrays, tol, num_shifts, allow_shift, mutation=None):
         got.append(np.stack([np.full(k, pi), np.full(k, i), np.arange(k)]))
     pij = np.concatenate(got, 1) if got else np.zeros((3, 0), np.int64)
     pi, i, j = pij
+    direct = not shifted and mutation != "product"
     v = _entries(qm[pi, i], qi[pi, i], cm[pi, j], ci[pi, j], ca[pi, j],
-                 off[pi], n_shift[pi], tol)
+                 off[pi], n_shift[pi], tol, direct)
     return pi, i, j, v
 
 
@@ -143,7 +147,8 @@ def _wide_kernel(arrays, tol, num_shifts, allow_shift, cap=None,
     window edges tested as c >= (q - off) - tol and c <= (q - off) + tol),
     "columns" (the walk ignores taken columns), "j_first" (ties broken by
     j before i), "j_desc" (ties in a row to the higher column),
-    "no_rescan" (a row whose full cache runs out is dropped).  `cap`
+    "no_rescan" (a row whose full cache runs out is dropped), "product"
+    (no shifts, the entry a product instead of the direct rule's select).  `cap`
     and `depth` override the list's length and the overflow path's cache
     a row."""
     cap = LIST_ENTRIES if cap is None else cap
@@ -206,8 +211,9 @@ def _wide_kernel(arrays, tol, num_shifts, allow_shift, cap=None,
 
 
 def _case(name):
-    """(NumPy arrays padded to one width, tolerance, num_shifts) of a
-    named case, made by chip_smoke's generators."""
+    """(NumPy arrays padded to one width, tolerance, num_shifts,
+    allow_shift) of a named case, made by chip_smoke's generators; the
+    "noshift" cases run without shifts."""
     cs = _chip_smoke()
     p, kq, kc, charge, ties, tol, variant = {
         "k129_ties": (48, 129, 129, 2, True, 0.04, None),
@@ -218,6 +224,8 @@ def _case(name):
         "nonfinite": (48, 160, 160, 3, False, 2.0 ** -5, "nonfinite"),
         "edges": (48, 160, 160, 2, False, 2.0 ** -5, "edges"),
         "intensities": (48, 140, 140, 2, False, 0.04, "intensities"),
+        "noshift_intensities": (48, 140, 140, 2, False, 0.04,
+                                "intensities"),
         "dense_k150": (4, 150, 150, 2, False, 5000.0, None),
         "dense_skew": (4, 150, 150, 2, False, 5000.0, "skew"),
         "dense_few": (4, 160, 160, 2, False, 5000.0, "few"),
@@ -229,13 +237,13 @@ def _case(name):
     padded = shifted_dot_cuda.pad_peaks(
         *(torch.from_numpy(a) for a in pairs[:5]))
     arrays = [a.numpy() for a in padded] + pairs[5:]
-    return arrays, tol, charge + 1
+    return arrays, tol, charge + 1, not name.startswith("noshift")
 
 
-def _plain(arrays, tol, num_shifts):
+def _plain(arrays, tol, num_shifts, allow_shift):
     total, match = pt.shifted_dot_full_plain(
         *(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays),
-        tol, num_shifts, True)
+        tol, num_shifts, allow_shift)
     return total.numpy(), match.numpy()
 
 
@@ -249,7 +257,8 @@ def _same(got, want):
 # 200), a quarter of the candidate rows shuffled (the dense rule),
 # non-finite m/z and precursors with window-edge peaks, peaks at the
 # float32 window edges, non-finite and negative intensities (NaN entries,
-# gaps), every entry positive (the overflow path), every row preferring
+# gaps; without shifts also +inf entries, the direct rule), every entry
+# positive (the overflow path), every row preferring
 # the same column in turn (also with one cached entry a row: a rescan
 # each step), 40 positive peaks a side (1,600 entries on 40 rows and
 # columns, the search rule on the overflow path), and a list too short for K = 129 (the overflow path on the
@@ -258,55 +267,60 @@ def _same(got, want):
     ("k129_ties", None, None), ("k300", None, None),
     ("k300_tail", None, None), ("shuffled", None, None),
     ("nonfinite", None, None), ("edges", None, None),
-    ("intensities", None, None), ("dense_k150", None, None),
+    ("intensities", None, None), ("noshift_intensities", None, None),
+    ("dense_k150", None, None),
     ("dense_skew", None, None), ("dense_skew", None, 1),
     ("dense_few", None, None),
     ("k129_ties_c3", 16, None), ("k129_ties_c3", 16, 2),
 ], ids=["k129_ties", "k300", "k300_tail", "shuffled", "nonfinite", "edges",
-        "intensities", "dense_k150", "dense_skew", "dense_skew_depth1",
-        "dense_few", "k129_overflow", "k129_overflow_depth2"])
+        "intensities", "noshift_intensities", "dense_k150", "dense_skew",
+        "dense_skew_depth1", "dense_few", "k129_overflow",
+        "k129_overflow_depth2"])
 def test_wide_emulation_is_the_greedy(name, cap, depth):
     """The wide kernel's decomposition gives `shifted_dot_full_plain`'s
     totals and match tables bit for bit, with both rules and (for the
     dense and overflow cases) the overflow path taken as stated."""
-    arrays, tol, num_shifts = _case(name)
-    want = _plain(arrays, tol, num_shifts)
-    got = _wide_kernel(arrays, tol, num_shifts, True, cap, depth)
+    arrays, tol, num_shifts, shift = _case(name)
+    want = _plain(arrays, tol, num_shifts, shift)
+    got = _wide_kernel(arrays, tol, num_shifts, shift, cap, depth)
     search = shifted_dot_cuda.search_pairs(
         *(torch.from_numpy(arrays[a]) for a in (1, 2, 3)), tol).numpy()
-    if name in ("shuffled", "nonfinite", "intensities"):
+    if name in ("shuffled", "nonfinite") or name.endswith("intensities"):
         assert search.any() and not search.all()
     else:
         assert search.all()
     scores = pt.pair_score_matrix(
-        *(torch.from_numpy(a) for a in arrays), tol, num_shifts, True)
+        *(torch.from_numpy(a) for a in arrays), tol, num_shifts, shift)
     n_pos = (scores > 0).sum((1, 2)).numpy()
     limit = LIST_ENTRIES if cap is None else cap
     if name.startswith("dense") or cap is not None:
         assert (n_pos > limit).any()
     else:
         assert 0 < n_pos.max() <= limit
-    if name == "intensities":
+    if name.endswith("intensities"):
         assert torch.isnan(scores).any() and (want[0] == 0).any()
+    if name == "noshift_intensities":  # +inf entries listed and taken
+        assert np.isposinf(want[0]).any()
     assert _same(got, want)
 
 
 @pytest.mark.parametrize("mutation,name,depth", [
     ("no_shifts", "k300", None), ("rearranged", "edges", None),
     ("columns", "k300", None), ("j_desc", "k129_ties", None),
-    ("no_rescan", "dense_skew", 2),
+    ("no_rescan", "dense_skew", 2), ("product", "noshift_intensities", None),
 ])
 def test_wide_mutation_fails(mutation, name, depth):
     """Each rule is load-bearing: the emulation with it broken (the shift
     windows dropped, the window edges tested by a rearranged expression,
     the walk blind to taken columns, ties in a row to the higher column,
-    a row dropped when its full cache runs out) differs from the plain
-    version on a case where the intact emulation agrees."""
-    arrays, tol, num_shifts = _case(name)
-    want = _plain(arrays, tol, num_shifts)
-    assert _same(_wide_kernel(arrays, tol, num_shifts, True, depth=depth),
+    a row dropped when its full cache runs out, the product for the
+    direct rule) differs from the plain version on a case where the
+    intact emulation agrees."""
+    arrays, tol, num_shifts, shift = _case(name)
+    want = _plain(arrays, tol, num_shifts, shift)
+    assert _same(_wide_kernel(arrays, tol, num_shifts, shift, depth=depth),
                  want)
-    assert not _same(_wide_kernel(arrays, tol, num_shifts, True,
+    assert not _same(_wide_kernel(arrays, tol, num_shifts, shift,
                                   depth=depth, mutation=mutation), want)
 
 
@@ -318,8 +332,8 @@ def test_wide_tie_order_across_rows_is_free():
     add the same float32 sum in any order.  (So this mutation cannot
     fail; the tie rule within a row, `j_desc` above, is the one that
     bears load.)"""
-    arrays, tol, num_shifts = _case("k129_ties")
-    want = _plain(arrays, tol, num_shifts)
+    arrays, tol, num_shifts, _ = _case("k129_ties")
+    want = _plain(arrays, tol, num_shifts, True)
     scores = pt.pair_score_matrix(
         *(torch.from_numpy(a) for a in arrays), tol, num_shifts, True)
     pos = scores[scores > 0]
@@ -353,7 +367,7 @@ def test_search_pairs_rule():
     assert not shifted_dot_cuda.search_pairs(
         q_int[:1], mz[:1], inten[:1], float("inf")).any()
     # The rows the engine builds: preprocess's sorted peaks, zero tail.
-    arrays, tol, _ = _case("k300_tail")
+    arrays, tol, _, _ = _case("k300_tail")
     assert shifted_dot_cuda.search_pairs(
         *(torch.from_numpy(arrays[a]) for a in (1, 2, 3)), tol).all()
 

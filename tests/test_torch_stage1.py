@@ -95,9 +95,10 @@ CASES = {
 # Cases of the kernel's split alone, as CASES plus the options of
 # `synth_stage1`: preprocess's zero tail, peaks at the windows' float32
 # edges (at tol = 2^-5 some exactly on them) with duplicated m/z, shuffled
-# rows (the dense branch), non-finite m/z and precursors, more query peaks
-# than one pass takes (300 > WARPS * MAX_BLOCK), and a row whose width is
-# a power of two (no +inf padding).
+# rows (the dense branch), non-finite m/z and precursors, NaN and +-inf
+# intensities with and without shifts (the dense branch, NaN bounds),
+# more query peaks than one pass takes (300 > WARPS * MAX_BLOCK), and a
+# row whose width is a power of two (no +inf padding).
 SPLIT_CASES = {
     "padded_tail": (16, 64, 128, 50, 50, 2, True, "bench", 0.25, 16, 0.04,
                     {"tail": True}),
@@ -113,6 +114,10 @@ SPLIT_CASES = {
                  {"shuffle": 0.3}),
     "nonfinite": (16, 64, 128, 20, 20, 2, True, "bench", 0.25, 16, 0.5,
                   {"nonfinite": True}),
+    "intensities": (16, 64, 128, 20, 20, 2, True, "bench", 0.25, 16, 0.5,
+                    {"intensities": True}),
+    "intensities_noshift": (16, 64, 128, 20, 20, 2, False, "bench", 0.25,
+                            16, 0.5, {"intensities": True}),
     "many_query_peaks": (4, 16, 32, 300, 40, 2, True, "bench", 0.25, 16,
                          0.5, {}),
     "full_pow2_row": (8, 32, 64, 40, 64, 2, True, "bench", 0.25, 16, 0.5,
@@ -121,13 +126,15 @@ SPLIT_CASES = {
 
 
 # Cases of the wide branch's split alone: a row padded past MAX_PADDED
-# with a quarter of the rows shuffled (both branch rules), and the zero
-# tail at Kq = Kc = 300.
+# with a quarter of the rows shuffled (both branch rules) or with
+# non-finite intensities, and the zero tail at Kq = Kc = 300.
 WIDE_SPLIT_CASES = {
     "kc_300_shuffled": (4, 16, 64, 50, 300, 2, True, "bench", 0.25, 8, 0.5,
                         {"shuffle": 0.3}),
     "k300_tail": (4, 12, 64, 300, 300, 3, True, "bench", 0.25, 8, 0.04,
                   {"tail": True}),
+    "kc_300_intensities": (8, 16, 64, 50, 300, 2, True, "bench", 0.25, 8,
+                           0.5, {"intensities": True}),
 }
 
 
@@ -250,18 +257,20 @@ def test_sum_order_is_sequential(name):
 
 
 def _emulate_kernel(q_mz, q_int, q_prec, l_mz, l_int, l_ann, l_prec, cand,
-                    num_shifts, shift, tol):
+                    num_shifts, shift, tol, maximum=np.maximum):
     """Kernel B4's work split in NumPy, all valid pairs at once.  The
-    row is staged with +inf for the m/z of its peaks of intensity <= 0
-    (or NaN) and past Kc up to `padded_width(Kc)`.  The branch rule: a
-    row whose positive peaks are a prefix of it, with finite,
-    non-decreasing m/z, takes the range search: per query peak and window
+    row is staged with +inf for the m/z of its peaks of finite intensity
+    <= 0 and past Kc up to `padded_width(Kc)`.  The branch rule: a row
+    whose intensities are finite and whose positive peaks are a prefix of
+    it, with finite, non-decreasing m/z, takes the range search: per
+    query peak and window
     a branchless binary search over log2(padded_width(Kc)) steps for the
     first staged peak with (q - c) - off <= tol, then, if that peak is
     below Kc and passes |(q - c) - off| <= tol, a walk taking the max
     while the test passes, stopping at the first failure or at Kc; any
-    other row the dense loop over its Kc staged peaks (fmax: a NaN value
-    is ignored).  The shift windows only for pairs with
+    other row the dense loop over its Kc staged peaks.  Every max
+    propagates NaN (`maximum`; np.fmax, which drops a NaN, is the
+    mutation).  The shift windows only for pairs with
     |prec_diff| >= tol; the query peaks in passes of WARPS blocks of
     i_tile(Kq), each term q_int * vmax added in query-peak order unless
     vmax is 0 and q_int finite (a +-0 term)."""
@@ -281,9 +290,10 @@ def _emulate_kernel(q_mz, q_int, q_prec, l_mz, l_int, l_ann, l_prec, cand,
     with np.errstate(invalid="ignore"):
         fast = (~(pos[:, 1:] & ~pos[:, :-1]).any(1)
                 & ~(pos[:, 1:] & ~(l_mz[ids][:, :-1] <= l_mz[ids][:, 1:]))
-                .any(1) & (~pos | np.isfinite(l_mz[ids])).all(1))
+                .any(1) & (~pos | np.isfinite(l_mz[ids])).all(1)
+                & np.isfinite(ci).all(1))
     cm = np.full((len(ids), kcp), np.inf, F32)
-    cm[:, :kc] = np.where(pos, l_mz[ids], F32(np.inf))
+    cm[:, :kc] = np.where(pos | ~np.isfinite(ci), l_mz[ids], F32(np.inf))
     assert np.array_equal(fast, stage1_cuda.ascending_rows(
         torch.from_numpy(l_mz), torch.from_numpy(l_int)).numpy()[ids])
 
@@ -293,7 +303,8 @@ def _emulate_kernel(q_mz, q_int, q_prec, l_mz, l_int, l_ann, l_prec, cand,
     for s in range(1, n_shift + 1):
         mult = np.where(ca == s, F32(1), np.where(ca == 0, F32(2 / 3),
                                                   F32(0)))
-        windows.append((pd / F32(s), shifted, mult * ci))
+        with np.errstate(invalid="ignore"):  # 0 * +-inf
+            windows.append((pd / F32(s), shifted, mult * ci))
     acc = np.zeros(len(ids), F32)
     with np.errstate(invalid="ignore", over="ignore"):
         for i0 in range(0, kq, stage1_cuda.WARPS * qb):
@@ -314,15 +325,15 @@ def _emulate_kernel(q_mz, q_int, q_prec, l_mz, l_int, l_ann, l_prec, cand,
                             j = np.minimum(at + k, kcp - 1)
                             alive &= (at + k < kc) & (
                                 np.abs((q - cm[pairs, j]) - off) <= tol)
-                            walk = np.where(alive, np.fmax(
+                            walk = np.where(alive, maximum(
                                 walk, val[pairs, np.minimum(j, kc - 1)]),
                                 walk)
                         hit = (np.abs((q[:, None] - cm[:, :kc])
                                       - off[:, None]) <= tol)
-                        dense = np.fmax.reduce(
+                        dense = maximum.reduce(
                             np.where(hit, val, F32(0)), axis=1,
                             initial=F32(0))
-                        v = np.where(active, np.fmax(
+                        v = np.where(active, maximum(
                             v, np.where(fast, walk, dense)), v)
                     w = q_int[rows, i]
                     term = v != 0
@@ -337,11 +348,11 @@ def _emulate_wide(q_mz, q_int, q_prec, l_mz, l_int, l_ann, l_prec, cand,
                   num_shifts, shift, tol, search="gt", stage=None):
     """Kernel B4's wide branch in NumPy, all valid pairs at once: a pair's
     row staged in chunks of `stage` peaks (`stage1_cuda.wide_stage(Kc)`
-    by default); the branch rule checked on each chunk (its positive
-    peaks a prefix of it, finite, non-decreasing: peak j against peak
-    j - 1 of the chunk), and the search over that prefix, here as the
-    chunk's m/z with +inf for a peak of intensity not > 0 (the same
-    edges: +inf passes no test).
+    by default); the branch rule checked on each chunk (its intensities
+    finite, its positive peaks a prefix of it, finite, non-decreasing:
+    peak j against peak j - 1 of the chunk), and the search over that
+    prefix, here as the chunk's m/z with +inf for a peak of finite
+    intensity not > 0 (the same edges: +inf passes no test).
     The query peaks in blocks of at most 32 * WIDE_R, a run of
     consecutive peaks a lane; on a chunk that passes, per window (the
     shift windows only with |prec_diff| >= tol) the lower edge with the
@@ -351,7 +362,8 @@ def _emulate_wide(q_mz, q_int, q_prec, l_mz, l_int, l_ann, l_prec, cand,
     from there when the test still holds at the edge (at most four shift
     windows; with more, the lifting from 0 for every peak); then the walk
     taking the max while |(q - c) - off| <= tol; on any other chunk every
-    peak of it.  vmax is the max over the chunks; the terms q_int * vmax
+    peak of it.  Every max propagates NaN.  vmax is the max over the
+    chunks; the terms q_int * vmax
     are added in query-peak order from +0.0, the +-0 ones skipped.
     `search` "ge" is the mutation (q - c) - off >= tol."""
     b, c = cand.shape
@@ -370,7 +382,7 @@ def _emulate_wide(q_mz, q_int, q_prec, l_mz, l_int, l_ann, l_prec, cand,
     run = -(-per // 32)
     with np.errstate(invalid="ignore", over="ignore"):
         pos = x > 0
-        staged = np.where(pos, mz, F32(np.inf))
+        staged = np.where(pos | ~np.isfinite(x), mz, F32(np.inf))
         pd = (q_prec[rows] - l_prec[ids]) * chg
         shifted = (n_shift > 0) & (np.abs(pd) >= tol)
         windows = [(np.zeros(n_pairs, F32), np.ones(n_pairs, bool), x)]
@@ -390,7 +402,7 @@ def _emulate_wide(q_mz, q_int, q_prec, l_mz, l_int, l_ann, l_prec, cand,
             prev_mz = np.pad(cmz[:, :-1], ((0, 0), (1, 0)))
             first = np.arange(ln) == 0
             ok = prev_pos & (np.abs(cmz) < np.inf) & (first | (prev_mz <= cmz))
-            fast = ~(cpos & ~ok).any(1)
+            fast = ~(cpos & ~ok).any(1) & np.isfinite(x[:, j0:j1]).all(1)
             fast_rows &= fast
             cm = staged[:, j0:j1]
             cols_k = np.arange(ln)
@@ -423,11 +435,12 @@ def _emulate_wide(q_mz, q_int, q_prec, l_mz, l_int, l_ann, l_prec, cand,
                     hit = np.abs(g) <= tol
                     from_edge = cols_k[None, :] >= at[:, None]
                     alive = from_edge & (np.cumsum(~hit & from_edge, 1) == 0)
-                    walk = np.fmax.reduce(np.where(alive, cval, F32(0)),
-                                          axis=1, initial=F32(0))
-                    dense = np.fmax.reduce(np.where(hit, cval, F32(0)),
-                                           axis=1, initial=F32(0))
-                    vmax[:, i] = np.where(active, np.fmax(
+                    walk = np.maximum.reduce(
+                        np.where(alive, cval, F32(0)), axis=1,
+                        initial=F32(0))
+                    dense = np.maximum.reduce(np.where(hit, cval, F32(0)),
+                                              axis=1, initial=F32(0))
+                    vmax[:, i] = np.where(active, np.maximum(
                         vmax[:, i], np.where(fast, walk, dense)), vmax[:, i])
         acc = np.zeros(n_pairs, F32)
         for i in range(kq):
@@ -450,7 +463,8 @@ def test_wide_branch_emulation_equals_plain(name):
     got, fast = _emulate_wide(*arrays, num_shifts, shift, tol)
     np.testing.assert_array_equal(
         got, _plain(arrays, num_shifts, shift, c_chunk, tol))
-    if name in ("shuffled", "nonfinite", "kc_300_shuffled"):
+    if name in ("shuffled", "nonfinite", "kc_300_shuffled") or (
+            "intensities" in name):
         assert 0 < fast.sum() < len(fast)
     else:
         assert fast.all()
@@ -460,6 +474,7 @@ def test_wide_branch_emulation_equals_plain(name):
     ("kc_257", 100), ("kc_600_kq_300", 128), ("kc_300_shuffled", 64),
     ("k300_tail", 96), ("edge_at_tol", 16), ("shuffled", 7),
     ("nonfinite", 8), ("window_tail", 10), ("shifts_6", 9),
+    ("kc_300_intensities", 64),
 ])
 def test_wide_branch_chunked_emulation_equals_plain(name, stage):
     """The wide branch with its rows staged in several chunks (a small
@@ -505,10 +520,27 @@ def test_kernel_split_emulation_equals_plain(name):
     np.testing.assert_array_equal(
         got, _plain(arrays, num_shifts, shift, c_chunk, tol))
     # Each case takes the branch it was made for.
-    if name in ("shuffled", "nonfinite"):
+    if name in ("shuffled", "nonfinite") or "intensities" in name:
         assert 0 < fast.sum() < len(fast)
     else:
         assert fast.all()
+
+
+@pytest.mark.parametrize("name", ["intensities", "intensities_noshift"])
+def test_kernel_split_nan_mutation_fails(name):
+    """NaN propagation bears load: with fmax (a NaN value dropped, the
+    kernel's maxima before they propagated NaN) the emulation differs
+    from the plain version, which has NaN bounds here, where the intact
+    emulation agrees."""
+    num_shifts, shift, c_chunk, tol = _settings(name)
+    arrays = _inputs(name)
+    want = _plain(arrays, num_shifts, shift, c_chunk, tol)
+    assert np.isnan(want).any()
+    np.testing.assert_array_equal(
+        _emulate_kernel(*arrays, num_shifts, shift, tol)[0], want)
+    got = _emulate_kernel(*arrays, num_shifts, shift, tol,
+                          maximum=np.fmax)[0]
+    assert not np.array_equal(got, want, equal_nan=True)
 
 
 def test_edge_case_has_peaks_on_the_edges():
@@ -571,11 +603,14 @@ def test_main_path_rows_take_the_range_search(torch_config_set):
     ([-np.inf, 2.0, 3.0, 0.0], [1.0, 1.0, 1.0, 0.0], False),
     ([5.0, 2.0, 3.0, 4.0], [np.nan, 1.0, 1.0, 1.0], False),
     ([0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0], True),
+    ([1.0, 2.0, 3.0, 0.0], [1.0, 1.0, np.nan, 0.0], False),
+    ([1.0, 2.0, 3.0, 0.0], [1.0, 1.0, -np.inf, 0.0], False),
+    ([1.0, 2.0, 3.0, 0.0], [1.0, np.inf, 1.0, 0.0], False),
 ])
 def test_ascending_rows(mz, intensity, want):
-    """The branch rule: the peaks of positive intensity must be a prefix
-    of the row (the zero tail after them is ignored) with finite,
-    non-decreasing m/z."""
+    """The branch rule: the intensities must be finite, and the peaks of
+    positive intensity a prefix of the row (the zero tail after them is
+    ignored) with finite, non-decreasing m/z."""
     got = stage1_cuda.ascending_rows(
         torch.tensor([mz], dtype=torch.float32),
         torch.tensor([intensity], dtype=torch.float32))
