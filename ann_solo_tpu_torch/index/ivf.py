@@ -101,6 +101,12 @@ from ann_solo_tpu_torch.ops.kmeans import (
     spherical_kmeans,
 )
 from ann_solo_tpu_torch.ops.topk import stable_topk_desc
+from ann_solo_tpu_torch.utils.profiling import (
+    profiler,
+    span,
+    to_device,
+    to_host,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -709,16 +715,22 @@ def _ivf_probe_scan_tile(
     slot) lane order, which with ascending probe ids is the oracle's lane
     order; the same canonical top-k, id map and dedup then run on it
     (`canonical_select`: kernel B5 on the card), so the results are
-    `_ivf_search_perquery`'s with no certificates and no repair."""
+    `_ivf_search_perquery`'s with no certificates and no repair.  Traced
+    as ``select.probe`` (the coarse probe and its sort), ``select.scan``
+    (B2) and ``select.select`` (B5)."""
     l, cap, _ = padded_vectors.shape
     p = min(num_probe, l)
     k_eff = min(k_scan, p * cap)
-    probe_ids = _probe_lists(queries, centroids, p)
-    flat = ivf_probe_scan(
-        padded_vectors, padded_ids, padded_prec, padded_scales, queries,
-        q_prec, charge, probe_ids, tol_val, tol_mode,
-    )  # (B, P * cap) f32, -inf masked
-    return canonical_select(flat, probe_ids, padded_ids, k_eff, k, redundant)
+    with span("select.probe"):
+        probe_ids = _probe_lists(queries, centroids, p)
+    with span("select.scan"):
+        flat = ivf_probe_scan(
+            padded_vectors, padded_ids, padded_prec, padded_scales, queries,
+            q_prec, charge, probe_ids, tol_val, tol_mode,
+        )  # (B, P * cap) f32, -inf masked
+    with span("select.select"):
+        return canonical_select(flat, probe_ids, padded_ids, k_eff, k,
+                                redundant)
 
 
 @torch.no_grad()
@@ -1354,6 +1366,10 @@ class IvfIndex(HostSearch):
         args = (float(charge), num_probe, k, self.redundancy * k,
                 float(tol_val), tol_mode, self.redundancy > 1)
         regime = self.regime(k, num_probe)
+        tracer = profiler.tracer
+        if tracer is not None:
+            tracer.count(f"select.regime.{regime}")
+            tracer.annotate("regime", regime)
         if regime == "fullscan" and _fullscan_scans_probed_lists(dev, dtype):
             scores, ids = self._search_probe(queries, q_prec, *args)
             return ids.to(torch.int32), scores
@@ -1433,7 +1449,8 @@ class IvfIndex(HostSearch):
         score block fits `_CHUNK_SCORE_BYTES`.  The last two carry
         certificates: one host download of the flags, then the flagged
         queries are repaired through the per-query oracle; their count is
-        kept in ``_last_chunked_flagged``."""
+        kept in ``_last_chunked_flagged`` (and counted as
+        ``select.flagged`` while tracing is on)."""
         l, cap, d = self.padded_vectors.shape
         dtype = self.padded_vectors.dtype
         b = queries.shape[0]
@@ -1472,12 +1489,16 @@ class IvfIndex(HostSearch):
             out_s.append(s)
             out_i.append(i)
         out_s, out_i = torch.cat(out_s), torch.cat(out_i)
-        rows = torch.nonzero(torch.cat(flags).cpu()).flatten()  # one download
+        # One download of the flags.
+        rows = torch.nonzero(to_host(torch.cat(flags))).flatten()
         self._last_chunked_flagged = len(rows)
+        tracer = profiler.tracer
+        if tracer is not None:
+            tracer.count("select.flagged", len(rows))
         if len(rows):
             logger.debug("IVF chunked-scan certificate flagged %d/%d "
                          "queries; per-query repair", len(rows), b)
-            rows = rows.to(queries.device)
+            rows = to_device(rows, queries.device)
             r_s, r_i = _ivf_search_perquery(
                 *self._blocks(), queries[rows], q_prec[rows], charge,
                 num_probe, k, k_scan, tol_val, tol_mode, redundant,

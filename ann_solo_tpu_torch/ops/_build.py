@@ -5,6 +5,9 @@ point, so it compiles in seconds without PyTorch's headers.  The shared
 library lands in `build/kernels/` at the root of the checkout, named by a
 hash of the source, the shared headers and the flags, so an edited source
 rebuilds and an unchanged one is reused.  Nothing here runs at import time.
+Each build and each load is counted (`utils.profiling.profiler.count`:
+``kernel built <name>``, ``kernel loaded <name>``), so that one inside a
+traced batch shows in its counters.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
+
+from ann_solo_tpu_torch.utils.profiling import profiler
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -70,6 +75,7 @@ def ensure_built(name: str) -> Path:
         )
     out.with_suffix(".ptxas").write_text(proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+    profiler.count(f"kernel built {name}")
     return out
 
 
@@ -116,4 +122,6 @@ def ptxas_report(name: str) -> list:
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The built library for `csrc/<name>.cu` (built on first use)."""
-    return ctypes.CDLL(str(ensure_built(name)))
+    library = ctypes.CDLL(str(ensure_built(name)))
+    profiler.count(f"kernel loaded {name}")
+    return library

@@ -27,6 +27,12 @@ from ann_solo_tpu_torch.ops.shifted_dot_cuda import (
     pad_peaks,
 )
 from ann_solo_tpu_torch.ops.topk import topk_desc_nan_last
+from ann_solo_tpu_torch.utils.profiling import (
+    NO_SPAN,
+    profiler,
+    to_device,
+    to_host,
+)
 
 # The factored bound's product order q * (mult * c) can round one ulp
 # below stage 2's (mult * q) * c per term; inflating by 1 + 2^-20 keeps
@@ -110,20 +116,23 @@ def _stage1_bounds(
 ):
     """Stage 1 routed by the tensors' device: CUDA tensors launch kernel B4
     on the whole matrix at once (`c_chunk` unused) or raise, CPU tensors
-    take `stage1_bounds_plain`."""
-    if q_mz.device.type == "cuda":
-        return stage1_cuda.stage1_bounds(
-            *(t.contiguous() for t in (
-                q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec,
-                cand_ids)),
-            fragment_mz_tolerance, num_shifts, allow_shift,
+    take `stage1_bounds_plain`.  Traced as ``rescore.bounds``."""
+    tracer = profiler.tracer
+    with tracer.span("rescore.bounds") if tracer else NO_SPAN:
+        if q_mz.device.type == "cuda":
+            return stage1_cuda.stage1_bounds(
+                *(t.contiguous() for t in (
+                    q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec,
+                    cand_ids)),
+                fragment_mz_tolerance, num_shifts, allow_shift,
+            )
+        if q_mz.device.type != "cpu":
+            raise ValueError(f"stage 1: unsupported device {q_mz.device}")
+        return stage1_bounds_plain(
+            q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec,
+            cand_ids, fragment_mz_tolerance, num_shifts, allow_shift,
+            c_chunk,
         )
-    if q_mz.device.type != "cpu":
-        raise ValueError(f"stage 1: unsupported device {q_mz.device}")
-    return stage1_bounds_plain(
-        q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec, cand_ids,
-        fragment_mz_tolerance, num_shifts, allow_shift, c_chunk,
-    )
 
 
 @torch.no_grad()
@@ -192,14 +201,14 @@ def _greedy_pairs_chunked(
         if m < _GREEDY_CHUNK:
             pq = np.pad(pq, (0, _GREEDY_CHUNK - m))
             pc = np.pad(pc, (0, _GREEDY_CHUNK - m), constant_values=-1)
-        pq_d = torch.as_tensor(pq, dtype=torch.int64, device=dev)
-        pc_d = torch.as_tensor(pc, dtype=torch.int64, device=dev)
+        pq_d = to_device(pq, dev, torch.int64)
+        pc_d = to_device(pc, dev, torch.int64)
         scores = gather_pair_scores(
             q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec,
             pq_d, pc_d.clamp(0, lib_mz.shape[0] - 1), pc_d >= 0,
             fragment_mz_tolerance, num_shifts, allow_shift,
         )
-        out[start:start + m] = scores[:m].cpu().numpy()
+        out[start:start + m] = to_host(scores[:m]).numpy()
     return out
 
 
@@ -218,7 +227,11 @@ def rescore_candidate_matrix(
     """Exact per-query best candidate (see the module docstring).
 
     Returns NumPy (best_idx (B,) int64, best_score (B,) float64,
-    n_candidates (B,) int32), like the JAX function.
+    n_candidates (B,) int32), like the JAX function.  Traced as
+    ``rescore.bounds``, a ``rescore.tier`` span a stage-2 tier (its `t`
+    and rows; the rows also counted as ``rescore.t<t>.rows``) and
+    ``rescore.full`` (the greedy over all C, its rows counted as
+    ``rescore.full.rows``).
     """
     b, c = cand_ids.shape
     if c_chunk <= 0:
@@ -229,37 +242,45 @@ def rescore_candidate_matrix(
         fragment_mz_tolerance, num_shifts, allow_shift, min(c_chunk, c),
     )
     t = min(max(1, t0), c)
-    outs = _stage2_dense(
-        q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec, ub, cand, t,
-        fragment_mz_tolerance, num_shifts, allow_shift,
-    )
-    best_idx, best_score, cert, n_cands = _to_numpy(*outs)
+    with _tier(t, b):
+        outs = _stage2_dense(
+            q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec, ub,
+            cand, t, fragment_mz_tolerance, num_shifts, allow_shift,
+        )
+        best_idx, best_score, cert, n_cands = _to_numpy(*outs)
     failures = np.nonzero(~cert)[0]
     t_mid = min(top_t, c)
     if len(failures) and t < t_mid:
         # Tier 2: stage 2 at the wider `top_t` on the failed rows only.
-        rows = torch.as_tensor(failures, device=q_mz.device)
-        outs2 = _stage2_dense(
-            q_mz[rows], q_int[rows], q_prec[rows],
-            lib_mz, lib_int, lib_ann, lib_prec,
-            ub[rows], cand[rows], t_mid,
-            fragment_mz_tolerance, num_shifts, allow_shift,
-        )
-        idx2, score2, cert2, _ = _to_numpy(*outs2)
+        with _tier(t_mid, len(failures)):
+            rows = to_device(failures, q_mz.device)
+            outs2 = _stage2_dense(
+                q_mz[rows], q_int[rows], q_prec[rows],
+                lib_mz, lib_int, lib_ann, lib_prec,
+                ub[rows], cand[rows], t_mid,
+                fragment_mz_tolerance, num_shifts, allow_shift,
+            )
+            idx2, score2, cert2, _ = _to_numpy(*outs2)
         best_idx[failures] = idx2
         best_score[failures] = score2
         cert[failures] = cert2
         failures = failures[~cert2]
     if len(failures) and t_mid < c:
         # Full greedy over all C candidates for the residual failures.
-        cand_fail = cand[torch.as_tensor(failures, device=cand.device)]
-        cand_fail = cand_fail.cpu().numpy()
-        pair_q = np.repeat(failures, c)
-        pair_c = cand_fail.reshape(-1)
-        scores = _greedy_pairs_chunked(
-            q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec,
-            pair_q, pair_c, fragment_mz_tolerance, num_shifts, allow_shift,
-        ).reshape(len(failures), c)
+        tracer = profiler.tracer
+        if tracer is not None:
+            tracer.count("rescore.full.rows", len(failures))
+        with tracer.span("rescore.full", rows=len(failures)) if tracer \
+                else NO_SPAN:
+            cand_fail = cand[to_device(failures, cand.device)]
+            cand_fail = to_host(cand_fail).numpy()
+            pair_q = np.repeat(failures, c)
+            pair_c = cand_fail.reshape(-1)
+            scores = _greedy_pairs_chunked(
+                q_mz, q_int, q_prec, lib_mz, lib_int, lib_ann, lib_prec,
+                pair_q, pair_c, fragment_mz_tolerance, num_shifts,
+                allow_shift,
+            ).reshape(len(failures), c)
         f_best = np.argmax(scores, axis=1)
         f_rows = np.arange(len(failures))
         best_idx[failures] = cand_fail[f_rows, f_best]
@@ -267,10 +288,20 @@ def rescore_candidate_matrix(
     return best_idx, best_score, n_cands
 
 
+def _tier(t: int, rows: int):
+    """The span of a stage-2 tier at `t` over `rows` query rows, counted
+    as ``rescore.t<t>.rows``, while tracing is on."""
+    tracer = profiler.tracer
+    if tracer is None:
+        return NO_SPAN
+    tracer.count(f"rescore.t{t}.rows", rows)
+    return tracer.span("rescore.tier", t=t, rows=rows)
+
+
 def _to_numpy(best_idx, best_score, cert, n_cands):
     return (
-        best_idx.cpu().numpy().astype(np.int64),
-        best_score.cpu().numpy().astype(np.float64),
-        cert.cpu().numpy(),
-        n_cands.cpu().numpy(),
+        to_host(best_idx).numpy().astype(np.int64),
+        to_host(best_score).numpy().astype(np.float64),
+        to_host(cert).numpy(),
+        to_host(n_cands).numpy(),
     )

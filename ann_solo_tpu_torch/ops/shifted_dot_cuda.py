@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from ann_solo_tpu_torch.ops import _build
 from ann_solo_tpu_torch.ops.shifted_dot import shifted_dot_full_plain
 from ann_solo_tpu_torch.ops.stage1_cuda import ascending_rows
+from ann_solo_tpu_torch.utils.profiling import profiler
 
 # Peaks a pair of the register branch; more take the wide branch.
 MAX_KERNEL_PEAKS = 128
@@ -176,8 +177,14 @@ def shifted_dot_full(
     the candidate peak assigned to query peak i (-1 = unmatched): the
     `shifted_dot_pallas_full` contract.  Both sides must have the same
     peak width K (pad the narrower one, as the dispatchers below do).
+    While tracing is on, each call is counted (``b1.launches``,
+    ``b1.pairs``).
     """
     _check(q_mz, q_int, c_mz, c_int, c_ann, q_prec_mz, c_prec_mz, charge)
+    tracer = profiler.tracer
+    if tracer is not None:
+        tracer.count("b1.launches")
+        tracer.count("b1.pairs", q_mz.shape[0])
     if q_mz.device.type == "cpu":
         return shifted_dot_full_plain(
             q_mz, q_int, c_mz, c_int, c_ann, q_prec_mz, c_prec_mz, charge,

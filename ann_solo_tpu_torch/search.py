@@ -41,7 +41,6 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-import time
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -49,7 +48,7 @@ import torch
 
 from ann_solo_tpu_torch import fdr
 from ann_solo_tpu_torch.config import config
-from ann_solo_tpu_torch.device import DeviceLike, resolve_device, synchronize
+from ann_solo_tpu_torch.device import DeviceLike, resolve_device
 from ann_solo_tpu_torch.index.ivf import (
     IvfIndex,
     ivf_index_filename,
@@ -85,7 +84,14 @@ from ann_solo_tpu_torch.ops.shifted_dot_cuda import (
 from ann_solo_tpu_torch.parallel.collectives import on_device
 from ann_solo_tpu_torch.parallel.mesh import make_mesh, n_list_shards
 from ann_solo_tpu_torch.parallel.sharded_ivf import ShardedIvfIndex
-from ann_solo_tpu_torch.utils.profiling import device_trace, profiler
+from ann_solo_tpu_torch.utils.profiling import (
+    NO_SPAN,
+    Stages,
+    device_trace,
+    profiler,
+    to_device,
+    to_host,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -151,36 +157,44 @@ def best_pair_matches(lib: LibraryBlock, q_mz, q_int, q_prec,
                       rows: np.ndarray, cand_idx: np.ndarray, charge: int,
                       params: OpenSearchParams) -> Dict[int, np.ndarray]:
     """Greedy peak matches ((M, 2) [query peak, library peak]) of each
-    listed query row's best candidate, in the greedy's selection order."""
+    listed query row's best candidate, in the greedy's selection order.
+    Traced as ``matches.pairs`` (the gathers, B1, the selection order),
+    two host copies and ``matches.rows`` (the loop over rows) a chunk."""
     dev = lib.device
     matches_by_row: Dict[int, np.ndarray] = {}
     for start in range(0, len(rows), _MATCH_CHUNK):
         r = rows[start:start + _MATCH_CHUNK]
         c = cand_idx[start:start + _MATCH_CHUNK]
-        r_d = torch.as_tensor(r, dtype=torch.int64, device=dev)
-        c_d = torch.as_tensor(c, dtype=torch.int64, device=dev)
-        qm, qi, cm, ci, ca = pad_peaks(
-            q_mz.index_select(0, r_d), q_int.index_select(0, r_d),
-            lib.mz.index_select(0, c_d), lib.intensity.index_select(0, c_d),
-            lib.ann_charge.index_select(0, c_d),
-        )
-        qp = q_prec.index_select(0, r_d)
-        cp = lib.precursor_mz.index_select(0, c_d)
-        charges = torch.full((len(r),), charge, dtype=torch.int32, device=dev)
-        _, _, match = shifted_dot_best_match_auto(
-            qm, qi, cm, ci, ca, qp, cp, charges,
-            params.fragment_mz_tolerance, params.num_shifts(charge),
-            params.allow_peak_shifts,
-        )
-        match_q, match_c = _selection_order(
-            qm, qi, cm, ci, ca, qp, cp, charges, match, params, charge)
-        match_q = match_q.cpu().numpy()
-        match_c = match_c.cpu().numpy()
-        for j, row in enumerate(r):
-            sel = match_q[j] >= 0
-            matches_by_row[int(row)] = np.column_stack(
-                [match_q[j][sel], match_c[j][sel]]
+        tracer = profiler.tracer
+        with tracer.span("matches.pairs", pairs=len(r)) if tracer else \
+                NO_SPAN:
+            r_d = to_device(r, dev, torch.int64)
+            c_d = to_device(c, dev, torch.int64)
+            qm, qi, cm, ci, ca = pad_peaks(
+                q_mz.index_select(0, r_d), q_int.index_select(0, r_d),
+                lib.mz.index_select(0, c_d),
+                lib.intensity.index_select(0, c_d),
+                lib.ann_charge.index_select(0, c_d),
             )
+            qp = q_prec.index_select(0, r_d)
+            cp = lib.precursor_mz.index_select(0, c_d)
+            charges = torch.full((len(r),), charge, dtype=torch.int32,
+                                 device=dev)
+            _, _, match = shifted_dot_best_match_auto(
+                qm, qi, cm, ci, ca, qp, cp, charges,
+                params.fragment_mz_tolerance, params.num_shifts(charge),
+                params.allow_peak_shifts,
+            )
+            match_q, match_c = _selection_order(
+                qm, qi, cm, ci, ca, qp, cp, charges, match, params, charge)
+        match_q = to_host(match_q).numpy()
+        match_c = to_host(match_c).numpy()
+        with tracer.span("matches.rows", rows=len(r)) if tracer else NO_SPAN:
+            for j, row in enumerate(r):
+                sel = match_q[j] >= 0
+                matches_by_row[int(row)] = np.column_stack(
+                    [match_q[j][sel], match_c[j][sel]]
+                )
     return matches_by_row
 
 
@@ -201,46 +215,44 @@ def ann_open_search_batch(
     float64, n_cands (B,) int32, matches_by_row {row: (M, 2) int array}),
     like the JAX engine's ANN branch.  With `stage_seconds` given, the
     device is synchronized at each stage boundary and each stage's wall
-    seconds are added under its name.
+    seconds are added under its name.  The call is one traced batch
+    (`utils.profiling`): the root span ``batch`` and a span a stage.
     """
     dev = lib.device
-    q_mz = torch.as_tensor(q_mz).to(device=dev, dtype=torch.float32)
-    q_int = torch.as_tensor(q_int).to(device=dev, dtype=torch.float32)
-    q_n = torch.as_tensor(q_n).to(device=dev)
-    q_prec = torch.as_tensor(np.asarray(q_prec, np.float32)).to(dev)
-    clock = [time.perf_counter()]
-
-    def stage(name):
-        if stage_seconds is None:
-            return
-        synchronize(dev)
-        now = time.perf_counter()
-        stage_seconds[name] = stage_seconds.get(name, 0.0) + now - clock[0]
-        clock[0] = now
-
-    vectors = vectorize_batch(
-        params.vectorize, device_tables(params.vectorize, dev),
-        q_mz, q_int, q_n,
-    )
-    stage("vectorize")
-    cand_ids, _ = index.search_device(
-        vectors, params.num_candidates, q_prec=q_prec, charge=float(charge),
-        tol_val=float(params.precursor_tolerance_mass_open),
-        tol_mode=params.precursor_tolerance_mode_open,
-    )
-    stage("select")
-    best_idx, best_score, n_cands = rescore_candidate_matrix(
-        q_mz, q_int, q_prec,
-        lib.mz, lib.intensity, lib.ann_charge, lib.precursor_mz,
-        cand_ids, params.fragment_mz_tolerance, params.num_shifts(charge),
-        params.allow_peak_shifts,
-    )
-    stage("rescore")
-    rows = np.nonzero(best_idx >= 0)[0]
-    matches_by_row = best_pair_matches(
-        lib, q_mz, q_int, q_prec, rows, best_idx[rows], charge, params
-    )
-    stage("matches")
+    with profiler.batch(len(q_mz), charge):
+        q_mz = to_device(q_mz, dev, torch.float32)
+        q_int = to_device(q_int, dev, torch.float32)
+        q_n = to_device(q_n, dev)
+        q_prec = to_device(np.asarray(q_prec, np.float32), dev)
+        tracer = profiler.tracer
+        if tracer is not None:
+            tracer.count("queries", q_mz.shape[0])
+        stage = Stages(dev, stage_seconds)
+        with stage("vectorize"):
+            vectors = vectorize_batch(
+                params.vectorize, device_tables(params.vectorize, dev),
+                q_mz, q_int, q_n,
+            )
+        with stage("select"):
+            cand_ids, _ = index.search_device(
+                vectors, params.num_candidates, q_prec=q_prec,
+                charge=float(charge),
+                tol_val=float(params.precursor_tolerance_mass_open),
+                tol_mode=params.precursor_tolerance_mode_open,
+            )
+        with stage("rescore"):
+            best_idx, best_score, n_cands = rescore_candidate_matrix(
+                q_mz, q_int, q_prec,
+                lib.mz, lib.intensity, lib.ann_charge, lib.precursor_mz,
+                cand_ids, params.fragment_mz_tolerance,
+                params.num_shifts(charge), params.allow_peak_shifts,
+            )
+        with stage("matches"):
+            rows = np.nonzero(best_idx >= 0)[0]
+            matches_by_row = best_pair_matches(
+                lib, q_mz, q_int, q_prec, rows, best_idx[rows], charge,
+                params
+            )
     return best_idx, best_score, n_cands, matches_by_row
 
 
