@@ -40,7 +40,9 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import operator
 import os
+from collections.abc import Mapping
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -153,19 +155,60 @@ def _selection_order(qm, qi, cm, ci, ca, q_prec, c_prec, charges, match,
     return match_q, match_c
 
 
+class RowMatches(Mapping):
+    """Read-only mapping of query row -> the greedy peak matches of its
+    best pair: an (M, 2) int64 [query peak, library peak] array in the
+    greedy's selection order ((0, 2) where nothing matched).  Each value
+    is the C-contiguous view ``flat[offsets[j]:offsets[j + 1]]`` of one
+    block, `j` the row's position in `rows` (distinct, non-negative);
+    keys iterate in the order of `rows`.  A view keeps the block alive."""
+
+    __slots__ = ("rows", "offsets", "flat", "_position")
+
+    def __init__(self, rows: np.ndarray, offsets: np.ndarray,
+                 flat: np.ndarray):
+        self.rows, self.offsets, self.flat = rows, offsets, flat
+        self._position = np.full(int(rows.max()) + 1 if len(rows) else 0,
+                                 -1, np.int64)
+        self._position[rows] = np.arange(len(rows))
+
+    def __getitem__(self, row) -> np.ndarray:
+        try:
+            row = operator.index(row)
+        except TypeError:
+            raise KeyError(row) from None
+        j = self._position[row] if 0 <= row < len(self._position) else -1
+        if j < 0:
+            raise KeyError(row)
+        return self.flat[self.offsets[j]:self.offsets[j + 1]]
+
+    def __iter__(self) -> Iterator[int]:
+        return iter(self.rows.tolist())
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+
 def best_pair_matches(lib: LibraryBlock, q_mz, q_int, q_prec,
                       rows: np.ndarray, cand_idx: np.ndarray, charge: int,
-                      params: OpenSearchParams) -> Dict[int, np.ndarray]:
-    """Greedy peak matches ((M, 2) [query peak, library peak]) of each
-    listed query row's best candidate, in the greedy's selection order.
-    Traced as ``matches.pairs`` (the gathers, B1, the selection order),
-    two host copies and ``matches.rows`` (the loop over rows) a chunk."""
+                      params: OpenSearchParams) -> RowMatches:
+    """Greedy peak matches of each listed query row's best candidate, in
+    the greedy's selection order: a `RowMatches` of row -> (M, 2) int64
+    [query peak, library peak] views of one block.
+
+    Each chunk of `_MATCH_CHUNK` rows compacts its matched entries on the
+    device (wherever they sit in the row) into one block of pairs, row
+    after row, and copies to the host the per-row counts, then the block.
+    Traced a chunk as ``matches.pairs`` (the gathers, B1, the selection
+    order, the compaction) and two host copies, then once as
+    ``matches.rows`` (the offsets and the row lookup on the host); the
+    counter ``matches.pairs_out`` is the pairs delivered."""
     dev = lib.device
-    matches_by_row: Dict[int, np.ndarray] = {}
+    counts, flats = [], []
+    tracer = profiler.tracer
     for start in range(0, len(rows), _MATCH_CHUNK):
         r = rows[start:start + _MATCH_CHUNK]
         c = cand_idx[start:start + _MATCH_CHUNK]
-        tracer = profiler.tracer
         with tracer.span("matches.pairs", pairs=len(r)) if tracer else \
                 NO_SPAN:
             r_d = to_device(r, dev, torch.int64)
@@ -187,15 +230,29 @@ def best_pair_matches(lib: LibraryBlock, q_mz, q_int, q_prec,
             )
             match_q, match_c = _selection_order(
                 qm, qi, cm, ci, ca, qp, cp, charges, match, params, charge)
-        match_q = to_host(match_q).numpy()
-        match_c = to_host(match_c).numpy()
-        with tracer.span("matches.rows", rows=len(r)) if tracer else NO_SPAN:
-            for j, row in enumerate(r):
-                sel = match_q[j] >= 0
-                matches_by_row[int(row)] = np.column_stack(
-                    [match_q[j][sel], match_c[j][sel]]
-                )
-    return matches_by_row
+            # Entry (j, i) goes to its row's offset plus the matched
+            # entries before it in the row; every unmatched one to a
+            # last, dropped slot.  No boolean index: that would sync.
+            sel = match_c >= 0
+            n = sel.sum(1)
+            dest = torch.where(sel, (n.cumsum(0) - n)[:, None]
+                               + sel.cumsum(1) - 1, sel.numel())
+            block = torch.empty((sel.numel() + 1, 2), dtype=torch.int64,
+                                device=dev)
+            pairs = torch.stack([match_q, match_c], 2).reshape(-1, 2)
+            block.index_copy_(0, dest.reshape(-1), pairs)
+        counts.append(to_host(n.to(torch.int32)).numpy())
+        flats.append(to_host(block[:int(counts[-1].sum())]).numpy())
+    with tracer.span("matches.rows", rows=len(rows)) if tracer else NO_SPAN:
+        offsets = np.zeros(len(rows) + 1, np.int64)
+        if counts:
+            np.cumsum(np.concatenate(counts), out=offsets[1:])
+        flat = flats[0] if len(flats) == 1 else np.concatenate(
+            [np.zeros((0, 2), np.int64)] + flats)
+        matches = RowMatches(np.asarray(rows), offsets, flat)
+    if tracer is not None:
+        tracer.count("matches.pairs_out", len(flat))
+    return matches
 
 
 @torch.no_grad()
@@ -212,10 +269,12 @@ def ann_open_search_batch(
     """ANN open search of one query batch of precursor charge `charge`.
 
     Returns (best_idx (B,) int64 library row or -1, best_score (B,)
-    float64, n_cands (B,) int32, matches_by_row {row: (M, 2) int array}),
-    like the JAX engine's ANN branch.  With `stage_seconds` given, the
-    device is synchronized at each stage boundary and each stage's wall
-    seconds are added under its name.  The call is one traced batch
+    float64, n_cands (B,) int32, matches_by_row), like the JAX engine's
+    ANN branch; matches_by_row maps each row with a best pair to its
+    greedy peak matches, (M, 2) int64 views of one block
+    (`best_pair_matches`).  With `stage_seconds` given, the device is
+    synchronized at each stage boundary and each stage's wall seconds
+    are added under its name.  The call is one traced batch
     (`utils.profiling`): the root span ``batch`` and a span a stage.
     """
     dev = lib.device

@@ -287,34 +287,112 @@ def test_rescore_window_ranges_equal_jax(monkeypatch, both_configs,
     assert tied > 0
 
 
-def test_best_pair_matches_in_selection_order():
+def _with_holes(selection_order, holes):
+    """`_selection_order` with each row's unmatched entries moved among
+    its matched ones, the matched ones in their order: the greedy leaves
+    matches in a prefix, and the compaction must not rely on that.
+    `holes` gets the number of rows with a match after an unmatched
+    entry."""
+    def order(*args):
+        match_q, match_c = selection_order(*args)
+        gen = torch.Generator().manual_seed(31)
+        matched = match_c >= 0
+        # Matched entries keep even keys in their order, the unmatched
+        # draw odd ones: a stable sort interleaves them.
+        key = torch.where(
+            matched, 2 * matched.cumsum(1),
+            2 * torch.randint(0, match_c.shape[1], match_c.shape,
+                              generator=gen) + 1)
+        perm = torch.sort(key, dim=1, stable=True).indices
+        match_q, match_c = match_q.gather(1, perm), match_c.gather(1, perm)
+        after = (match_c < 0).cummax(1).values[:, :-1] & (match_c[:, 1:] >= 0)
+        holes.append(int(after.any(1).sum()))
+        return match_q, match_c
+    return order
+
+
+@pytest.mark.parametrize("case", ["selection_order", "unmatched_rows",
+                                  "nonfinite", "holes", "chunks"])
+def test_best_pair_matches_in_selection_order(case, monkeypatch):
     """The port's matches come in the greedy's selection order: the order
-    of the JAX package's plain greedy on the same pairs."""
+    of the JAX package's plain greedy on the same pairs, as a mapping of
+    row -> (M, 2) int64 C-contiguous views that acts as the dict of
+    per-row arrays the matches once were.  Cases: rows whose pair
+    matches nothing; NaN and infinite intensities (direct rule: +inf
+    entries tie at the head, a pair with a NaN entry takes nothing);
+    self pairs with half their peaks matched, the unmatched entries put
+    among the matched ones; several chunks, rows in no order."""
     rng = np.random.default_rng(30)
-    n, k = 300, 30
+    n, k, b = 300, 30, 200
     mz = np.sort(rng.uniform(150, 1400, (n, k)), 1).astype(np.float32)
     intensity = np.ceil(rng.uniform(0, 4, (n, k))).astype(np.float32) / 4
     ann = rng.integers(0, 3, (n, k)).astype(np.int32)
     prec = rng.uniform(500, 900, n).astype(np.float32)
     lib = LibraryBlock(*(torch.from_numpy(a) for a in (mz, intensity, ann,
                                                        prec)))
-    rows = np.arange(0, 200)
-    cand = rng.integers(0, n, 200)
+    rows = np.arange(0, b)
+    cand = rng.integers(0, n, b)
     cand[::3] = rows[::3]  # self pairs: many matches, many ties
-    q_mz = torch.from_numpy(mz[:200] + rng.normal(0, 0.005, (200, k)).astype(
-        np.float32)).sort(1).values
-    q_int = torch.from_numpy(intensity[:200])
-    q_prec = torch.from_numpy(prec[:200] + np.float32(8.0))
-    params = OpenSearchParams(fragment_mz_tolerance=0.02)
-    got = best_pair_matches(lib, q_mz, q_int, q_prec, rows, cand, 2, params)
+    q_mz = mz[:b] + rng.normal(0, 0.005, (b, k)).astype(np.float32)
+    q_int = intensity[:b].copy()
+    shifts = case != "nonfinite"
+    holes = []
+    if case == "unmatched_rows":
+        # Peaks past the library's m/z and every shift of it.
+        q_mz[::5] = rng.uniform(1500, 1600, (len(q_mz[::5]), k))
+    elif case == "nonfinite":
+        q_int[1::4, 3] = np.nan
+        q_int[2::4, 5] = np.inf
+        q_int[3::8, [2, 7]] = np.inf
+    elif case == "holes":
+        q_mz[::3, 1::2] += 0.5  # self pairs with half their peaks matched
+        monkeypatch.setattr(search, "_selection_order",
+                            _with_holes(search._selection_order, holes))
+    elif case == "chunks":
+        monkeypatch.setattr(search, "_MATCH_CHUNK", 64)
+        rows = rng.permutation(b)[:150]
+    q_mz = torch.from_numpy(q_mz).sort(1).values
+    q_int = torch.from_numpy(q_int)
+    q_prec = torch.from_numpy(prec[:b] + np.float32(8.0))
+    params = OpenSearchParams(fragment_mz_tolerance=0.02,
+                              allow_peak_shifts=shifts)
+    got = best_pair_matches(lib, q_mz, q_int, q_prec, rows, cand[rows], 2,
+                            params)
+    c = cand[rows]
     _, want_q, want_c = shifted_dot_best_match(
-        q_mz.numpy(), q_int.numpy(), mz[cand], intensity[cand], ann[cand],
-        q_prec.numpy(), prec[cand], np.full(200, 2, np.int32), 0.02, 3, True)
+        q_mz.numpy()[rows], q_int.numpy()[rows], mz[c], intensity[c],
+        ann[c], q_prec.numpy()[rows], prec[c],
+        np.full(len(rows), 2, np.int32), 0.02, 3 if shifts else 1, shifts)
     want_q, want_c = np.asarray(want_q), np.asarray(want_c)
-    n_matched = 0
+    old = {}  # the per-row arrays the matches once were
     for j, row in enumerate(rows):
         sel = want_q[j] >= 0
-        np.testing.assert_array_equal(
-            got[int(row)], np.column_stack([want_q[j][sel], want_c[j][sel]]))
-        n_matched += int(sel.sum())
+        old[int(row)] = np.column_stack([want_q[j][sel], want_c[j][sel]])
+    assert list(got) == list(old) == rows.tolist()
+    assert len(got) == len(old)
+    for row, want in old.items():
+        m = got[row]
+        np.testing.assert_array_equal(m, want)
+        assert m.dtype == np.int64 and m.shape == (len(want), 2)
+        assert m.flags.c_contiguous
+        assert row in got and got.get(row) is not None
+    missing = object()
+    for row in (-1, b, b + 1000, max(old) + 1, "row", 2.5):
+        if row not in old:
+            assert row not in got
+            assert got.get(row, missing) is missing
+            with pytest.raises(KeyError):
+                got[row]
+    assert np.asarray(got.get(b, np.zeros((0, 2)))).shape == (0, 2)
+    n_matched = sum(len(m) for m in old.values())
+    empty = sum(len(m) == 0 for m in old.values())
     assert n_matched > 1000
+    if case == "unmatched_rows":
+        assert empty >= len(rows[::5])
+    elif case == "nonfinite":
+        inf_matched = [j for j in range(len(rows))
+                       if np.isinf(q_int.numpy()[rows[j]][want_q[j][
+                           want_q[j] >= 0]]).any()]
+        assert empty > 0 and inf_matched
+    elif case == "holes":
+        assert holes[0] >= b // 4

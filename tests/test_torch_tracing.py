@@ -249,6 +249,51 @@ def test_host_copies_count_every_copy_to_the_host(cell, monkeypatch):
         s.attrs["bytes"] for s in b.spans if s.name == "host_copy")
 
 
+def test_matches_reach_the_host_as_one_block(cell):
+    """The batch's matches: two copies (the counts, then Sigma M pairs of
+    16 bytes), a mapping of every answered row in row order that survives
+    the engine's merge and the benchmark's `check.keep`, and the counter
+    ``matches.pairs_out``."""
+    from benchmark import check
+
+    batch = types.SimpleNamespace(**vars(cell.pool[0]))
+    batch.prec = batch.prec.copy()
+    batch.prec[7] = 5000.0  # no library row in its window: no answer
+    with profiler.tracing():
+        out = cell.search(batch, {})
+    (b,) = profiler.take()
+    best, _, _, matches = out
+    rows = np.nonzero(best >= 0)[0]
+    assert best[7] == -1 and len(rows) == N_Q - 1
+    assert list(matches) == rows.tolist() and len(matches) == len(rows)
+    assert 7 not in matches and matches.get(7) is None
+    pairs = sum(len(matches[r]) for r in rows)
+    assert b.counters["matches.pairs_out"] == pairs > N_Q
+    i = [s.name for s in b.spans].index("matches")
+    copied = [s.attrs["bytes"] for s in b.spans
+              if s.name == "host_copy" and s.parent == i]
+    assert copied == [4 * len(rows), 16 * pairs]
+    # The engine's merge of a part's rows at offset `lo`.
+    lo = 4096
+    merged = {}
+    merged.update({row + lo: m for row, m in matches.items()})
+    assert list(merged) == (rows + lo).tolist()
+    for r in rows:
+        m = merged[int(r) + lo]
+        assert m.dtype == np.int64 and m.ndim == 2 and m.shape[1] == 2
+        assert m.flags.c_contiguous
+        np.testing.assert_array_equal(m, matches[r])
+    # The benchmark's check keeps answers through `.get` and np.asarray.
+    answers = []
+    kept = [0, 7, 31, N_Q - 1]
+    check.keep(answers, out, 0, np.asarray(kept))
+    assert [a.row for a in answers] == kept
+    for a in answers:
+        want = matches[a.row] if a.row != 7 else np.zeros((0, 2))
+        np.testing.assert_array_equal(a.matches, want)
+        assert a.matches.shape == (len(want), 2)
+
+
 def test_select_counts_its_regime_and_spans_its_steps(cell, monkeypatch):
     monkeypatch.setattr(ivf, "_FULLSCAN_TRANSIENT", 0)
     with profiler.tracing():
